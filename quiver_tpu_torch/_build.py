@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with ctypes. The build runs at first use,
+into ``quiver_tpu_torch/_build/<hash>/`` (git-ignored), keyed by a hash of
+the sources and flags, so a changed source rebuilds and an unchanged one
+loads the library already built. Nothing here runs at import time.
+
+Run ``python -m quiver_tpu_torch._build`` to build ahead of use; it prints
+the library path and the build seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+LIB_NAME = "libquiver_tpu_torch_kernels.so"
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = []
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def build(verbose: bool = False) -> tuple[Path, float]:
+    """(library path, build seconds); 0 seconds when already built."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build to a temporary name, then rename: concurrent build processes never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built if needed and bound (argtypes set)."""
+    from quiver_tpu_torch.ops.ivf_cuda import bind
+
+    path, _ = build()
+    return bind(ctypes.CDLL(str(path)))
+
+
+if __name__ == "__main__":
+    path, secs = build(verbose=True)
+    print(f"built {path} in {secs:.1f} s")

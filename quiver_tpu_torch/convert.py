@@ -1,0 +1,63 @@
+"""Carry state from the JAX package into the port.
+
+The JAX package's state reaches this module as numpy arrays (``np.asarray``
+of its device arrays, or its ``export_topology()`` dict). Two routes:
+
+* :func:`ivf_arrays_from_numpy` turns the ``ivf_query`` operands into
+  tensors on a device, so both packages' query functions run on identical
+  block arrays;
+* an index: ``IVFIndex.import_topology(jax_index.export_topology(), remap)``
+  on a port store holding the same ids lays out the same blocks.
+
+One trap: ``np.asarray`` of a JAX bf16 array gives an ``ml_dtypes.bfloat16``
+array, which ``torch.from_numpy`` rejects. It crosses as its int16 bit
+pattern (:func:`bf16_to_torch`), bit-exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def bf16_to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """A numpy bf16 array (``ml_dtypes.bfloat16``) as a torch bf16 tensor
+    with the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name != "bfloat16":
+        raise TypeError(f"expected a bfloat16 array, got {a.dtype}")
+    bits = torch.from_numpy(a.view(np.int16).copy())
+    return bits.view(torch.bfloat16).to(device)
+
+
+def _blocks_to_torch(blocks_t: np.ndarray, device) -> torch.Tensor:
+    if blocks_t.dtype.name == "bfloat16":
+        return bf16_to_torch(blocks_t, device)
+    return torch.tensor(np.asarray(blocks_t, np.float32), device=device).to(
+        torch.bfloat16
+    )
+
+
+def ivf_arrays_from_numpy(
+    centroids, cent_norms_sq, blocks_t, block_slot, block_rns, block_inv,
+    block_keep, store_vectors, *, device,
+):
+    """The ``ivf_query`` operands after ``q``, as tensors on ``device`` in
+    ``ivf_query``'s positional order: (centroids f32, cent_norms_sq f32,
+    blocks_t bf16, block_slot i32, block_rns f32, block_inv f32,
+    block_keep bool, store_vectors f32). ``blocks_t`` may be bf16 (carried
+    bit-exact) or f32 (rounded to nearest even, as JAX's astype does)."""
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return (
+        f32(centroids),
+        f32(cent_norms_sq),
+        _blocks_to_torch(np.asarray(blocks_t), device),
+        torch.tensor(np.asarray(block_slot, np.int32), device=device),
+        f32(block_rns),
+        f32(block_inv),
+        torch.tensor(np.asarray(block_keep, bool), device=device),
+        f32(store_vectors),
+    )

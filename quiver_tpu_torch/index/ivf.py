@@ -1,0 +1,580 @@
+"""IVF-Flat engine — k-means partitioned corpus, block-pruned search
+(PyTorch port of ``quiver_tpu/index/ivf.py``, its read path).
+
+Score only the top-``n_probe`` clusters per query, as one grouped pass over
+uniformly padded cluster blocks of residuals (``ops/ivf_kernels.py``), then
+rescore the winners exactly in f32 or derive their distances from the
+scores. Recall is a direct function of ``n_probe``.
+
+Index state is plain tensors on the store's device, as in the reference
+engine: centroids, the bf16 residual blocks ``[K, d, Cmax]``, the slot map,
+residual norms, inverse norms and the keep mask. Deletes of the layout are
+keep-bit tombstones (:meth:`_vacate_slots`); rows outside the blocks sit in
+an exactly scanned overflow set that is merged into every answer.
+
+This slice ports the build and the query. Still to come, each raising
+``NotImplementedError`` with its ROADMAP.md item: the write path
+(``on_insert``/``on_update``/``on_delete``), maintenance (``refresh``,
+background rebuilds), the n_probe tuner (``tune_n_probe`` and a
+``recall_target``), and ``formulation="einsum"``.
+
+Reference workarounds not ported, because their cause is absent here:
+
+* the host fetch helpers (``utils/transfer.py``; ``ivf.py:1709,1751,1778``)
+  — results come back with one ``.cpu()``;
+* the XLA persistent compile cache (``quiver_tpu/__init__.py:30-59``);
+* ``maint_pace_s`` pacing and the chunked layout programs
+  (``ivf.py:199-260,362-372``) — the layout is one torch pass
+  (:func:`_layout_dev`);
+* the pow2 batch padding of ``search_slots`` (``ivf.py:1684-1692``) and the
+  pow2 padding of the overflow scan (``ivf.py:1769-1776``): PyTorch runs
+  eagerly and compiles nothing per shape;
+* ``compute_dtype``: blocks are bf16, the only dtype the kernel takes;
+* ``fused_kg`` (``IVFConfig``): the CUDA kernel has no counterpart to the
+  Pallas grid's cluster grouping and ignores it.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from quiver_tpu_torch.core.store import VectorStore
+from quiver_tpu_torch.index.exact import ExactIndex
+from quiver_tpu_torch.ops.distance import pairwise_distance
+from quiver_tpu_torch.ops.ivf_kernels import (
+    POS_BITS,
+    R_WIN,
+    WIN,
+    balance_assignment,
+    ivf_query,
+    split_oversized,
+    train_kmeans,
+)
+from quiver_tpu_torch.ops.scan import MASKED_DIST, negative_rerank
+from quiver_tpu_torch.types import DistanceType
+
+
+def _pow2(n: int, lo: int = 8) -> int:
+    c = lo
+    while c < n:
+        c *= 2
+    return c
+
+
+def _cmax_shape(want: float) -> int:
+    """Block width: a multiple of 128 (whole 128-column kernel slabs);
+    small corpora keep a pow2 below 128."""
+    w = int(np.ceil(want))
+    if w >= 128:
+        return (w + 127) // 128 * 128
+    return _pow2(w, lo=8)
+
+
+def _not_yet(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to quiver_tpu_torch yet (ROADMAP.md {item})"
+    )
+
+
+def _merge_rows(d1, i1, d2, i2, k):
+    """Merge two sorted candidate rows, dedup by id, keep k smallest
+    (copied from ``quiver_tpu/index/hnsw.py:933-947``)."""
+    seen = {}
+    for d, i in list(zip(d1, i1)) + list(zip(d2, i2)):
+        i = int(i)
+        if i >= 0 and (i not in seen or d < seen[i]):
+            seen[i] = float(d)
+    items = sorted(seen.items(), key=lambda kv: kv[1])[:k]
+    out_d = np.full(k, MASKED_DIST, np.float32)
+    out_i = np.full(k, -1, np.int32)
+    for j, (i, d) in enumerate(items):
+        out_d[j] = d
+        out_i[j] = i
+    return out_d, out_i
+
+
+def _layout_dev(block_slot, vectors, norms_sq, cents):
+    """Block layout in one pass on the device: gather every placed row
+    from the store's device copy and form the block arrays. Returns
+    (blocks_t bf16[K, d, Cmax], rns f32[K, Cmax], inv f32[K, Cmax],
+    keep bool[K, Cmax])."""
+    keep = block_slot >= 0
+    safe = block_slot.clamp_min(0).long()
+    resid = torch.where(keep[..., None], vectors[safe] - cents[:, None, :], 0.0)
+    rns = torch.sum(resid * resid, dim=2)
+    ns = torch.where(keep, norms_sq[safe], 0.0)
+    inv = torch.where(ns > 0, torch.rsqrt(torch.clamp(ns, min=1e-30)), 0.0)
+    blocks_t = resid.transpose(1, 2).to(torch.bfloat16).contiguous()
+    return blocks_t, rns, inv, keep
+
+
+def _overflow_topk(q, slots, vectors, norms_sq, *, metric, k):
+    """Exactly score an overflow slot list against a query batch and keep
+    the per-query top-k, on the device."""
+    d = pairwise_distance(q, vectors[slots], metric, v_norms_sq=norms_sq[slots])
+    out_d, pos = torch.topk(d, min(k, slots.shape[0]), dim=1, largest=False)
+    return out_d, torch.where(out_d >= MASKED_DIST, -1, slots[pos])
+
+
+@dataclass
+class IVFConfig:
+    """Same fields and defaults as ``quiver_tpu.index.ivf.IVFConfig``, so
+    configs carry across. Fields of parts not ported yet are kept and
+    documented where they are read."""
+
+    #: clusters; None = auto (pow2 nearest sqrt(N) at build time)
+    n_clusters: Optional[int] = None
+    #: clusters probed per query — THE recall/speed knob
+    n_probe: int = 32
+    #: per-cluster row capacity factor over the mean (oversized clusters split)
+    cmax_factor: float = 1.25
+    kmeans_iters: int = 10
+    #: reference: recall target of approx_max_k; the port's top-k is exact
+    #: and ignores it
+    probe_approx: Optional[float] = 0.98
+    #: set = packed windowed top-P probe selection (ops/ivf_kernels.py);
+    #: None = exact
+    probe_sel_approx: Optional[float] = 0.99
+    #: survivors through the low-precision stage, as a multiple of k
+    oversample: int = 4
+    #: reference einsum formulation only (not ported)
+    q_cap_factor: int = 4
+    #: "auto" resolves to "pairs"; "fused" = the reference's fused stage
+    #: shape (128-lane windows, top 4); "einsum" is not ported
+    formulation: str = "auto"
+    #: window width of the pairs stage's top-2 reduce
+    seg_width: Optional[int] = 32
+    #: reference Pallas grid grouping; the CUDA kernel ignores it
+    fused_kg: int = 4
+    #: exact f32 re-rank of the survivors (True) vs score-derived distances
+    rescore: bool = True
+    #: below a quarter of this many rows the exact scan serves queries
+    build_threshold: int = 8192
+    #: write-path and maintenance knobs (not ported yet; kept so configs
+    #: carry across)
+    rebuild_growth: float = 0.3
+    retrain_growth: float = 1.0
+    refresh_drift: float = 2.0
+    insert_drift: Optional[float] = 6.0
+    drift_rebuild: float = 0.03
+    background_maintenance: bool = True
+    maint_pace_s: float = 0.05
+    #: n_probe tuner (not ported yet: anything but None raises at build)
+    recall_target: Optional[float] = None
+    recall_sample: int = 1024
+    recall_jitter: float = 0.1
+    n_probe_max: int = 64
+    seed: int = 42
+
+
+class IVFIndex:
+    """Inverted-file engine over a shared VectorStore, on the store's
+    device."""
+
+    def __init__(self, store: VectorStore, *, config: Optional[IVFConfig] = None):
+        self.store = store
+        self.device = store.device
+        self.config = config or IVFConfig()
+        self._exact = ExactIndex(store)
+        #: bool[K] — False rows are reserved cluster ids (None = all live)
+        self._cluster_live = None
+        self._built = False
+        self._centroids = None  # np f32[K, d]
+        self._cent_dev = None  # (centroids, cent_norms_sq) on the device
+        self._blocks_t = None  # bf16[K, d, Cmax] residuals
+        self._block_slot = None  # i32[K, Cmax]
+        self._block_ns = None  # f32[K, Cmax] residual norms
+        self._block_inv = None  # f32[K, Cmax] 1/|v| full-vector
+        self._block_keep = None  # bool[K, Cmax] occupied & live
+        self._keep_pending: list[tuple[int, int, bool]] = []  # lazy scatters
+        self._slot_pos = None  # np i64[cap, 2] slot -> (cluster, pos), -1
+        self._overflow: set[int] = set()
+        self._cmax = None
+        self._lock = threading.RLock()
+
+    @property
+    def n_clusters(self) -> Optional[int]:
+        return None if self._centroids is None else len(self._centroids)
+
+    # ---------------------------------------------------------------- build
+
+    def _auto_k(self, n_live: int) -> int:
+        want = int(np.sqrt(n_live))
+        return max(8, min(_pow2(want), n_live // 8))
+
+    def build(self, k: Optional[int] = None) -> None:
+        """(Re)train k-means over live rows and lay out the block tensor."""
+        if self.config.recall_target is not None:
+            raise _not_yet("recall_target (the n_probe tuner)", "queue 1, item 5")
+        with self._lock:
+            c = self.config
+            valid = self.store._np_valid
+            n_live = int(valid.sum())
+            if n_live < 16:
+                return
+            K = k or c.n_clusters or self._auto_k(n_live)
+            K = min(K, n_live)
+            dev = self.store.device_view()
+            cents, assign = train_kmeans(
+                self.store._np_vectors, valid, K, n_iters=c.kmeans_iters,
+                seed=c.seed, vectors_dev=dev.vectors, valid_dev=dev.valid,
+            )
+            # cap clusters by SPLITTING, never by spilling rows far away
+            cmax = _cmax_shape(c.cmax_factor * max(n_live, 1) / K)
+            cents, assign = split_oversized(
+                self.store._np_vectors, cents, np.asarray(assign, np.int64),
+                cmax, seed=c.seed,
+            )
+            # de-correlate cluster ids from space, so the windowed probe
+            # selection's 128-id windows are a random partition of space
+            perm = np.random.default_rng(c.seed + 1).permutation(len(cents))
+            cents = cents[np.argsort(perm)]
+            assign = np.where(assign >= 0, perm[assign], -1)
+            cents, assign = self._prepare_clusters(cents, assign)
+            self._centroids = cents
+            self._cent_dev = self._put_cent_dev(cents)
+            self._layout_from_assign(assign, len(cents), cmax=cmax)
+
+    def tune_n_probe(self, k: int = 10) -> Optional[int]:
+        raise _not_yet("tune_n_probe", "queue 1, item 5")
+
+    def _prepare_clusters(self, cents, assign):
+        """Hook: remap (centroids, assignment) into the engine's cluster id
+        space before layout (identity on one device)."""
+        self._cluster_live = None
+        return cents, assign
+
+    def _put_cent_dev(self, cents: np.ndarray):
+        cent = torch.from_numpy(np.ascontiguousarray(cents, np.float32)).to(self.device)
+        return cent, torch.sum(cent * cent, dim=1)
+
+    def _centroid_scores(self, v: torch.Tensor) -> torch.Tensor:
+        """Nearest-centroid affine scores 2 v.c - |c|^2, reserved cluster
+        ids masked to -inf."""
+        cent, c_ns = self._cent_dev
+        scores = 2.0 * (v @ cent.T) - c_ns[None, :]
+        if self._cluster_live is not None:
+            live = torch.as_tensor(self._cluster_live, device=self.device)
+            scores = torch.where(live[None, :], scores, -torch.inf)
+        return scores
+
+    def _assign_scores(self, vectors: np.ndarray) -> np.ndarray:
+        """Nearest-centroid affine scores for host rows (balance pass)."""
+        v = torch.as_tensor(np.asarray(vectors, np.float32), device=self.device)
+        return self._centroid_scores(v).cpu().numpy()
+
+    def _assign_nearest(self, vectors: np.ndarray, chunk: int = 1 << 16):
+        """Nearest live-centroid id per host row, row-chunked so the
+        [chunk, K] score tensor stays bounded."""
+        out = np.empty(len(vectors), np.int64)
+        for at in range(0, len(vectors), chunk):
+            v = torch.as_tensor(
+                np.asarray(vectors[at: at + chunk], np.float32), device=self.device
+            )
+            out[at: at + len(v)] = (
+                torch.argmax(self._centroid_scores(v), dim=1).cpu().numpy()
+            )
+        return out
+
+    # ---------------------------------------------------- not yet ported
+
+    def on_insert(self, slots: np.ndarray, vectors: np.ndarray) -> None:
+        raise _not_yet("IVFIndex.on_insert (the write path)", "queue 1, item 7")
+
+    def on_update(self, slots: np.ndarray, vectors: np.ndarray) -> None:
+        raise _not_yet("IVFIndex.on_update (the write path)", "queue 1, item 7")
+
+    def on_delete(self, slots: np.ndarray) -> None:
+        raise _not_yet("IVFIndex.on_delete (the write path)", "queue 1, item 7")
+
+    def refresh(self) -> None:
+        raise _not_yet("IVFIndex.refresh (maintenance)", "queue 1, item 7")
+
+    def wait_maintenance(self, timeout: Optional[float] = None) -> bool:
+        raise _not_yet("background maintenance", "queue 1, item 7")
+
+    # ------------------------------------------------------------ keep mask
+
+    def _vacate_slots(self, slots: np.ndarray) -> None:
+        """Remove slots from the block layout: keep-bit tombstones for the
+        positions held (applied lazily by :meth:`_keep_dev`) plus map and
+        overflow resets. Caller holds the engine lock."""
+        slots = np.asarray(slots, np.int64)
+        pos = self._slot_pos[slots]
+        known = pos[:, 0] >= 0
+        if known.any():
+            self._keep_pending.extend(
+                (int(r), int(p), False) for r, p in pos[known]
+            )
+        self._slot_pos[slots] = -1
+        self._overflow.difference_update(int(s) for s in slots)
+
+    def _keep_dev(self):
+        """Apply pending keep-bit scatters (one scatter per query batch at
+        most). Last write wins per position. Caller holds the engine lock."""
+        if self._keep_pending:
+            last = {(r, c): v for r, c, v in self._keep_pending}
+            rows = torch.tensor([rc[0] for rc in last], dtype=torch.int64)
+            cols = torch.tensor([rc[1] for rc in last], dtype=torch.int64)
+            vals = torch.tensor(list(last.values()), dtype=torch.bool)
+            self._block_keep.index_put_(
+                (rows.to(self.device), cols.to(self.device)), vals.to(self.device)
+            )
+            self._keep_pending = []
+        return self._block_keep
+
+    # ---------------------------------------------------------------- query
+
+    def search_slots_device(self, queries: torch.Tensor, k: int, *, mask=None):
+        """Device serving path: f32[B, d] queries on the store's device in,
+        (dist f32[B, k], slot i64[B, k]) tensors out. The overflow merge,
+        under-fill supplement and negative rerank of :meth:`search_slots`
+        are host-side layers on top of this. ``mask``: optional bool[cap]
+        slot mask on the device."""
+        with self._lock:
+            if not self._built:
+                raise RuntimeError("IVF index is not built")
+            if queries.device != self.device:
+                raise ValueError(
+                    f"queries on {queries.device}, index on {self.device}"
+                )
+            dev = self.store.device_view()
+            block_keep = self._keep_dev()
+            if mask is not None:
+                block_keep = block_keep & mask[self._block_slot.clamp_min(0).long()]
+            cent, c_ns = self._cent_dev
+            K = cent.shape[0]
+            return ivf_query(
+                queries, cent, c_ns,
+                self._blocks_t, self._block_slot, self._block_ns,
+                self._block_inv, block_keep, dev.vectors,
+                metric=self.store.metric, k=k,
+                n_probe=min(self.config.n_probe, K),
+                oversample=self.config.oversample,
+                probe_sel_approx=self.config.probe_sel_approx,
+                formulation=self._resolve_formulation(k),
+                seg_width=self.config.seg_width,
+                rescore=self.config.rescore,
+            )
+
+    def _resolve_formulation(self, k: int) -> str:
+        """"pairs" | "fused"; "auto" resolves to "pairs"."""
+        form = self.config.formulation
+        if form == "einsum":
+            raise _not_yet('formulation="einsum"', "queue 1, item 2")
+        if form in ("auto", "pairs"):
+            return "pairs"
+        if form != "fused":
+            raise ValueError(f"unknown formulation {form!r}")
+        Cmax = int(self._block_slot.shape[1])
+        S = Cmax // WIN
+        if not (
+            Cmax % WIN == 0 and R_WIN * S >= k and R_WIN * S <= 128
+            and Cmax <= (1 << POS_BITS)
+            and self.store.metric in (
+                DistanceType.EUCLIDEAN, DistanceType.SQUARED_EUCLIDEAN,
+                DistanceType.DOT_PRODUCT,
+            )
+        ):
+            raise ValueError(
+                "fused formulation unsupported here: needs euclidean/"
+                "dot metric, Cmax % 128 == 0, 4*(Cmax//128) in "
+                "[k, 128], Cmax <= 2048"
+            )
+        return "fused"
+
+    def search_slots(
+        self,
+        queries,
+        k: int,
+        *,
+        mask=None,
+        negative=None,
+        negative_weight: float = 0.5,
+        exact: bool = False,
+    ):
+        """Batched top-k over slots: (dist f32[B, k], slots i64[B, k])
+        numpy arrays, -1 for empty. Small corpora, Manhattan, per-query
+        masks and ``exact=True`` go to the exact scan."""
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        if q.shape[0] == 0:
+            return np.zeros((0, k), np.float32), np.full((0, k), -1, np.int64)
+        per_query_mask = mask is not None and np.asarray(mask).ndim == 2
+        if (
+            exact
+            or not self._built
+            or per_query_mask
+            or self.store.metric == DistanceType.MANHATTAN
+            or self.store.size < self.config.build_threshold // 4
+        ):
+            return self._exact.search_slots(
+                q, k, mask=mask, negative=negative,
+                negative_weight=negative_weight,
+            )
+        retrieve_k = k if negative is None else min(max(2 * k, 30), self.store.size)
+        with self._lock:
+            dist, idx = self.search_slots_device(
+                torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
+                retrieve_k,
+                mask=None if mask is None else torch.as_tensor(
+                    np.asarray(mask, bool), device=self.device
+                ),
+            )
+            # snapshot the overflow set with the dispatch
+            overflow = sorted(self._overflow) if self._overflow else None
+        dist, idx = dist.cpu().numpy(), idx.cpu().numpy()
+        if overflow:
+            slot_keep = self.store._np_valid.copy()
+            if mask is not None:
+                slot_keep &= np.asarray(mask, bool)
+            dist, idx = self._merge_overflow(q, dist, idx, slot_keep, retrieve_k, overflow)
+        if negative is not None:
+            dist, idx = self._rerank_negative(q, dist, idx, negative, negative_weight, k)
+        dist, idx = dist[:, :k], idx[:, :k]
+        # under-fill supplement: probed clusters may not hold k live rows
+        found = (idx >= 0).sum(axis=1)
+        want = min(k, self.store.size)
+        if (found < want).any():
+            e_dist, e_idx = self._exact.search_slots(
+                q, k, mask=mask, negative=negative,
+                negative_weight=negative_weight,
+            )
+            dist, idx = dist.copy(), idx.copy()
+            for b in np.flatnonzero(found < want):
+                dist[b], idx[b] = _merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
+        return dist, idx
+
+    def _rerank_negative(self, q, dist, idx, negative, weight, k):
+        """Negative-example rerank of retrieved candidates
+        (d_q - w*d_neg)."""
+        neg = np.asarray(negative, np.float32)
+        if neg.ndim == 1:
+            neg = np.broadcast_to(neg[None, :], q.shape)
+        d2, i2 = negative_rerank(
+            torch.as_tensor(dist, device=self.device),
+            torch.as_tensor(idx, device=self.device),
+            self.store.device_view().vectors,
+            torch.as_tensor(np.ascontiguousarray(neg), device=self.device),
+            metric=self.store.metric, k=k, weight=weight,
+        )
+        return d2.cpu().numpy(), i2.cpu().numpy()
+
+    def _merge_overflow(self, q, dist, idx, keep, k, overflow):
+        """Exactly score the overflow rows (rows outside the block layout)
+        and merge; ``overflow`` is the sorted slot list snapshotted at
+        dispatch. Overflow slots are absent from the blocks, so the merge
+        needs no dedup."""
+        slots = np.asarray(overflow, np.int64)
+        slots = slots[np.asarray(keep)[slots]]
+        if not len(slots):
+            return dist, idx
+        W = dist.shape[1]
+        view = self.store.device_view()
+        d_o, i_o = _overflow_topk(
+            torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
+            torch.from_numpy(slots).to(self.device),
+            view.vectors, view.norms_sq, metric=self.store.metric, k=W,
+        )
+        cd = np.concatenate([dist, d_o.cpu().numpy()], axis=1)
+        ci = np.concatenate([idx, i_o.cpu().numpy().astype(idx.dtype)], axis=1)
+        order = np.argsort(cd, axis=1, kind="stable")[:, :W]
+        return (
+            np.take_along_axis(cd, order, axis=1),
+            np.take_along_axis(ci, order, axis=1),
+        )
+
+    # ---------------------------------------------------------- persistence
+
+    def export_topology(self) -> Optional[dict]:
+        """Sidecar: centroids + assignment (slot-addressed), so a load
+        skips k-means (the block layout is rebuilt deterministically).
+        Same format as the reference engine's."""
+        with self._lock:
+            if not self._built:
+                return None
+            assign = np.full(self.store.capacity, -1, np.int64)
+            live = self._slot_pos[:, 0] >= 0
+            assign[live] = self._slot_pos[live, 0]
+            return {
+                "format_version": np.int64(1),
+                "kind": np.bytes_(b"ivf"),
+                "centroids": self._centroids.copy(),
+                "assign": assign,
+                "cmax": np.int64(self._cmax),
+            }
+
+    def import_topology(self, data: dict, slot_remap: np.ndarray) -> None:
+        """Install an exported topology (this engine's or the reference
+        engine's): ``slot_remap`` maps the exporter's slots to this store's
+        (-1 = gone); live rows the sidecar does not know go to their
+        nearest centroid."""
+        kind = data.get("kind")
+        if kind is not None and bytes(kind) != b"ivf":
+            return
+        with self._lock:
+            cents = np.asarray(data["centroids"], np.float32)
+            K = len(cents)
+            old_assign = np.asarray(data["assign"], np.int64)
+            assign = np.full(self.store.capacity, -1, np.int64)
+            old_slots = np.flatnonzero(old_assign >= 0)
+            new_slots = slot_remap[old_slots]
+            ok = new_slots >= 0
+            assign[new_slots[ok]] = old_assign[old_slots[ok]]
+            self._centroids = cents
+            self._cent_dev = self._put_cent_dev(cents)
+            valid = self.store._np_valid
+            unknown = np.flatnonzero(valid & (assign < 0))
+            if len(unknown):
+                assign[unknown] = self._assign_nearest(self.store._np_vectors[unknown])
+            cmax = data.get("cmax")
+            self._layout_from_assign(assign, K, cmax=None if cmax is None else int(cmax))
+
+    def _layout_from_assign(
+        self, assign: np.ndarray, K: int, cmax: Optional[int] = None
+    ) -> None:
+        c = self.config
+        vectors = self.store._np_vectors
+        n_live = int((assign >= 0).sum())
+        if n_live == 0:
+            self._built = False
+            return
+        if cmax is None:  # pre-split sidecars: derive from K (may spill)
+            cmax = _cmax_shape(c.cmax_factor * max(n_live, 1) / K)
+        counts = np.bincount(assign[assign >= 0], minlength=K)
+        if counts.max(initial=0) > cmax:
+
+            def scores_fn(rows):
+                return self._assign_scores(vectors[rows])
+
+            assign = balance_assignment(assign, scores_fn, cmax, K)
+        block_slot = np.full((K, cmax), -1, np.int32)
+        slot_pos = np.full((self.store.capacity, 2), -1, np.int64)
+        order = np.argsort(assign, kind="stable")
+        order = order[assign[order] >= 0]
+        sorted_c = assign[order]
+        fill = np.bincount(sorted_c, minlength=K)
+        first = np.concatenate([[0], np.cumsum(fill)[:-1]])
+        pos_in = np.arange(len(order)) - first[sorted_c]
+        block_slot[sorted_c, pos_in] = order
+        slot_pos[order, 0] = sorted_c
+        slot_pos[order, 1] = pos_in
+        # blocks hold RESIDUALS v - c_k, gathered from the store's device
+        # copy: only the [K, cmax] slot map uploads
+        view = self.store.device_view()
+        slot_dev = torch.from_numpy(block_slot).to(self.device)
+        (
+            self._blocks_t, self._block_ns, self._block_inv, self._block_keep,
+        ) = _layout_dev(slot_dev, view.vectors, view.norms_sq, self._cent_dev[0])
+        self._block_slot = slot_dev
+        self._keep_pending = []
+        self._slot_pos = slot_pos
+        self._overflow = set()
+        self._built = True
+        self._cmax = int(cmax)

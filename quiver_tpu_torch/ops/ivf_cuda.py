@@ -1,0 +1,294 @@
+"""IVF candidate-stage kernel ``block_topw``: grouped block scoring plus a
+windowed top-R, in one CUDA kernel (``csrc/ivf_block_topw.cu``).
+
+It replaces both candidate formulations of the JAX package:
+
+* the Pallas kernel ``quiver_tpu/ops/ivf_pallas.py::fused_block_topw``
+  (``formulation="fused"``: windows of 128 lanes, top 4 per window, 11
+  position bits, ``KEY_MIN`` sentinel);
+* the XLA chain ``ragged_dot`` + bias epilogue + packed top-2 per 32-lane
+  window of ``quiver_tpu/ops/ivf_kernels.py::_pairs_candidates``
+  (``ivf_kernels.py:629-672``; ``formulation="pairs"``: W=32, R=2, 5
+  position bits, ``_mask_key(32)`` sentinel);
+* that function's per-pair top-R branch (``ivf_kernels.py:716-759``), as
+  one window spanning the row (W=Cmax, R <= 32 on CUDA, ``KEY_MIN``
+  sentinel). Unlike the reference's f32 top-k, the packed keys quantize the
+  score by ceil(log2(Cmax)) bits.
+
+For every (query, probe) pair, grouped by cluster through the CSR ``starts``
+over the stably sorted pairs, it scores the pair's query (minus the
+centroid, for L2) against the cluster's bf16 block with f32 sums, applies
+the epilogue ``s = (scale*dot + row_add[pair]) * col_mul[c, j] +
+col_add[c, j]``, packs (score | position) into a monotone int32 key, keeps
+the top R keys of every W-lane window and writes them to the pair's
+ORIGINAL row, so no regroup by inverse permutation is needed.
+
+``block_topw`` dispatches on the device of its inputs: CPU tensors take the
+plain PyTorch version ``block_topw_reference`` (bf16-rounded operands, f32
+products and sums, the same packing); CUDA tensors launch the kernel or
+raise. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from quiver_tpu_torch.ops.scan import NEG_BIG
+
+KEY_MIN = int(np.iinfo(np.int32).min)
+_INT_MASK = 0x7FFFFFFF
+
+#: (W, R) pairs the CUDA library instantiates (csrc/ivf_block_topw.cu):
+#: (W, 2) serves formulation="pairs" at seg_width W, (128, 4)
+#: formulation="fused". Any other W equal to Cmax runs in row mode (one
+#: window, R <= 32).
+CUDA_VARIANTS = ((32, 2), (64, 2), (128, 2), (128, 4))
+ROW_MODE = "row"
+
+#: Launches of block_topw in this process by (W, R), or ROW_MODE for the
+#: row mode, counted where the kernel is launched and nowhere else (the CPU
+#: twin does not count).
+launch_counts = {v: 0 for v in (*CUDA_VARIANTS, ROW_MODE)}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ------------------------------------------------------------------ keys
+
+
+def _to_key(s: torch.Tensor) -> torch.Tensor:
+    """f32 -> monotone i32: an order-preserving involution (nonnegative
+    floats map to themselves bitwise; negative floats flip their magnitude
+    bits), so integer max == float max."""
+    b = s.contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & _INT_MASK)
+
+
+def _from_key(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_to_key` (it is an involution)."""
+    b = key ^ ((key >> 31) & _INT_MASK)
+    return b.contiguous().view(torch.float32)
+
+
+def _pack_lane(s: torch.Tensor, lane_mask: int) -> torch.Tensor:
+    """f32 scores -> monotone i32 keys whose low bits carry the position
+    along the trailing axis, so one max yields score AND position."""
+    key = _to_key(s)
+    lane = torch.arange(s.shape[-1], dtype=torch.int32, device=s.device)
+    return (key & ~lane_mask) | (lane & lane_mask)
+
+
+def _mask_key(w: int) -> np.int32:
+    """Packed key of NEG_BIG with zero lane bits: the masked-entry
+    sentinel of the W-lane windowed reduce."""
+    b = np.float32(NEG_BIG).view(np.int32).item()
+    return np.int32((b ^ ((b >> 31) & 0x7FFFFFFF)) & ~(w - 1))
+
+
+def unpack_keys(acc: torch.Tensor, pos_bits: int = 11):
+    """(score f32, pos i32, valid bool) from packed keys; KEY_MIN lanes
+    -> (-inf, ., False)."""
+    pm = (1 << pos_bits) - 1
+    score = _from_key(acc & ~pm)
+    valid = acc != KEY_MIN
+    return torch.where(valid, score, -torch.inf), acc & pm, valid
+
+
+# ------------------------------------------------------------ plain twin
+
+
+def pair_scores_reference(
+    q, centroids, starts, order, blocks_t, *, P, scale, col_add,
+    row_add=None, col_mul=None, sub_cent,
+):
+    """f32[BP, Cmax] epilogue scores of every pair, in SORTED pair order
+    (row i is pair ``order[i]``): bf16-rounded operands, f32 products and
+    sums. Plain PyTorch; loops over the clusters on the host."""
+    K, d, Cmax = blocks_t.shape
+    BP = order.shape[0]
+    counts = starts[1:] - starts[:-1]
+    sorted_c = torch.repeat_interleave(
+        torch.arange(K, device=q.device), counts.long(), output_size=BP
+    )
+    orig = order.long()
+    qp = q[orig // P]
+    if sub_cent:
+        qp = qp - centroids[sorted_c]
+    qp = qp.to(torch.bfloat16).float()
+    dots = torch.zeros(BP, Cmax, dtype=torch.float32, device=q.device)
+    bounds = starts.tolist()
+    for c in range(K):
+        lo, hi = bounds[c], bounds[c + 1]
+        if hi > lo:
+            dots[lo:hi] = qp[lo:hi] @ blocks_t[c].float()
+    s = scale * dots
+    if row_add is not None:
+        s = s + row_add[orig][:, None]
+    if col_mul is not None:
+        s = s * col_mul[sorted_c]
+    return s + col_add[sorted_c]
+
+
+def block_topw_reference(
+    q, centroids, starts, order, blocks_t, *, P, scale, col_add,
+    row_add=None, col_mul=None, sub_cent, W, R, pos_bits, sentinel,
+):
+    """Plain PyTorch version of the kernel: i32[BP, R*S] winner keys
+    (S = Cmax // W) in original pair order, lane ``w*R + r`` holding the
+    r-th best key of window w."""
+    Cmax = blocks_t.shape[2]
+    BP = order.shape[0]
+    S = Cmax // W
+    s = pair_scores_reference(
+        q, centroids, starts, order, blocks_t, P=P, scale=scale,
+        col_add=col_add, row_add=row_add, col_mul=col_mul, sub_cent=sub_cent,
+    )
+    keys = _pack_lane(s, (1 << pos_bits) - 1).reshape(BP, S, W)
+    sent = torch.tensor(int(sentinel), dtype=torch.int32, device=q.device)
+    wins = []
+    for _ in range(R):
+        m = keys.max(dim=2).values
+        wins.append(m)
+        keys = torch.where(keys == m[:, :, None], sent, keys)
+    out = torch.empty(BP, S * R, dtype=torch.int32, device=q.device)
+    out[order.long()] = torch.stack(wins, dim=2).reshape(BP, S * R)
+    return out
+
+
+# --------------------------------------------------------------- wrapper
+
+
+def _check(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"block_topw: {name} must be a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"block_topw: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"block_topw: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"block_topw: {name} on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"block_topw: {name} must be contiguous")
+
+
+def block_topw(
+    q, centroids, starts, order, blocks_t, *, P, scale, col_add,
+    row_add=None, col_mul=None, sub_cent, W, R, pos_bits, sentinel,
+):
+    """Winner keys i32[BP, R*(Cmax//W)] of every (query, probe) pair.
+
+    Args:
+      q: f32[B, d] queries; centroids: f32[K, d].
+      starts: i32[K+1] CSR offsets of each cluster's run in the stably
+        sorted pair list; order: i32[B*P] original pair index (query-major,
+        ``b*P + j``) of each sorted pair.
+      blocks_t: bf16[K, d, Cmax] residual blocks.
+      col_add: f32[K, Cmax]; row_add: optional f32[B*P] per original pair;
+        col_mul: optional f32[K, Cmax] (the epilogue in the module doc).
+      sub_cent: subtract the pair's centroid from the query (f32) before
+        rounding it to bf16.
+      W, R: window width (a power of two dividing Cmax, or Cmax itself:
+        one window per row) and winners kept per window; pos_bits: low key
+        bits replaced by the block column (W <= 2**pos_bits); sentinel:
+        the key a removed winner is replaced by.
+    """
+    dev = q.device
+    B, d = q.shape
+    K, _, Cmax = blocks_t.shape
+    BP = B * P
+    _check("q", q, torch.float32, (B, d), dev)
+    _check("centroids", centroids, torch.float32, (K, d), dev)
+    _check("starts", starts, torch.int32, (K + 1,), dev)
+    _check("order", order, torch.int32, (BP,), dev)
+    _check("blocks_t", blocks_t, torch.bfloat16, (K, d, Cmax), dev)
+    _check("col_add", col_add, torch.float32, (K, Cmax), dev)
+    if row_add is not None:
+        _check("row_add", row_add, torch.float32, (BP,), dev)
+    if col_mul is not None:
+        _check("col_mul", col_mul, torch.float32, (K, Cmax), dev)
+    if W < 1 or (W & (W - 1) and W != Cmax) or Cmax % W or not 1 <= R <= W:
+        raise ValueError(f"block_topw: bad window W={W}, R={R} for Cmax={Cmax}")
+    if not (W <= (1 << pos_bits) and 0 < pos_bits < 31):
+        raise ValueError(f"block_topw: pos_bits={pos_bits} cannot hold W={W}")
+    kw = dict(
+        P=P, scale=scale, col_add=col_add, row_add=row_add, col_mul=col_mul,
+        sub_cent=sub_cent, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel,
+    )
+    if dev.type == "cpu":
+        return block_topw_reference(q, centroids, starts, order, blocks_t, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"block_topw: unsupported device {dev}")
+    return _launch_cuda(q, centroids, starts, order, blocks_t, **kw)
+
+
+def _launch_cuda(
+    q, centroids, starts, order, blocks_t, *, P, scale, col_add, row_add,
+    col_mul, sub_cent, W, R, pos_bits, sentinel,
+):
+    from quiver_tpu_torch._build import load_library
+
+    B, d = q.shape
+    K, _, Cmax = blocks_t.shape
+    if Cmax % 8:
+        # the kernel loads block rows 8 bf16 (16 bytes) at a time
+        raise ValueError(f"block_topw: Cmax={Cmax} must be a multiple of 8 on CUDA")
+    lib = load_library()
+    if (W, R) in CUDA_VARIANTS:
+        variant, w_arg = (W, R), W
+    elif W == Cmax and R <= lib.ivf_block_topw_row_max():
+        variant, w_arg = ROW_MODE, 0
+    else:
+        raise ValueError(
+            f"block_topw: no CUDA variant for W={W}, R={R} (built: "
+            f"{CUDA_VARIANTS}, and W=Cmax with R <= 32; ROADMAP.md queue 2, A1)"
+        )
+    BP = B * P
+    tq = lib.ivf_block_topw_tile_rows()
+    # tile map without a host sync: cluster c owns tiles
+    # [tile_start[c], tile_start[c+1]); the grid is an upper bound on the
+    # tile count and surplus blocks exit
+    counts = starts[1:] - starts[:-1]
+    tile_start = torch.zeros(K + 1, dtype=torch.int32, device=q.device)
+    tile_start[1:] = torch.cumsum((counts + (tq - 1)) // tq, 0)
+    n_tiles_max = (BP + tq - 1) // tq + K
+    out = torch.empty(BP, (Cmax // W) * R, dtype=torch.int32, device=q.device)
+    err = lib.ivf_block_topw(
+        q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
+        tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
+        0 if row_add is None else row_add.data_ptr(),
+        0 if col_mul is None else col_mul.data_ptr(),
+        col_add.data_ptr(), out.data_ptr(),
+        K, d, Cmax, P, BP, n_tiles_max, float(scale), int(bool(sub_cent)),
+        w_arg, R, pos_bits, int(sentinel), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"block_topw: CUDA launch failed with cudaError {err} "
+            f"({lib.ivf_cuda_error_string(err).decode()})"
+        )
+    launch_counts[variant] += 1
+    return out
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of the kernel library (pointers and the
+    stream as c_void_p, so ctypes passes 64-bit values)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ivf_block_topw.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, ci, ci, vp,
+    ]
+    lib.ivf_block_topw.restype = ci
+    for fn in (lib.ivf_block_topw_tile_rows, lib.ivf_block_topw_row_max):
+        fn.argtypes = []
+        fn.restype = ci
+    lib.ivf_cuda_error_string.argtypes = [ci]
+    lib.ivf_cuda_error_string.restype = ctypes.c_char_p
+    return lib

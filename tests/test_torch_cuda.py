@@ -1,0 +1,117 @@
+"""Tests of the port that need a CUDA card (marker ``cuda``).
+
+They skip without a card. On the GPU machine, from the repository root
+(``--noconftest``: tests/conftest.py sets up JAX, which that machine lacks;
+this file imports no JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+The hand-written kernel is held against its plain PyTorch version on the
+card (tolerance of ``chip_smoke.compare_keys``: two packing quanta plus 1e-4
+on unpacked scores, positions equal where scores are separated), and the
+slice on the card against the slice on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from quiver_tpu_torch import IVFConfig, IVFIndex, VectorStore
+from quiver_tpu_torch.ops import ivf_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (see the module docstring)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize(
+    "variant,W,R,pos_bits,metric",
+    [(v, w, r, pb, m) for v, w, r, pb, ms in chip_smoke.VARIANTS for m in ms],
+)
+def test_block_topw_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric, P):
+    # d=48 and Cmax=384 differ from the serving shape on purpose; K=37 with
+    # B=300 leaves some clusters empty and others with several tiles
+    args, kw = chip_smoke.kernel_inputs(
+        torch, cuda, B=300, P=P, K=37, Cmax=384, d=48, metric=metric,
+        variant=variant, seed=7,
+    )
+    count_key = ivf_cuda.ROW_MODE if W == 0 else (W, R)
+    W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, 384)
+    wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
+    before = ivf_cuda.launch_counts[count_key]
+    got = ivf_cuda.block_topw(*args, **wkw)
+    assert ivf_cuda.launch_counts[count_key] == before + 1
+    want = ivf_cuda.block_topw_reference(*args, **wkw)
+    s_sorted = ivf_cuda.pair_scores_reference(*args, **kw)
+    s_orig = torch.empty_like(s_sorted)
+    s_orig[args[3].long()] = s_sorted
+    torch.cuda.synchronize()
+    chip_smoke.compare_keys(torch, got, want, s_orig, W=W, R=R, pos_bits=pos_bits)
+
+
+@pytest.mark.parametrize("k", [10, 24])
+def test_per_pair_row_mode_on_cuda_matches_cpu(cuda, k):
+    """Cmax=64 leaves 2 windows < k: ivf_query takes the per-pair top-R
+    branch, on the card through block_topw's row mode (R = max(16, k))."""
+    from quiver_tpu_torch.convert import ivf_arrays_from_numpy
+    from quiver_tpu_torch.ops.ivf_kernels import ivf_query
+
+    rng = np.random.default_rng(1)
+    K, Cmax, d = 32, 64, 16
+    ops = (rng.normal(size=(K, d)), rng.random(K), 0.3 * rng.normal(size=(K, d, Cmax)),
+           rng.permutation(K * Cmax).reshape(K, Cmax), rng.random((K, Cmax)),
+           rng.random((K, Cmax)), rng.random((K, Cmax)) > 0.05,
+           rng.normal(size=(K * Cmax, d)))
+    q = rng.normal(size=(16, d)).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        tops = ivf_arrays_from_numpy(*ops, device=dev)
+        out.append(ivf_query(torch.from_numpy(q).to(dev), *tops, metric="euclidean",
+                             k=k, n_probe=4, rescore=True))
+    assert ivf_cuda.launch_counts[ivf_cuda.ROW_MODE] > 0
+    np.testing.assert_allclose(out[1][0].cpu().numpy(), out[0][0].numpy(), rtol=1e-4, atol=1e-4)
+    assert np.mean(out[1][1].cpu().numpy() == out[0][1].numpy()) >= 0.98
+
+
+@pytest.mark.parametrize("formulation", ["pairs", "fused"])
+def test_ivf_index_on_cuda_matches_cpu(cuda, formulation):
+    rng = np.random.default_rng(0)
+    n, d = 20000, 64
+    centers = rng.normal(size=(100, d)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 100, n)] + 0.25 * rng.normal(size=(n, d))).astype(np.float32)
+    queries = (vecs[:256] + 0.1 * rng.normal(size=(256, d))).astype(np.float32)
+    cfg = dict(n_clusters=64, n_probe=4, build_threshold=256, formulation=formulation)
+    engines = []
+    for dev in ("cpu", cuda):
+        store = VectorStore(dim=d, metric="euclidean", capacity=n, device=dev)
+        store.add_batch([f"v{i}" for i in range(n)], vecs)
+        engines.append(IVFIndex(store, config=IVFConfig(**cfg)))
+    engines[0].build()
+    engines[1].import_topology(engines[0].export_topology(), np.arange(n))
+    ivf_cuda.reset_launch_counts()
+    dg, ig = engines[1].search_slots(queries, 10)
+    assert sum(ivf_cuda.launch_counts.values()) == 1
+    dc, ic = engines[0].search_slots(queries, 10)
+    np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-4)
+    assert np.mean(ig == ic) >= 0.99
+
+
+def test_block_topw_rejects_unaligned_cmax(cuda):
+    """The kernel loads block rows 16 bytes at a time: Cmax % 8 != 0 is
+    refused before any launch."""
+    args, kw = chip_smoke.kernel_inputs(
+        torch, cuda, B=8, P=1, K=4, Cmax=36, d=16, metric="euclidean",
+        variant="row", seed=3,
+    )
+    before = dict(ivf_cuda.launch_counts)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ivf_cuda.block_topw(*args, **kw, W=36, R=16, pos_bits=6, sentinel=ivf_cuda.KEY_MIN)
+    assert ivf_cuda.launch_counts == before

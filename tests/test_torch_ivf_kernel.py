@@ -1,0 +1,260 @@
+"""``block_topw`` (its plain PyTorch version, which CPU tensors take) against
+the JAX package's two candidate stages, plus the key helpers and the probe
+selection.
+
+Shapes are tiny (d=32, K=8, Cmax=256, B=16, P=2). The same seeded numpy
+inputs feed both packages:
+
+* fused variant (W=128, R=4, 11 position bits, KEY_MIN sentinel) against
+  ``quiver_tpu.ops.ivf_pallas.fused_block_topw(..., interpret=True)``;
+* pairs variant (W=32, R=2, 5 position bits) against the window winners of
+  ``quiver_tpu.ops.ivf_kernels._pairs_candidates`` (every winner kept as a
+  survivor, exact top-k: ``probe_approx=None``).
+
+Tolerance: the packed keys quantize the score by the position bits, and the
+two packages sum the bf16 products in different orders, so unpacked scores
+agree within two quanta (2^(pos_bits-22) relative) plus 1e-4 x the score
+scale, and winner positions agree wherever the competing scores are
+separated by more than that.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quiver_tpu.ops import ivf_kernels as jk
+from quiver_tpu.ops import ivf_pallas as jp
+from quiver_tpu.types import DistanceType as JDT
+from quiver_tpu_torch.ops import ivf_cuda as tc
+from quiver_tpu_torch.ops import ivf_kernels as tk
+from quiver_tpu_torch.types import DistanceType
+
+D, K, CMAX, B, P = 32, 8, 256, 16, 2
+NEG_BIG = -3.0e38
+
+
+def _case(seed):
+    """Operands shared by both packages (numpy; blocks rounded to bf16)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, D)).astype(np.float32)
+    cents = (0.5 * rng.normal(size=(K, D))).astype(np.float32)
+    blocks = jnp.asarray(0.5 * rng.normal(size=(K, D, CMAX)), jnp.bfloat16)
+    keep = rng.random((K, CMAX)) > 0.1
+    keep[3, 128:] = False  # one fully masked window pair
+    rns = np.sum(np.asarray(blocks, np.float32) ** 2, axis=1)
+    inv = (0.5 + rng.random((K, CMAX))).astype(np.float32)
+    probe = np.stack([rng.permutation(K)[:P] for _ in range(B)]).astype(np.int32)
+    return q, cents, blocks, keep, rns, inv, probe
+
+
+def _csr(probe):
+    flat = probe.reshape(-1)
+    order = np.argsort(flat, kind="stable").astype(np.int32)
+    starts = np.searchsorted(flat[order], np.arange(K + 1), side="left").astype(np.int32)
+    return order, starts
+
+
+def _t(a, dtype=None):
+    if isinstance(a, jnp.ndarray) and a.dtype == jnp.bfloat16:
+        from quiver_tpu_torch.convert import bf16_to_torch
+
+        return bf16_to_torch(np.asarray(a))
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _score_tol(s, pos_bits, scale):
+    return 2.0 ** (pos_bits - 22) * np.abs(s) + 1e-4 * scale
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product"])
+def test_fused_variant_matches_pallas_kernel(metric):
+    q, cents, blocks, keep, rns, inv, probe = _case(1)
+    order, starts = _csr(probe)
+    l2 = metric == "euclidean"
+    bias = np.where(keep, -rns if l2 else 0.0, NEG_BIG).astype(np.float32)
+    scale = 2.0 if l2 else 1.0
+    want = np.asarray(jp.fused_block_topw(
+        jnp.asarray(starts), jnp.asarray(order), jnp.asarray(q)[None],
+        blocks, jnp.asarray(cents), jnp.asarray(bias),
+        K=K, Cmax=CMAX, P=P, KG=1, scale=scale, sub_cent=l2, interpret=True,
+    ))[0]  # i32[BP, 128]
+    got = tc.block_topw(
+        _t(q), _t(cents), _t(starts), _t(order), _t(blocks), P=P, scale=scale,
+        col_add=_t(bias), sub_cent=l2, W=128, R=4, pos_bits=11, sentinel=tc.KEY_MIN,
+    ).numpy()
+    S = CMAX // 128
+    assert got.shape == (B * P, 4 * S)
+    assert np.all(want[:, 4 * S:] == tc.KEY_MIN)  # the reference's empty lanes
+    want = want[:, :4 * S]
+    js, jpos, jvalid = (np.asarray(a) for a in jp.unpack_keys(jnp.asarray(want)))
+    ts, tpos, tvalid = (a.numpy() for a in tc.unpack_keys(torch.from_numpy(got)))
+    np.testing.assert_array_equal(tvalid, jvalid)
+    real = js > NEG_BIG / 2
+    assert np.all(np.abs(ts - js)[real] <= _score_tol(js, 11, scale)[real])
+    np.testing.assert_array_equal(got[~real], want[~real])  # masked winners
+    # positions: equal, or the twin's own scores at both positions are tied
+    s_sorted = tc.pair_scores_reference(
+        _t(q), _t(cents), _t(starts), _t(order), _t(blocks), P=P, scale=scale,
+        col_add=_t(bias), sub_cent=l2,
+    ).numpy()
+    s_orig = np.empty_like(s_sorted)
+    s_orig[order] = s_sorted
+    rows, lanes = np.nonzero((tpos != jpos) & real)
+    tol = _score_tol(js, 11, scale)
+    for r, c in zip(rows, lanes):
+        assert abs(s_orig[r, tpos[r, c]] - s_orig[r, jpos[r, c]]) <= 2 * tol[r, c]
+    assert len(rows) <= 0.02 * real.sum()
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_pairs_variant_matches_pairs_candidates(metric):
+    q, cents, blocks, keep, rns, inv, _ = _case(2)
+    jm = JDT.parse(metric)
+    cns = np.sum(cents * cents, axis=1)
+    c_dots, c_aff, probe, caff = jk.probe_stage(
+        jnp.asarray(q), jnp.asarray(cents), jnp.asarray(cns), jm, P, None
+    )
+    flat = probe.reshape(-1)
+    order = jnp.argsort(flat).astype(jnp.int32)
+    k, S = 8, CMAX // 32
+    oversample = 2 * P * S // k  # every window winner survives
+    want_s, want_f = jk._pairs_candidates(
+        jnp.asarray(q), jnp.asarray(cents), c_dots, caff, probe, order,
+        flat[order], (order // P).astype(jnp.int32), blocks, jnp.asarray(rns),
+        jnp.asarray(inv), jnp.asarray(keep), metric=jm, k=k,
+        compute_dtype=jnp.bfloat16, oversample=oversample, probe_approx=None,
+        seg_width=32,
+    )
+    _, starts = _csr(np.asarray(probe))
+    got_s, got_f = tk._pairs_candidates(
+        _t(q), _t(cents), _t(c_dots), None if caff is None else _t(caff),
+        _t(probe, torch.int64), _t(order), _t(starts), _t(blocks), _t(rns),
+        _t(inv), _t(keep), metric=DistanceType.parse(metric), k=k,
+        oversample=oversample, seg_width=32,
+    )
+    want_s, want_f = np.asarray(want_s), np.asarray(want_f)
+    got_s, got_f = got_s.numpy(), got_f.numpy()
+    assert got_s.shape == want_s.shape == (B, 2 * P * S)
+    scale = float(np.abs(want_s[want_s > NEG_BIG / 2]).max())
+    n_moved = 0
+    for b in range(B):
+        wf, gf = np.argsort(want_f[b], kind="stable"), np.argsort(got_f[b], kind="stable")
+        ws, gs = want_s[b][wf], got_s[b][gf]
+        same = want_f[b][wf] == got_f[b][gf]
+        n_moved += int((~same).sum())
+        real = ws > NEG_BIG / 2
+        tol = _score_tol(ws, 5, 1.0) + 1e-4 * scale
+        ok = same & real
+        assert np.all(np.abs(gs - ws)[ok] <= tol[ok])
+    # a window winner moves only on a near-tie inside its window
+    assert n_moved <= 0.02 * want_f.size
+
+
+def test_pairs_variant_keys_against_packing_by_hand():
+    """The twin's keys equal a direct numpy packing of its own f32 scores
+    (window max, then the sentinel, then max again)."""
+    q, cents, blocks, keep, rns, inv, probe = _case(3)
+    order, starts = _csr(probe)
+    bias = np.where(keep, -rns, NEG_BIG).astype(np.float32)
+    args = (_t(q), _t(cents), _t(starts), _t(order), _t(blocks))
+    kw = dict(P=P, scale=2.0, col_add=_t(bias), sub_cent=True)
+    keys = tc.block_topw(*args, W=32, R=2, pos_bits=5, sentinel=tc._mask_key(32), **kw).numpy()
+    s = tc.pair_scores_reference(*args, **kw).numpy()
+    b = s.view(np.int32)
+    key = (b ^ ((b >> 31) & 0x7FFFFFFF)) & ~31 | (np.arange(CMAX) & 31)
+    win = key.reshape(B * P, CMAX // 32, 32)
+    m1 = win.max(axis=2)
+    m2 = np.where(win == m1[:, :, None], tc._mask_key(32), win).max(axis=2)
+    want = np.empty_like(keys)
+    want[order] = np.stack([m1, m2], axis=2).reshape(B * P, -1)
+    np.testing.assert_array_equal(keys, want)
+
+
+def test_row_mode_keys_are_the_per_row_top_r():
+    """W = Cmax (one window per row, not a power of two here): the R best
+    packed keys of each pair's row, in descending order."""
+    q, cents, _, keep, _, inv, probe = _case(7)
+    Cm = 384
+    rng = np.random.default_rng(7)
+    blocks = jnp.asarray(0.5 * rng.normal(size=(K, D, Cm)), jnp.bfloat16)
+    col_add = np.where(rng.random((K, Cm)) > 0.1, 0.0, NEG_BIG).astype(np.float32)
+    order, starts = _csr(probe)
+    args = (_t(q), _t(cents), _t(starts), _t(order), _t(blocks))
+    kw = dict(P=P, scale=1.0, col_add=_t(col_add), sub_cent=False)
+    keys = tc.block_topw(*args, W=Cm, R=16, pos_bits=9, sentinel=tc.KEY_MIN, **kw).numpy()
+    s = tc.pair_scores_reference(*args, **kw).numpy()
+    b = s.view(np.int32)
+    packed = (b ^ ((b >> 31) & 0x7FFFFFFF)) & ~511 | np.arange(Cm)
+    want = np.empty_like(keys)
+    want[order] = -np.sort(-packed, axis=1)[:, :16]
+    np.testing.assert_array_equal(keys, want)
+
+
+def test_key_helpers_bit_exact():
+    rng = np.random.default_rng(4)
+    s = (rng.normal(size=(6, 64)) * 10.0 ** rng.integers(-3, 4, (6, 64))).astype(np.float32)
+    s[0, :5] = [0.0, -0.0, np.inf, -np.inf, NEG_BIG]
+    st, sj = torch.from_numpy(s), jnp.asarray(s)
+    np.testing.assert_array_equal(tk._to_key(st).numpy(), np.asarray(jk._to_key(sj)))
+    keys = np.asarray(jk._to_key(sj))
+    np.testing.assert_array_equal(
+        tk._from_key(torch.from_numpy(keys.copy())).numpy().view(np.int32), s.view(np.int32)
+    )
+    for lm in (31, 127):
+        np.testing.assert_array_equal(
+            tk._pack_lane(st, lm).numpy(), np.asarray(jk._pack_lane(sj, jnp.int32(lm)))
+        )
+    for w in (32, 128):
+        assert tk._mask_key(w) == jk._mask_key(w)
+    acc = keys.copy()
+    acc[1, ::3] = tc.KEY_MIN
+    for a, b_ in zip(tc.unpack_keys(torch.from_numpy(acc)), jp.unpack_keys(jnp.asarray(acc))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+
+
+@pytest.mark.parametrize(
+    "regime,Kc,Pc,approx",
+    [("windowed", 512, 4, 0.99), ("argmax", 64, 5, None), ("topk", 96, 20, None)],
+)
+def test_select_probes_matches_jax(regime, Kc, Pc, approx):
+    rng = np.random.default_rng(5)
+    scores = rng.normal(size=(32, Kc)).astype(np.float32)
+    if regime == "windowed":
+        # the windowed top-2 drops two of these four from row 0
+        scores[0, [5, 17, 33, 99]] = [50.0, 49.0, 48.0, 47.0]
+    pj, sj = jk._select_probes(jnp.asarray(scores), Pc, Kc, approx)
+    pt, st = tk._select_probes(torch.from_numpy(scores), Pc, Kc, approx)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    if regime == "windowed":
+        assert len(set(pt[0].tolist()) & {5, 17, 33, 99}) == 2
+
+
+def test_block_topw_checks_its_inputs():
+    q, cents, blocks, keep, rns, inv, probe = _case(6)
+    order, starts = _csr(probe)
+    bias = _t(np.where(keep, -rns, NEG_BIG).astype(np.float32))
+    args = [_t(q), _t(cents), _t(starts), _t(order), _t(blocks)]
+    kw = dict(P=P, scale=2.0, col_add=bias, sub_cent=True, W=32, R=2, pos_bits=5,
+              sentinel=tc._mask_key(32))
+    before = dict(tc.launch_counts)
+    tc.block_topw(*args, **kw)
+    assert tc.launch_counts == before  # the CPU twin is not a launch
+    bad = list(args)
+    bad[0] = args[0].double()
+    with pytest.raises(TypeError, match="q must be"):
+        tc.block_topw(*bad, **kw)
+    bad = list(args)
+    bad[3] = args[3][:-1]
+    with pytest.raises(ValueError, match="order shape"):
+        tc.block_topw(*bad, **kw)
+    bad = list(args)
+    bad[1] = torch.from_numpy(np.asfortranarray(cents))
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.block_topw(*bad, **kw)
+    with pytest.raises(ValueError, match="bad window"):
+        tc.block_topw(*args, **dict(kw, W=48))
+    with pytest.raises(ValueError, match="pos_bits"):
+        tc.block_topw(*args, **dict(kw, pos_bits=4))
