@@ -9,41 +9,58 @@ CUDA, or outside a checkout of the repository, it exits non-zero before
 printing any result. Phases, one line each (any failure raises):
 
 1. device: the card's name and power limit, the CUDA version, TF32 off;
-2. build: ``csrc/*.cu`` compiled with nvcc into the git-ignored build
-   directory; build seconds;
+2. build: ``csrc/*.cu`` compiled with nvcc (one process per source, in
+   parallel) into the git-ignored build directory; build seconds;
 3. kernel against twin: ``block_topw`` against ``block_topw_reference`` on
    the card at the main path's shapes (d=128, Cmax=1280, K=1405, B=65536,
    P in {2, 3, 4}), pairs variant (W=32, R=2: L2, dot, cosine), fused
    variant (W=128, R=4: L2, dot) and row mode (one window per row, R=16:
    the per-pair branch small corpora take); times of both with CUDA events;
-4. slice: ``bench.py``'s 1M x 128-d clustered L2 corpus through
-   ``VectorStore(device="cuda")`` -> ``IVFIndex.build()`` ->
-   ``search_slots``: recall@10 against an f64 oracle (tie-aware, the rule of
-   ``benches/truth.py``) >= 0.95 at n_probe=3; ms per batch and QPS of
-   ``search_slots_device`` at B=65536 for "pairs" and "fused"; the kernel's
-   launch counts over this phase.
+4. slice: the headline bench's path (``quiver_tpu_torch/bench.py``): the
+   1M x 128-d clustered L2 corpus through ``VectorStore(device="cuda")`` ->
+   ``IVFIndex.build()`` with ``recall_target=0.96``, so the build tunes
+   n_probe; the tuned n_probe, holdout recall and stderr, and
+   ``recall_shortfall``; recall@10 at the tuned n_probe against an f64
+   oracle (tie-aware, the rule of ``benches/truth.py``) >= 0.95; then
+   n_probe in {2, 3} x {"pairs", "fused"}: recall and ms per batch / QPS of
+   ``search_slots_device`` at B=65536; ``device_bytes()`` and the peak of
+   allocated card memory; the kernel's launch counts over this phase;
+5. probes: ``benches/probe.py``'s two kernels (``scatter_rows``,
+   ``index_read``) at the TPU probe's shapes and at the main path's (the
+   slice's own probe ids: 196,608 pairs over its clusters), each held
+   against its expectation and its plain version; launch counts over that
+   run; then kernel and plain version timed;
+6. latency: ``benches/bench_latency.py``'s rows at B in {1, 128, 2048,
+   65536} for the slice's engine (n_probe=3, "pairs") and the exact scan.
 
-Then a JSON line of kernels, the card line, and last the result line.
+The 1M corpus is generated once and shared by phases 4-6. Then a JSON line
+of kernels, the card line, and last the result line.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-N, D, TOP_K = 1_000_000, 128, 10
-N_CENTERS = 1000
-B_ORACLE = 2048
-B_SERVE = 65536
+from quiver_tpu_torch.bench import B as B_SERVE
+from quiver_tpu_torch.bench import (
+    B_ORACLE,
+    RECALL_GATE,
+    RECALL_TARGET,
+    build_engine,
+    make_queries,
+)
+from quiver_tpu_torch.benches.common import K as TOP_K
+from quiver_tpu_torch.benches.common import N, card, clustered, cuda_ms, oracle_kth
+from quiver_tpu_torch.benches.truth import recall_with_ties
+
 #: kernel-phase shapes: the serving point of the slice (K' of the headline
 #: build is ~1400 clusters of Cmax=1280)
 KERNEL_SHAPE = dict(B=65536, K=1405, Cmax=1280, d=128)
 KERNEL_PROBES = (2, 3, 4)
-RECALL_GATE = 0.95
 #: (variant name, W, R, position bits, metrics); W = 0 is row mode (one
 #: window of Cmax columns, position bits to hold Cmax). Row mode serves the
 #: per-pair branch of corpora whose Cmax holds fewer than k windows, so the
@@ -64,32 +81,8 @@ def variant_args(variant, W, R, pos_bits, Cmax):
     return W, pos_bits, int(_mask_key(W)) if variant == "pairs" else KEY_MIN
 
 
-def clustered(n, seed=0):
-    """The headline corpus of bench.py:57-62 (same generator, same seed)."""
-    rng = np.random.default_rng(seed)
-    centers = rng.normal(size=(N_CENTERS, D)).astype(np.float32)
-    which = rng.integers(0, N_CENTERS, n)
-    out = centers[which] + 0.25 * rng.normal(size=(n, D)).astype(np.float32)
-    return out.astype(np.float32)
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean ms per call over ``reps`` calls, by CUDA events after a warm-up
-    call and a synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed):
@@ -188,8 +181,8 @@ def phase_kernels(torch, dev, *, shape, probes, reps):
                 err, n_diff = compare_keys(
                     torch, k_kern, k_ref, s_orig, W=W, R=R, pos_bits=pos_bits)
                 del s_orig, k_ref
-                ms = cuda_ms(torch, lambda: block_topw(*args, **wkw), reps)
-                plain_ms = cuda_ms(torch, lambda: block_topw_reference(*args, **wkw), 1)
+                ms = cuda_ms(lambda: block_topw(*args, **wkw), reps)
+                plain_ms = cuda_ms(lambda: block_topw_reference(*args, **wkw), 1)
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 if P == 3 and metric == "euclidean":
                     rec["ms"], rec["plain_ms"] = ms, plain_ms
@@ -204,94 +197,72 @@ def phase_kernels(torch, dev, *, shape, probes, reps):
     return records
 
 
-def oracle_kth(torch, dev, queries, vecs, k, block=131_072):
-    """True k-th smallest squared L2 distance per query, in float64 on the
-    device (the affine f64 form of benches/truth.py:exact_truth_f64)."""
-    q = torch.from_numpy(queries).to(dev, torch.float64)
-    qns = (q * q).sum(1, keepdim=True)
-    best = torch.full((q.shape[0], k), float("inf"), dtype=torch.float64, device=dev)
-    for s in range(0, vecs.shape[0], block):
-        v = torch.from_numpy(vecs[s:s + block]).to(dev, torch.float64)
-        d = qns - 2.0 * (q @ v.T) + (v * v).sum(1)[None, :]
-        best = torch.topk(torch.cat([best, d], 1), k, dim=1, largest=False).values
-    return best[:, k - 1].cpu().numpy()
+def phase_slice(torch, dev, vecs, *, b_serve, reps):
+    """The headline bench's path on the device, the tuner included.
+    Returns (engine, serving queries on the device)."""
+    n = len(vecs)
+    queries, qb = make_queries(vecs, b_serve, min(B_ORACLE, n))
+    kth = oracle_kth(dev, queries, vecs, TOP_K)
 
-
-def recall_with_ties(found_slots, queries, vectors, true_kth_dist, k, rel_tol=1e-6):
-    """The rule of benches/truth.py:recall_with_ties: a returned row is a
-    hit when its true f64 distance <= the true k-th (+ rel tol); at most k
-    hits per query."""
-    hits = 0
-    q = queries.astype(np.float64)
-    for b in range(found_slots.shape[0]):
-        s = found_slots[b][found_slots[b] >= 0][:k]
-        if len(s) == 0:
-            continue
-        d = np.sum((vectors[s].astype(np.float64) - q[b][None, :]) ** 2, axis=1)
-        hits += min(int((d <= true_kth_dist[b] * (1 + rel_tol) + 1e-12).sum()), k)
-    return hits / (found_slots.shape[0] * k)
-
-
-def phase_slice(torch, dev, *, n, b_serve, n_clusters, reps):
-    """The port's main path on the device; returns (recalls, timings)."""
-    from quiver_tpu_torch import IVFConfig, IVFIndex, VectorStore
-
-    vecs = clustered(n)
-    rng = np.random.default_rng(1)
-    b_or = min(B_ORACLE, n)
-    queries = (vecs[:b_or] + 0.1 * rng.normal(size=(b_or, D))).astype(np.float32)
-    rngq = np.random.default_rng(2)
-    qb = (vecs[rngq.integers(0, n, b_serve)]
-          + 0.1 * rngq.normal(size=(b_serve, D))).astype(np.float32)
-    qb[:min(b_or, b_serve)] = queries[:b_serve]
-    kth = oracle_kth(torch, dev, queries, vecs, TOP_K)
-
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    store = VectorStore(dim=D, metric="euclidean", capacity=n, device=dev)
-    store.add_batch([f"v{i}" for i in range(n)], vecs)
-    eng = IVFIndex(store, config=IVFConfig(
-        n_clusters=n_clusters, n_probe=3, q_cap_factor=2, kmeans_iters=8,
-        build_threshold=1024, rescore=False, recall_target=None))
-    eng.build()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    cmax = int(eng._block_slot.shape[1])
-    log(f"slice build: n={n} wall_s={build_s!r} K'={eng.n_clusters} Cmax={cmax}")
+    eng = build_engine(vecs, dev, recall_target=RECALL_TARGET, log=log)
+    torch.cuda.synchronize()
+    log(f"slice build (k-means, layout and tuner): n={n} wall_s={time.perf_counter() - t0!r} "
+        f"build_s={eng._last_rebuild_s!r} K'={eng.n_clusters} "
+        f"Cmax={int(eng._block_slot.shape[1])}")
+    log(f"slice tuner: target={RECALL_TARGET} n_probe={eng._tuned_n_probe} "
+        f"holdout_recall={eng._tuned_recall!r} stderr={eng._tuned_stderr!r} "
+        f"rescore={eng.config.rescore} recall_shortfall={eng.recall_shortfall}")
+    if eng._tuned_n_probe is None or eng.config.n_probe != eng._tuned_n_probe:
+        raise AssertionError("build() with recall_target did not install a tuned n_probe")
+    # the tuner alone, once more (deterministic: the same sample, the same pick)
+    t0 = time.perf_counter()
+    again = eng.tune_n_probe()
+    torch.cuda.synchronize()
+    log(f"slice tuner alone: wall_s={time.perf_counter() - t0!r} n_probe={again}")
+    if again != eng._tuned_n_probe:
+        raise AssertionError(f"the tuner picked {again} on a re-run")
 
-    recalls = {}
+    def recall_at(form, n_probe):
+        eng.config.formulation, eng.config.n_probe = form, n_probe
+        dist, slots = eng.search_slots(queries, TOP_K)
+        if dist.shape != (len(queries), TOP_K) or not np.isfinite(dist).all():
+            raise AssertionError(f"bad result: shape {dist.shape}, finite {np.isfinite(dist).all()}")
+        if (slots < 0).any():
+            raise AssertionError("empty result slots on a full corpus")
+        return recall_with_ties(slots, queries, vecs, kth, TOP_K)
+
+    tuned = eng._tuned_n_probe
+    r = recall_at("pairs", tuned)
+    log(f"slice recall@{TOP_K} pairs at the tuned n_probe={tuned}: {r!r} "
+        f"(holdout gap {eng._tuned_recall - r!r})")
+    if r < RECALL_GATE:
+        raise AssertionError(f"recall@10 {r} < {RECALL_GATE} at the tuned n_probe={tuned}")
     for form in ("pairs", "fused"):
-        eng.config.formulation = form
         for n_probe in (2, 3):
-            eng.config.n_probe = n_probe
-            dist, slots = eng.search_slots(queries, TOP_K)
-            if dist.shape != (b_or, TOP_K) or not np.isfinite(dist).all():
-                raise AssertionError(f"bad result: shape {dist.shape}, finite {np.isfinite(dist).all()}")
-            if (slots < 0).any():
-                raise AssertionError("empty result slots on a full corpus")
-            r = recall_with_ties(slots, queries, vecs, kth, TOP_K)
-            recalls[(form, n_probe)] = r
-            log(f"slice recall@{TOP_K} {form} n_probe={n_probe}: {r!r}")
-    if recalls[("pairs", 3)] < RECALL_GATE:
-        raise AssertionError(f"recall@10 {recalls[('pairs', 3)]} < {RECALL_GATE} at n_probe=3")
+            log(f"slice recall@{TOP_K} {form} n_probe={n_probe}: {recall_at(form, n_probe)!r}")
 
     qdev = torch.from_numpy(qb).to(dev)
-    timings = {}
     for form in ("pairs", "fused"):
-        eng.config.formulation = form
-        for n_probe in (2, 3):
-            eng.config.n_probe = n_probe
-            if dev.type == "cuda":
-                ms = cuda_ms(torch, lambda: eng.search_slots_device(qdev, TOP_K), reps)
-            else:
-                t = time.perf_counter()
-                eng.search_slots_device(qdev, TOP_K)
-                ms = 1e3 * (time.perf_counter() - t)
-            timings[(form, n_probe)] = ms
+        for n_probe in sorted({2, 3, tuned}):
+            eng.config.formulation, eng.config.n_probe = form, n_probe
+            ms = cuda_ms(lambda: eng.search_slots_device(qdev, TOP_K), reps)
             log(f"slice search_slots_device {form} n_probe={n_probe} B={b_serve}: "
                 f"ms_per_batch={ms!r} qps={b_serve / (ms / 1e3)!r}")
-    eng.config.formulation, eng.config.n_probe = "pairs", 3
-    return build_s, recalls, timings
+    eng.config.formulation, eng.config.n_probe = "pairs", tuned
+    log(f"slice memory: device_bytes={eng.device_bytes()} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
+    return eng, qdev
+
+
+def slice_probe_ids(eng, qdev, n_probe=3):
+    """The slice's own probe ids for the serving batch at ``n_probe``."""
+    from quiver_tpu_torch.ops.ivf_kernels import probe_stage
+
+    cent, c_ns = eng._cent_dev
+    return probe_stage(qdev, cent, c_ns, eng.store.metric, n_probe,
+                       eng.config.probe_sel_approx)[2]
 
 
 def main() -> int:
@@ -302,17 +273,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from quiver_tpu_torch import _build
-    from quiver_tpu_torch.ops import ivf_cuda
+    from quiver_tpu_torch.benches import bench_latency, probe
+    from quiver_tpu_torch.ops import ivf_cuda, probe_cuda
 
     dev = torch.device("cuda", 0)
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    card_line = card()
+    log(f"device: {card_line}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on")
@@ -329,12 +298,30 @@ def main() -> int:
     records = phase_kernels(torch, dev, shape=KERNEL_SHAPE, probes=KERNEL_PROBES, reps=10)
 
     # phase 4: the main path; launch counts cover exactly this phase
+    t0 = time.perf_counter()
+    vecs = clustered(N)
+    log(f"corpus: {vecs.shape} in {time.perf_counter() - t0!r} s")
     torch.cuda.empty_cache()
     ivf_cuda.reset_launch_counts()
-    build_s, recalls, timings = phase_slice(
-        torch, dev, n=N, b_serve=B_SERVE, n_clusters=1024, reps=10)
+    eng, qdev = phase_slice(torch, dev, vecs, b_serve=B_SERVE, reps=10)
     counts = dict(ivf_cuda.launch_counts)
     log(f"slice launches: {counts}")
+
+    # phase 5: the probes' path; counts cover its run, not the timing after
+    probe_ids = slice_probe_ids(eng, qdev)
+    probe_cuda.reset_launch_counts()
+    prec = probe.run_probes(dev, probe=probe_ids, K=eng.n_clusters, log=log)
+    probe_counts = dict(probe_cuda.launch_counts)
+    log(f"probe launches: {probe_counts}")
+    probe_times = probe.time_probes(dev, prec.pop("main"), log=log)
+    del probe_ids
+    torch.cuda.empty_cache()
+
+    # phase 6: the latency rows of the slice's engine and the exact scan
+    eng.config.formulation, eng.config.n_probe = "pairs", bench_latency.N_PROBE
+    ivf_cuda.reset_launch_counts()
+    bench_latency.latency_rows(eng)
+    log(f"latency launches: {dict(ivf_cuda.launch_counts)}")
 
     kernels = []
     for variant, rec in records.items():
@@ -354,8 +341,22 @@ def main() -> int:
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
         })
+    for name, replaces in (("scatter_rows", "benches/probe_pallas.py:42"),
+                           ("index_read", "benches/probe_pallas.py:101")):
+        if probe_counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the probes' path")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "quiver_tpu_torch/csrc/probe_kernels.cu",
+            "replaces": replaces,
+            "launches": probe_counts[name],
+            "max_abs_err": prec[name]["max_abs_err"],
+            "ms": probe_times[name][0],
+            "plain_ms": probe_times[name][1],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
+    print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,14 @@
 """quiver-tpu on PyTorch and CUDA: the port of ``quiver_tpu`` to an NVIDIA
 H100.
 
-This slice carries the IVF-Flat batched query end to end: ``VectorStore``
--> ``IVFIndex.build()`` -> ``IVFIndex.search_slots`` /
-``search_slots_device`` -> ``ops.ivf_kernels.ivf_query``, whose candidate
-stage is the hand-written CUDA kernel ``ops.ivf_cuda.block_topw``
-(``csrc/ivf_block_topw.cu``), plus the exact engine it falls back on.
+It carries the IVF-Flat batched query end to end: ``VectorStore`` ->
+``IVFIndex.build()`` (with the n_probe tuner when ``recall_target`` is set)
+-> ``IVFIndex.search_slots`` / ``search_slots_device`` ->
+``ops.ivf_kernels.ivf_query``, whose candidate stage is the hand-written
+CUDA kernel ``ops.ivf_cuda.block_topw`` (``csrc/ivf_block_topw.cu``), plus
+the exact engine it falls back on; and the benchmark entry points
+(``bench``, ``benches.bench_latency``, ``benches.probe``, the last with the
+probe kernels of ``ops.probe_cuda`` / ``csrc/probe_kernels.cu``).
 
 The package imports ``torch`` and never ``jax`` or ``quiver_tpu``. Every
 tensor lives on the device the store was created with; kernels build at

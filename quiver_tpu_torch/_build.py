@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes. The build runs at first use,
+with a plain C interface, loaded with ctypes: one ``nvcc`` per source, all
+started together, then one link. The build runs at first use,
 into ``quiver_tpu_torch/_build/<hash>/`` (git-ignored), keyed by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one
 loads the library already built. Nothing here runs at import time.
@@ -27,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 LIB_NAME = "libquiver_tpu_torch_kernels.so"
 
@@ -67,33 +68,48 @@ def build(verbose: bool = False) -> tuple[Path, float]:
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build to a temporary name, then rename: concurrent build processes never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # build into a private directory, then rename the library: concurrent
+    # build processes never load a half-written one
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs, procs = [], []
+        for src in _sources():
+            obj = tmp_dir / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        so = tmp_dir / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(so), *map(str, objs)],
+            capture_output=True, text=True,
+        ) if all(p.returncode == 0 for p in procs) else None
+        if link is None or link.returncode != 0:
+            detail = "\n".join(logs) + ("" if link is None else link.stdout + link.stderr)
+            raise RuntimeError(f"nvcc failed:\n{detail}")
+        if verbose:
+            print("".join(logs), flush=True)
+        os.replace(so, lib)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built if needed and bound (argtypes set)."""
-    from quiver_tpu_torch.ops.ivf_cuda import bind
+    """The kernel library, built if needed and bound (argtypes set by each
+    ops module for its own entries)."""
+    from quiver_tpu_torch.ops import ivf_cuda, probe_cuda
 
     path, _ = build()
-    return bind(ctypes.CDLL(str(path)))
+    lib = ctypes.CDLL(str(path))
+    for mod in (ivf_cuda, probe_cuda):
+        mod.bind(lib)
+    return lib
 
 
 if __name__ == "__main__":

@@ -12,11 +12,11 @@ residual norms, inverse norms and the keep mask. Deletes of the layout are
 keep-bit tombstones (:meth:`_vacate_slots`); rows outside the blocks sit in
 an exactly scanned overflow set that is merged into every answer.
 
-This slice ports the build and the query. Still to come, each raising
-``NotImplementedError`` with its ROADMAP.md item: the write path
-(``on_insert``/``on_update``/``on_delete``), maintenance (``refresh``,
-background rebuilds), the n_probe tuner (``tune_n_probe`` and a
-``recall_target``), and ``formulation="einsum"``.
+The port has the build, the query, the n_probe tuner (``recall_target``,
+:meth:`IVFIndex.tune_n_probe`) and the engine's metrics. Still to come,
+each raising ``NotImplementedError`` with its ROADMAP.md item: the write
+path (``on_insert``/``on_update``/``on_delete``), maintenance
+(``refresh``, background rebuilds) and ``formulation="einsum"``.
 
 Reference workarounds not ported, because their cause is absent here:
 
@@ -37,6 +37,7 @@ Reference workarounds not ported, because their cause is absent here:
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -164,7 +165,7 @@ class IVFConfig:
     drift_rebuild: float = 0.03
     background_maintenance: bool = True
     maint_pace_s: float = 0.05
-    #: n_probe tuner (not ported yet: anything but None raises at build)
+    #: n_probe tuner: set = build() tunes n_probe to this recall@10
     recall_target: Optional[float] = None
     recall_sample: int = 1024
     recall_jitter: float = 0.1
@@ -195,6 +196,11 @@ class IVFIndex:
         self._slot_pos = None  # np i64[cap, 2] slot -> (cluster, pos), -1
         self._overflow: set[int] = set()
         self._cmax = None
+        self._n_retrains = 0  # full k-means builds
+        self._tuned_n_probe: Optional[int] = None  # recall_target tuner pick
+        self._tuned_recall: Optional[float] = None  # its measured recall@k
+        self._tuned_stderr: Optional[float] = None  # holdout sampling stderr
+        self._last_rebuild_s = 0.0
         self._lock = threading.RLock()
 
     @property
@@ -208,10 +214,10 @@ class IVFIndex:
         return max(8, min(_pow2(want), n_live // 8))
 
     def build(self, k: Optional[int] = None) -> None:
-        """(Re)train k-means over live rows and lay out the block tensor."""
-        if self.config.recall_target is not None:
-            raise _not_yet("recall_target (the n_probe tuner)", "queue 1, item 5")
+        """(Re)train k-means over live rows and lay out the block tensor;
+        with ``config.recall_target`` set, then tune ``n_probe``."""
         with self._lock:
+            t0 = time.perf_counter()
             c = self.config
             valid = self.store._np_valid
             n_live = int(valid.sum())
@@ -239,9 +245,272 @@ class IVFIndex:
             self._centroids = cents
             self._cent_dev = self._put_cent_dev(cents)
             self._layout_from_assign(assign, len(cents), cmax=cmax)
+            self._n_retrains += 1
+            if c.recall_target is not None:
+                self.tune_n_probe()
+            self._last_rebuild_s = time.perf_counter() - t0
+
+    # --------------------------------------------------------- n_probe tuner
 
     def tune_n_probe(self, k: int = 10) -> Optional[int]:
-        raise _not_yet("tune_n_probe", "queue 1, item 5")
+        """Pick the smallest ``n_probe`` whose measured recall@``k`` on a
+        held-out jittered sample meets ``config.recall_target``, and install
+        it as the engine's serving value (``quiver_tpu/index/ivf.py:555-685``).
+
+        Two passes. First a host estimate: the probe-inclusion recall curve
+        (:meth:`_probe_inclusion_recall`), simulating the probe selection of
+        ``ops/ivf_kernels._select_probes``. Then a measured check: real
+        engine queries at the estimated pick against the exact oracle,
+        escalating while short of target. Recall is tie-aware: a returned
+        row counts when its true f64 distance is within the oracle's k-th
+        (+rel tol). A pick is accepted on the holdout's mean minus one
+        stderr; a step that buys less than half a stderr stops the walk
+        (probe plateau); the cheapest passing pick is served; when none
+        passes and rescore is off, the exact f32 rescore is tried as the
+        second axis.
+
+        The oracle is the port's ``ExactIndex`` (f32, TF32 off) at depth
+        max(4k, k+32), rescored in f64: the k-th of the rescored deeper set
+        is the true k-th distance.
+
+        Returns the chosen value, or None when the corpus is too small to
+        tune meaningfully (the configured n_probe stands)."""
+        with self._lock:
+            target = self.config.recall_target
+            if target is None or not self._built:
+                return None
+            rows = np.flatnonzero(self.store._np_valid)
+            S = min(self.config.recall_sample, len(rows))
+            if len(rows) < 32 * k or S < 32:
+                return None
+            rng = np.random.default_rng(self.config.seed + 7)
+            sample = rng.choice(rows, size=S, replace=False)
+            base = self.store._np_vectors[sample]
+            q = (
+                base
+                + self.config.recall_jitter
+                * base.std(axis=0, keepdims=True)
+                * rng.standard_normal(base.shape)
+            ).astype(np.float32)
+            deep = min(max(4 * k, k + 32), len(rows))
+            _, cand = ExactIndex(self.store).search_slots(q, deep)
+            d_cand = self._host_dist_f64(q, cand)  # +inf for -1 slots
+            order = np.argsort(d_cand, axis=1)
+            d_sorted = np.take_along_axis(d_cand, order, axis=1)
+            truth = np.take_along_axis(cand, order, axis=1)[:, :k]
+            kth = d_sorted[:, k - 1]  # finite: len(rows) >= 32*k >= deep
+            thr = kth * (1 + 1e-6) + 1e-12
+
+            def tie_recall(got: np.ndarray) -> tuple[float, float]:
+                """(mean, stderr) of per-query tie-aware recall@k."""
+                d = self._host_dist_f64(q, got)
+                ok = (got >= 0) & (d <= thr[:, None])
+                per_q = np.minimum(ok.sum(axis=1), k) / k
+                return float(per_q.mean()), float(per_q.std() / np.sqrt(len(per_q)))
+
+            p_max = min(self.config.n_probe_max, self.n_clusters)
+            est = self._probe_inclusion_recall(q, truth, p_max)
+            # smallest P whose estimated inclusion meets target (inclusion
+            # upper-bounds engine recall, so start here and verify up)
+            picks = np.flatnonzero(est >= target)
+            p = int(picks[0]) + 1 if len(picks) else p_max
+            history: list[tuple[int, float, float]] = []
+            while True:
+                self.config.n_probe = p
+                _, got = self.search_slots(q, k)
+                hit, err = tie_recall(got)
+                history.append((p, hit, err))
+                if hit - err >= target or p >= p_max:
+                    break
+                if len(history) >= 2 and hit - history[-2][1] < max(0.5 * err, 1e-3):
+                    break  # probe plateau: more probes will not reach target
+                p = min(p_max, max(p + 1, int(np.ceil(p * 1.5))))
+            ok = [t for t in history if t[1] - t[2] >= target]
+            if ok:
+                p, hit, err = min(ok, key=lambda t: t[0])
+            else:
+                best_hit = max(h for _, h, _ in history)
+                p, hit, err = min(
+                    (t for t in history if t[1] >= best_hit - 0.5 * t[2]),
+                    key=lambda t: t[0],
+                )
+            if hit - err < target and not self.config.rescore:
+                # second axis: exact f32 rescore of the survivors
+                self.config.n_probe = p
+                self.config.rescore = True
+                _, got = self.search_slots(q, k)
+                hit2, err2 = tie_recall(got)
+                if hit2 - err2 >= target or hit2 - hit >= 0.005:
+                    hit, err = hit2, err2
+                else:
+                    self.config.rescore = False
+            self.config.n_probe = p
+            self._tuned_n_probe = p
+            self._tuned_recall = float(hit)
+            self._tuned_stderr = float(err)
+            return p
+
+    @property
+    def recall_shortfall(self) -> bool:
+        """True when the tuner measured short of ``config.recall_target``
+        by more than half a point (it escalated to ``n_probe_max`` or
+        plateaued): the corpus geometry defeats IVF pruning."""
+        t = self.config.recall_target
+        return (
+            t is not None
+            and self._tuned_recall is not None
+            and self._tuned_recall < t - 0.005
+        )
+
+    def _host_dist_f64(self, q: np.ndarray, slots: np.ndarray) -> np.ndarray:
+        """True f64 distances d(q[b], store[slots[b, j]]) -> f64[S, k] on
+        the host, with the semantics of ``ops/distance`` (guards included);
+        slots < 0 get +inf. The tuner's tie arbiter."""
+        metric = self.store.metric
+        v = self.store._np_vectors[np.maximum(slots, 0)].astype(np.float64)
+        qq = q.astype(np.float64)[:, None, :]
+        if metric == DistanceType.MANHATTAN:
+            d = np.abs(qq - v).sum(axis=2)
+        else:
+            dots = (qq * v).sum(axis=2)
+            if metric == DistanceType.DOT_PRODUCT:
+                d = 1.0 - dots
+            elif metric == DistanceType.COSINE:
+                qn = np.sqrt((qq * qq).sum(axis=2))
+                vn = np.sqrt((v * v).sum(axis=2))
+                nz = (qn > 0) & (vn > 0)
+                sim = np.where(nz, dots / np.maximum(qn * vn, 1e-30), 0.0)
+                d = 1.0 - np.clip(sim, -1.0, 1.0)
+            else:
+                d2 = np.maximum(
+                    (qq * qq).sum(axis=2) + (v * v).sum(axis=2) - 2.0 * dots, 0.0
+                )
+                d = d2 if metric == DistanceType.SQUARED_EUCLIDEAN else np.sqrt(d2)
+        return np.where(slots >= 0, d, np.inf)
+
+    def _probe_inclusion_recall(
+        self, q: np.ndarray, truth: np.ndarray, p_max: int
+    ) -> np.ndarray:
+        """est[P-1] = mean fraction of true top-k rows reachable with P
+        probes, for P in 1..p_max: host math that scores centroids the way
+        ``ops/ivf_kernels.probe_stage`` does and simulates
+        ``_select_probes``: top-2 per 128-id window ranked by score while
+        ``probe_sel_approx`` is set, K >= 256 and nwin >= P, the exact
+        ranking otherwise. Overflow rows count as found (the serving path
+        scans them exactly)."""
+        c = self.config
+        cents = self._centroids
+        K = len(cents)
+        c_dots = q.astype(np.float32) @ cents.T
+        c_ns = np.sum(cents.astype(np.float64) ** 2, axis=1).astype(np.float32)
+        metric = self.store.metric
+        if metric == DistanceType.COSINE:
+            scores = c_dots / np.sqrt(np.maximum(c_ns, 1e-30))[None, :]
+        elif metric == DistanceType.DOT_PRODUCT:
+            scores = c_dots
+        else:
+            scores = 2.0 * c_dots - c_ns[None, :]
+        if self._cluster_live is not None:
+            scores = np.where(self._cluster_live[None, :], scores, -np.inf)
+        S = len(q)
+        nwin = (K + 127) // 128
+        use_windowed = c.probe_sel_approx is not None and K >= 256
+        if use_windowed:
+            sw = np.full((S, nwin * 128), -np.inf, np.float32)
+            sw[:, :K] = scores
+            sw = sw.reshape(S, nwin, 128)
+            # top-2 per 128-id window, window winners ranked by score: the
+            # device selection's candidate pool
+            top2 = np.argpartition(-sw, 1, axis=2)[:, :, :2]
+            wins_s = np.take_along_axis(sw, top2, axis=2).reshape(S, -1)
+            wins_i = (np.arange(nwin)[None, :, None] * 128 + top2).reshape(S, -1)
+            order = np.argsort(-wins_s, axis=1, kind="stable")
+            ranked_w = np.take_along_axis(wins_i, order, axis=1)
+        order_e = np.argsort(-scores, axis=1, kind="stable")
+        # cluster of each true top-k row; overflow/unplaced rows (cluster
+        # -1) count as found
+        t_clust = np.where(truth >= 0, self._slot_pos[truth, 0], -2)
+        est = np.empty(p_max, np.float64)
+        found = np.zeros(truth.shape, bool) | (t_clust == -1)
+        found_e = found.copy()
+        for P in range(1, p_max + 1):
+            if use_windowed and nwin >= P:
+                found |= ranked_w[:, P - 1][:, None] == t_clust
+                est[P - 1] = found.mean()
+            else:
+                # the exact ranking: union over its prefix
+                found_e |= (order_e[:, :P, None] == t_clust[:, None, :]).any(axis=1)
+                est[P - 1] = (found_e | (t_clust == -1)).mean()
+        return est
+
+    # ------------------------------------------------------------ metrics
+
+    def get_optimization_parameters(self) -> dict:
+        return {
+            "n_probe": self.config.n_probe,
+            "n_clusters": self.n_clusters,
+            "kmeans_iters": self.config.kmeans_iters,
+        }
+
+    def set_optimization_parameters(self, **params) -> None:
+        if "n_probe" in params:
+            p = int(params["n_probe"])
+            if p <= 0:
+                raise ValueError("n_probe must be positive")
+            self.config.n_probe = p
+        unknown = set(params) - {"n_probe"}
+        if unknown:
+            raise ValueError(f"immutable or unknown parameters: {sorted(unknown)}")
+
+    def get_detailed_metrics(self) -> dict:
+        """The reference's keys (``quiver_tpu/index/ivf.py:1809-1843``).
+        Until the write path and maintenance are ported (ROADMAP.md queue 1,
+        item 7), their keys hold what an engine that has taken no writes
+        reports: no drift overflow, churn 0, no refreshes, no maintenance in
+        flight."""
+        with self._lock:
+            return {
+                "size": self.store.size,
+                "built": self._built,
+                "n_clusters": self.n_clusters,
+                "overflow": len(self._overflow),
+                "drift_overflow": 0,
+                "churn_since_build": 0,
+                "retrains": self._n_retrains,
+                "refreshes": 0,
+                "last_retrain_s": round(self._last_rebuild_s, 3),
+                "tuned_n_probe": self._tuned_n_probe,
+                "tuned_recall": (
+                    None if self._tuned_recall is None else round(self._tuned_recall, 4)
+                ),
+                "tuned_recall_stderr": (
+                    None if self._tuned_stderr is None else round(self._tuned_stderr, 4)
+                ),
+                "maintenance": {
+                    "inflight": False,
+                    "pending": None,
+                    "swaps": 0,
+                    "last_swap_stall_s": 0.0,
+                    "error": None,
+                },
+                "device_bytes": self.device_bytes(),
+                "config": self.get_optimization_parameters(),
+            }
+
+    def device_bytes(self) -> dict:
+        """Card footprint: the engine's own tensors (blocks, centroids,
+        masks; the shared store excluded) and the store's device view."""
+        from quiver_tpu_torch.utils.memory import device_bytes, store_device_bytes
+
+        own = device_bytes(self, skip=(VectorStore,))
+        st = store_device_bytes(self.store)
+        n = max(self.store.size, 1)
+        return {
+            "engine": own,
+            "store": st,
+            "total": own + st,
+            "per_vector": round((own + st) / n, 1),
+        }
 
     def _prepare_clusters(self, cents, assign):
         """Hook: remap (centroids, assignment) into the engine's cluster id

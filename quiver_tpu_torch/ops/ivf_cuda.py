@@ -164,17 +164,28 @@ def block_topw_reference(
 # --------------------------------------------------------------- wrapper
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, fn="block_topw"):
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` on ``device``
+    with ``shape`` (None: any shape); ``fn`` names the wrapper."""
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"block_topw: {name} must be a tensor")
+        raise TypeError(f"{fn}: {name} must be a tensor")
     if t.dtype != dtype:
-        raise TypeError(f"block_topw: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"block_topw: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+        raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
     if t.device != device:
-        raise ValueError(f"block_topw: {name} on {t.device}, expected {device}")
+        raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
     if not t.is_contiguous():
-        raise ValueError(f"block_topw: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _raise_on(err: int, fn: str, lib) -> None:
+    """Raise if a C entry of the kernel library returned a cudaError."""
+    if err != 0:
+        raise RuntimeError(
+            f"{fn}: CUDA launch failed with cudaError {err} "
+            f"({lib.ivf_cuda_error_string(err).decode()})"
+        )
 
 
 def block_topw(
@@ -268,11 +279,7 @@ def _launch_cuda(
         w_arg, R, pos_bits, int(sentinel), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"block_topw: CUDA launch failed with cudaError {err} "
-            f"({lib.ivf_cuda_error_string(err).decode()})"
-        )
+    _raise_on(err, "block_topw", lib)
     launch_counts[variant] += 1
     return out
 

@@ -1,0 +1,84 @@
+"""Device-memory accounting (PyTorch port of ``quiver_tpu/utils/memory.py``).
+
+``device_bytes(obj)`` walks an object's attributes and sums the bytes of
+every tensor it owns; engines report it through
+``get_detailed_metrics()["device_bytes"]``. The port keeps its host mirrors
+in numpy, so the tensors an engine holds are the ones on its device.
+Aliases count once: tensors that share one storage are one allocation,
+keyed by ``untyped_storage().data_ptr()`` and counted at the storage's
+size. Whole-card figures (allocator caches, scratch inside a call) come
+from ``torch.cuda.max_memory_allocated()`` instead.
+
+Not ported yet: the per-chip share of a sharded array (``memory.py:48-63``).
+It waits for the sharding slice (ROADMAP.md queue 1, item 11); until then
+every tensor lives whole on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+#: walk depth bound — engines nest at most (engine -> layers[list] ->
+#: _Layer -> tensors); anything deeper is a cycle or a foreign object
+_MAX_DEPTH = 5
+
+
+def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
+    """Bytes of the tensors reachable from ``obj``'s attributes.
+
+    Follows objects of this package, lists/tuples/sets/dicts; stops at any
+    object whose type is in ``skip`` (e.g. VectorStore, so an engine's own
+    footprint excludes the store it shares). Tensors sharing a storage
+    count once, at the storage's size.
+    """
+    seen_objs: set[int] = set()
+    seen_bufs: set = set()
+    total = 0
+
+    def walk(x, depth):
+        nonlocal total
+        if x is None or depth > _MAX_DEPTH:
+            return
+        if isinstance(x, torch.Tensor):
+            storage = x.untyped_storage()
+            key = (x.device, storage.data_ptr())
+            if key not in seen_bufs:
+                seen_bufs.add(key)
+                total += int(storage.nbytes())
+            return
+        if isinstance(x, (str, bytes, int, float, bool, np.ndarray)):
+            return
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v, depth + 1)
+            return
+        if isinstance(x, (list, tuple, set)):
+            for v in x:
+                walk(v, depth + 1)
+            return
+        mod = type(x).__module__ or ""
+        if not mod.startswith("quiver_tpu_torch"):
+            return
+        if isinstance(x, skip) or id(x) in seen_objs:
+            return
+        seen_objs.add(id(x))
+        for v in vars(x).values():
+            walk(v, depth + 1)
+
+    walk(obj, 0)
+    return total
+
+
+def store_device_bytes(store) -> int:
+    """Bytes of a VectorStore's device view (vectors + valid + norms), 0
+    if the view was never materialized."""
+    view = store._device
+    if view is None:
+        return 0
+    return int(sum(
+        t.numel() * t.element_size()
+        for t in (view.vectors, view.valid, view.norms_sq, view.inv_norms)
+    ))

@@ -1,0 +1,144 @@
+"""The port's benchmark entry points, small on the CPU.
+
+``quiver_tpu_torch.bench.headline`` and
+``quiver_tpu_torch.benches.bench_latency.latency_rows`` run at n=8192
+(the headline corpus generator, 128-d) and B=256 and return the fields the
+card run prints; every entry point refuses to run without CUDA and prints
+no result; ``device_bytes()`` equals the JAX engine's on one imported
+topology (the two engines hold the same arrays: centroids and their
+norms, bf16 blocks, slot map, residual norms, inverse norms, keep mask),
+and the accounting counts aliases once.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from quiver_tpu.core.store import VectorStore as JStore
+from quiver_tpu.index.ivf import IVFConfig as JConfig
+from quiver_tpu.index.ivf import IVFIndex as JIVF
+from quiver_tpu_torch import IVFConfig, IVFIndex, VectorStore
+from quiver_tpu_torch import bench
+from quiver_tpu_torch.benches import bench_latency
+from quiver_tpu_torch.benches.common import clustered
+from quiver_tpu_torch.utils.memory import device_bytes, store_device_bytes
+
+from tests.test_ivf import clustered as small_clustered
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_SMALL, B_SMALL, K_SMALL = 8192, 256, 64
+
+
+def test_headline_runs_small_on_cpu():
+    r = bench.headline("cpu", n=N_SMALL, b=B_SMALL, n_clusters=K_SMALL, depth=2,
+                       rounds=2, log=lambda _: None)
+    for key in ("metric", "commit", "utc", "value", "unit", "vs_baseline",
+                "pipeline_depth", "n_probe", "batch", "batch_latency_ms",
+                "run_spread_pct", "recall", "backend", "device", "card",
+                "tuner_holdout_recall", "tuner_holdout_gap", "tuner_sample"):
+        assert key in r, key
+    assert r["backend"] == "torch-cpu" and r["card"] is None
+    assert "CPU host clock" in r["metric"]
+    assert r["unit"] == "qps" and r["value"] > 0 and r["batch"] == B_SMALL
+    assert r["recall"] >= bench.RECALL_GATE
+    assert r["tuner_sample"] == 1024 and r["n_probe"] >= 1
+    assert abs(r["tuner_holdout_gap"] - (r["tuner_holdout_recall"] - r["recall"])) < 1e-3
+
+
+def test_headline_build_cache_round_trip(tmp_path):
+    """A fresh build writes the cache; the cached path imports it and
+    tunes to the same pick."""
+    vecs = clustered(N_SMALL)
+    cache = tmp_path / "ivf.npz"
+    e1 = bench.build_engine(vecs, "cpu", n_clusters=K_SMALL, cache=cache, log=lambda _: None)
+    assert cache.exists()
+    e2 = bench.build_engine(vecs, "cpu", n_clusters=K_SMALL, cache=cache)
+    assert e2._n_retrains == 0 and e2._tuned_n_probe == e1._tuned_n_probe
+    np.testing.assert_array_equal(e2._block_slot.numpy(), e1._block_slot.numpy())
+
+
+def test_latency_rows_small_on_cpu():
+    eng = bench_latency.serving_engine("cpu", clustered(N_SMALL), n_clusters=K_SMALL)
+    assert eng.config.n_probe == 3 and not eng.config.rescore
+    rows = bench_latency.latency_rows(eng, batches=(1, B_SMALL), emit_rows=False)
+    assert [r["metric"].split(" ")[0] for r in rows] == ["ivf", "exact"] * 2
+    for r, b in zip(rows, (1, 1, B_SMALL, B_SMALL)):
+        assert f"B={b} " in r["metric"] and "cpu host-clock" in r["metric"]
+        assert r["unit"] == "ms/batch" and r["value"] > 0
+        assert r["us_per_query"] == pytest.approx(r["value"] * 1e3 / b, rel=1e-2, abs=1e-3)
+        assert r["cpu_qps"] > 0 and "device_qps" not in r
+
+
+@pytest.mark.parametrize("module", [
+    "quiver_tpu_torch.bench",
+    "quiver_tpu_torch.benches.bench_latency",
+    "quiver_tpu_torch.benches.probe",
+])
+def test_entry_points_refuse_without_cuda(module):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-m", module], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "{" not in proc.stdout
+
+
+def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    (tmp_path / "chip_smoke.py").write_bytes(open(os.path.join(REPO, "chip_smoke.py"), "rb").read())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_device_bytes_matches_jax():
+    vecs = small_clustered(5000)
+    ids = [f"v{i}" for i in range(len(vecs))]
+    js = JStore(dim=vecs.shape[1], metric="euclidean", capacity=len(vecs))
+    js.add_batch(ids, vecs)
+    je = JIVF(js, config=JConfig(build_threshold=256))
+    je.build()
+    ts = VectorStore(dim=vecs.shape[1], metric="euclidean", capacity=len(vecs), device="cpu")
+    ts.add_batch(ids, vecs)
+    te = IVFIndex(ts, config=IVFConfig(build_threshold=256))
+    te.import_topology(je.export_topology(), np.arange(js.capacity))
+    assert te.device_bytes() == je.device_bytes()
+    m = te.get_detailed_metrics()
+    mj = je.get_detailed_metrics()
+    assert set(m) == set(mj) and set(m["maintenance"]) == set(mj["maintenance"])
+    assert m["device_bytes"] == mj["device_bytes"]
+    assert m["retrains"] == 0 and m["churn_since_build"] == 0
+    assert te.get_optimization_parameters() == je.get_optimization_parameters()
+    te.set_optimization_parameters(n_probe=5)
+    assert te.config.n_probe == 5
+    for bad in (dict(n_probe=0), dict(n_clusters=3)):
+        with pytest.raises(ValueError):
+            te.set_optimization_parameters(**bad)
+
+
+def test_device_bytes_counts_aliases_once():
+    class Holder:
+        pass
+
+    Holder.__module__ = "quiver_tpu_torch.tests_holder"
+    base = torch.zeros(100, dtype=torch.float32)
+    h = Holder()
+    h.a, h.b, h.c = base, base[10:20], [base.view(10, 10), torch.ones(3, dtype=torch.int64)]
+    h.np_mirror = np.zeros(1000)
+    assert device_bytes(h) == 400 + 24
+    store = VectorStore(dim=4, metric="euclidean", device="cpu")
+    assert store_device_bytes(store) == 0
+    store.add_batch(["a"], np.ones((1, 4), np.float32))
+    store.device_view()
+    h.store = store
+    assert store_device_bytes(store) == store.capacity * (4 * 4 + 1 + 4 + 4)
+    assert device_bytes(h, skip=(VectorStore,)) == 424
+    assert device_bytes(h) == 424 + store_device_bytes(store)

@@ -6,10 +6,12 @@ this file imports no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The hand-written kernel is held against its plain PyTorch version on the
-card (tolerance of ``chip_smoke.compare_keys``: two packing quanta plus 1e-4
-on unpacked scores, positions equal where scores are separated), and the
-slice on the card against the slice on the CPU.
+The hand-written kernels are held against their plain PyTorch versions on
+the card: ``block_topw`` within the tolerance of ``chip_smoke.compare_keys``
+(two packing quanta plus 1e-4 on unpacked scores, positions equal where
+scores are separated), ``scatter_rows`` and ``index_read`` exactly (they
+copy and double floats, or add one int to a float); and the slice on the
+card against the slice on the CPU.
 """
 
 import numpy as np
@@ -115,3 +117,77 @@ def test_block_topw_rejects_unaligned_cmax(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         ivf_cuda.block_topw(*args, **kw, W=36, R=16, pos_bits=6, sentinel=ivf_cuda.KEY_MIN)
     assert ivf_cuda.launch_counts == before
+
+
+def _scatter_case(case, dev):
+    """Operands of one scatter_rows launch: the TPU probe's shape; an empty
+    cluster; ranges that leave rows unwritten; a width of 64 lanes."""
+    from quiver_tpu_torch.benches import probe
+
+    rng = np.random.default_rng(5)
+    if case == "tpu_probe":
+        st, pos, vals, _ = probe.tpu_scatter_inputs(**probe.TPU_SCATTER)
+        K = probe.TPU_SCATTER["K"]
+    else:
+        nchunks, BPc, K = 2, 1000, 7
+        L = 64 if case == "lanes64" else 128
+        lo, hi = (100, BPc - 150) if case == "unwritten_rows" else (0, BPc)
+        cuts = np.sort(rng.integers(lo, hi, (nchunks, K + 1)), axis=1)
+        cuts[:, 0], cuts[:, -1] = lo, hi  # unwritten_rows: head and tail stay -1
+        if case == "empty_cluster":
+            cuts[:, 3] = cuts[:, 2]  # cluster 2 holds no rows
+        st = cuts.astype(np.int32).reshape(-1)
+        pos = np.stack([rng.permutation(BPc) for _ in range(nchunks)]).astype(np.int32).reshape(-1)
+        vals = rng.normal(size=(nchunks, BPc, L)).astype(np.float32)
+    return (torch.from_numpy(vals).to(dev), torch.from_numpy(st).to(dev),
+            torch.from_numpy(pos).to(dev)), K
+
+
+@pytest.mark.parametrize("case", ["tpu_probe", "empty_cluster", "unwritten_rows", "lanes64"])
+def test_scatter_rows_kernel_matches_plain(cuda, case):
+    from quiver_tpu_torch.ops import probe_cuda
+
+    (vals, starts, pos), K = _scatter_case(case, cuda)
+    before = probe_cuda.launch_counts["scatter_rows"]
+    got = probe_cuda.scatter_rows(vals, starts, pos, K=K)
+    assert probe_cuda.launch_counts["scatter_rows"] == before + 1
+    want = probe_cuda.scatter_rows_reference(vals, starts, pos, K=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "unwritten_rows":
+        nchunks, BPc = vals.shape[:2]
+        for c in range(nchunks):
+            lo, hi = int(starts[c * (K + 1)]), int(starts[(c + 1) * (K + 1) - 1])
+            outside = torch.ones(BPc, dtype=torch.bool, device=cuda)
+            outside[pos[c * BPc + lo: c * BPc + hi].long()] = False
+            assert int(outside.sum()) == BPc - (hi - lo) > 0
+            assert bool((got[c][outside] == -1.0).all())
+
+
+@pytest.mark.parametrize("n,grid,stride", [(65536, 4, 1000), (196_608, 3072, 64), (5, 1, 0)])
+def test_index_read_kernel_matches_plain(cuda, n, grid, stride):
+    from quiver_tpu_torch.ops import probe_cuda
+
+    rng = np.random.default_rng(n)
+    big = (torch.arange(n, dtype=torch.int32) if n == 65536
+           else torch.from_numpy(rng.integers(-2**24, 2**24, n).astype(np.int32))).to(cuda)
+    x = torch.full((1, 1), 0.5 if n == 5 else 0.0, device=cuda)
+    before = probe_cuda.launch_counts["index_read"]
+    got = probe_cuda.index_read(big, x, grid=grid, stride=stride)
+    assert probe_cuda.launch_counts["index_read"] == before + 1
+    want = probe_cuda.index_read_reference(big, x, grid=grid, stride=stride)
+    assert got.shape == (1, 1) and torch.equal(got, want)
+    if n == 65536:
+        assert float(got) == 3000.0
+
+
+def test_scatter_rows_rejects_ragged_lanes(cuda):
+    from quiver_tpu_torch.ops import probe_cuda
+
+    vals = torch.zeros(1, 8, 6, device=cuda)
+    starts = torch.tensor([0, 8], dtype=torch.int32, device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    before = dict(probe_cuda.launch_counts)
+    with pytest.raises(ValueError, match="L % 4"):
+        probe_cuda.scatter_rows(vals, starts, pos, K=1)
+    assert probe_cuda.launch_counts == before

@@ -22,6 +22,13 @@ MODULES = [
     "quiver_tpu_torch.index.ivf",
     "quiver_tpu_torch.convert",
     "quiver_tpu_torch._build",
+    "quiver_tpu_torch.ops.probe_cuda",
+    "quiver_tpu_torch.utils.memory",
+    "quiver_tpu_torch.bench",
+    "quiver_tpu_torch.benches.common",
+    "quiver_tpu_torch.benches.truth",
+    "quiver_tpu_torch.benches.bench_latency",
+    "quiver_tpu_torch.benches.probe",
 ]
 
 

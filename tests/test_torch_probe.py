@@ -1,0 +1,135 @@
+"""The probe kernels of the port against ``benches/probe_pallas.py``.
+
+``probe_pallas.main()`` runs in this process on the CPU in Pallas
+interpret mode (its ``INTERPRET`` switched on), with
+``jax.experimental.pallas.pallas_call`` wrapped to record each call's
+inputs and output. The port's plain versions, and its wrappers on CPU
+tensors, must reproduce both recorded outputs exactly from the recorded
+inputs (the kernels copy and double floats, and add one int to a float:
+no rounding differs). Nothing in the JAX package changes.
+
+The rest holds the plain versions to the semantics the CUDA kernels keep
+(empty clusters, rows outside every range left at -1, targets outside the
+chunk skipped) and runs ``quiver_tpu_torch.benches.probe`` small on the
+CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quiver_tpu_torch.benches import probe
+from quiver_tpu_torch.ops.probe_cuda import (
+    index_read,
+    index_read_reference,
+    launch_counts,
+    scatter_rows,
+    scatter_rows_reference,
+)
+
+
+@pytest.fixture(scope="module")
+def pallas_calls():
+    """[(grid, inputs, output)] of the two pallas_calls of probe_pallas.main,
+    run in interpret mode on the CPU."""
+    import jax.experimental.pallas as pl
+
+    import benches.probe_pallas as pp
+
+    calls = []
+    real = pl.pallas_call
+
+    def recording(kernel, **kw):
+        fn = real(kernel, **kw)
+
+        def run(*args):
+            out = fn(*args)
+            calls.append((tuple(kw["grid_spec"].grid),
+                          [np.array(a) for a in args], np.array(out)))
+            return out
+
+        return run
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pp, "INTERPRET", True)
+    mp.setattr(pl, "pallas_call", recording)
+    try:
+        pp.main()
+    finally:
+        mp.undo()
+    assert len(calls) == 2
+    return calls
+
+
+@pytest.mark.parametrize("fn", [scatter_rows_reference, scatter_rows])
+def test_scatter_rows_reproduces_pallas(pallas_calls, fn):
+    (nchunks, K), (starts, pos, vals), out = pallas_calls[0]
+    before = dict(launch_counts)
+    got = fn(torch.from_numpy(vals), torch.from_numpy(starts), torch.from_numpy(pos), K=K)
+    np.testing.assert_array_equal(got.numpy(), out)
+    assert launch_counts == before  # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("fn", [index_read_reference, index_read])
+def test_index_read_reproduces_pallas(pallas_calls, fn):
+    (grid,), (big, x), out = pallas_calls[1]
+    # probe_pallas.py:103 reads big[i * 1000]
+    got = fn(torch.from_numpy(big), torch.from_numpy(x), grid=grid, stride=1000)
+    np.testing.assert_array_equal(got.numpy(), out)
+    assert out.shape == (1, 1) and out[0, 0] == 3000.0
+
+
+def test_scatter_rows_edges():
+    """An empty cluster, rows before the first and after the last range
+    (left at -1), a decreasing range (empty), targets outside the chunk
+    (skipped), two chunks with their own starts."""
+    rng = np.random.default_rng(0)
+    nchunks, BPc, K, L = 2, 40, 5, 8
+    vals = torch.from_numpy(rng.normal(size=(nchunks, BPc, L)).astype(np.float32))
+    starts = torch.tensor([[2, 9, 9, 20, 31, 35],       # cluster 1 empty
+                           [0, 10, 5, 25, 30, 40]],     # cluster 1 decreasing
+                          dtype=torch.int32).reshape(-1)
+    pos = torch.from_numpy(np.stack([rng.permutation(BPc) for _ in range(nchunks)])
+                           .astype(np.int32)).reshape(-1).clone()
+    pos[3] = BPc + 7  # chunk 0, row 3: target outside the chunk
+    got = scatter_rows(vals, starts, pos, K=K)
+    want = np.full((nchunks, BPc, L), -1.0, np.float32)
+    st = starts.numpy().reshape(nchunks, K + 1)
+    ps = pos.numpy().reshape(nchunks, BPc)
+    for c in range(nchunks):
+        for k in range(K):
+            for r in range(st[c, k], st[c, k + 1]):
+                if 0 <= ps[c, r] < BPc:
+                    want[c, ps[c, r]] = 2.0 * vals[c, r].numpy()
+    np.testing.assert_array_equal(got.numpy(), want)
+    unwritten = np.setdiff1d(np.arange(BPc), ps[0, list(range(2, 35))])
+    assert (got.numpy()[0, unwritten] == -1.0).all() and len(unwritten) >= 7
+
+
+def test_wrappers_check_operands():
+    v = torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="starts shape"):
+        scatter_rows(v, torch.zeros(3, dtype=torch.int32), torch.zeros(8, dtype=torch.int32), K=3)
+    with pytest.raises(TypeError, match="pos must be torch.int32"):
+        scatter_rows(v, torch.zeros(4, dtype=torch.int32), torch.zeros(8, dtype=torch.int64), K=3)
+    big = torch.arange(100, dtype=torch.int32)
+    with pytest.raises(ValueError, match="reads past big"):
+        index_read(big, torch.zeros(1, 1), grid=4, stride=34)
+    with pytest.raises(ValueError, match="unsupported device"):
+        index_read(big.to("meta"), torch.zeros(1, 1, device="meta"), grid=2, stride=1)
+
+
+def test_probe_bench_runs_on_cpu():
+    """quiver_tpu_torch.benches.probe at both shapes on the CPU, with the
+    main path's probe ids from a small synthetic probe selection."""
+    pid = probe.synthetic_probe("cpu", B=2048, P=3, K=300)
+    lines = []
+    rec = probe.run_probes("cpu", probe=pid, K=300, log=lines.append)
+    assert lines[0] == "probe scatter: OK"
+    assert lines[1] == "probe index-read: 3000.0 (expect 3000.0)"
+    assert rec["scatter_rows"]["max_abs_err"] == 0.0 == rec["index_read"]["max_abs_err"]
+    scatter, read = rec["main"]
+    assert scatter["vals"].shape == (1, 2048 * 3, probe.LANES)
+    assert read["grid"] == 2048 * 3 // probe.TILE
+    times = probe.time_probes("cpu", rec["main"], reps=1, log=lines.append)
+    assert set(times) == {"scatter_rows", "index_read"}
