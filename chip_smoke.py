@@ -31,10 +31,38 @@ printing any result. Phases, one line each (any failure raises):
    against its expectation and its plain version; launch counts over that
    run; then kernel and plain version timed;
 6. latency: ``benches/bench_latency.py``'s rows at B in {1, 128, 2048,
-   65536} for the slice's engine (n_probe=3, "pairs") and the exact scan.
+   65536} for the slice's engine (n_probe=3, "pairs") and the exact scan;
+7. writes: ``benches/streaming.py``'s run (8 x 8,192 inserts into the 1M
+   engine with live recall, then the refresh and full-rebuild walls), then
+   ``benches/churn.py``'s (45 x 8,192 inserts, a background refresh forced
+   mid-stream on the engine's maintenance stream while queries are
+   served); both engines import phase 4's topology from the bench's build
+   cache. Gates: streaming ``recall_at_10_live`` >= 0.97; churn
+   ``recall_at_10_live_min`` >= 0.92, ``recall_at_10_final`` >= 0.93, at
+   least one maintenance swap and no job error; ``block_topw`` launched,
+   and every one of its calls in the phase held against
+   ``block_topw_reference`` on the operands it was given (:class:`LiveCheck`;
+   the blocks are cloned after each query that follows a write, a copy
+   inside the timed query);
+8. collection: a ``Collection`` on ``cuda:0`` whose engine comes from the
+   registry (``make_engine("ivf", ...)``, the headline config with
+   ``recall_target=0.96``) loads the 1M corpus with ``{"cat", "price"}``
+   metadata in one ``add_batch`` (its first ``on_insert`` builds and tunes
+   the engine); ``search_batch`` of 2,048 requests unfiltered, ``cat = 3``
+   and ``25 < price < 75``; then ``update_batch`` of 8,192 rows (new vectors
+   and ``cat``) and ``delete_batch`` of 8,192 others. Gates: unfiltered
+   recall@10 >= 0.95 against the exact f32 scan; every filtered result
+   satisfies its filter (recall against the masked exact scan recorded,
+   no gate); updated rows are found at their new vectors (top-1 >= 0.95),
+   return their new ``cat`` and follow it through the ``cat`` filter; no
+   deleted id is returned; ``block_topw`` launched, and every one of its
+   calls in the phase (tuner, filter masks, keep bits cleared by the
+   deletes) held against its plain version as in phase 7.
 
-The 1M corpus is generated once and shared by phases 4-6. Then a JSON line
-of kernels, the card line, and last the result line.
+The 1M corpus is generated once and shared by phases 4-8; phase 4's engine
+is dropped before phase 7. Then a JSON line of kernels (their launches are
+the main path's, phase 4; the pairs entry's error covers phases 3, 7 and
+8), the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -48,10 +76,13 @@ import numpy as np
 from quiver_tpu_torch.bench import B as B_SERVE
 from quiver_tpu_torch.bench import (
     B_ORACLE,
+    N_CLUSTERS,
     RECALL_GATE,
     RECALL_TARGET,
     build_engine,
+    cache_path,
     make_queries,
+    save_cache,
 )
 from quiver_tpu_torch.benches.common import K as TOP_K
 from quiver_tpu_torch.benches.common import N, card, clustered, cuda_ms, oracle_kth
@@ -153,6 +184,82 @@ def compare_keys(torch, k_kern, k_ref, s_orig, *, W, R, pos_bits):
         if not bool(((a - b).abs() <= 2 * tol[diff]).all()):
             raise AssertionError("winner positions differ where scores are separated")
     return float(err.max()), n_diff
+
+
+class LiveCheck:
+    """Every ``block_topw`` call the engine makes inside the ``with`` block,
+    held against ``block_topw_reference`` afterwards (:meth:`verify`).
+
+    It wraps the name ``ivf_query`` calls, so the launches are the main
+    path's own, at its shapes, with the engine's real keep bits and filter
+    masks. Each call's operands and keys are cloned as it runs, so later
+    in-place writes to the blocks cannot change them; a block tensor is
+    cloned again only when it was replaced or written since the last clone
+    (its version counter), which costs one copy of the blocks (~0.46 GB on
+    the card) per query that follows a write."""
+
+    def __init__(self):
+        import threading
+
+        self.calls = []
+        self._held = None  # (block tensor, its version, clone)
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from quiver_tpu_torch.ops import ivf_kernels
+
+        self._mod, self._real = ivf_kernels, ivf_kernels.block_topw
+
+        def block_topw(*args, **kw):
+            out = self._real(*args, **kw)
+            self._keep(args, kw, out)
+            return out
+
+        ivf_kernels.block_topw = block_topw
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.block_topw = self._real
+
+    def _keep(self, args, kw, out):
+        def clone(t):
+            return t.clone() if hasattr(t, "clone") else t
+
+        blocks = args[4]
+        with self._lock:
+            held = self._held
+            if held is None or held[0] is not blocks or held[1] != blocks._version:
+                held = self._held = (blocks, blocks._version, blocks.clone())
+            self.calls.append(
+                ([clone(a) for a in args[:4]] + [held[2]],
+                 {k: clone(v) for k, v in kw.items()}, out.clone()))
+
+    def verify(self, torch, phase: str) -> float:
+        """Hold every kept call against the plain version (the tolerance of
+        :func:`compare_keys`); raises on a mismatch or when no call was
+        kept. Returns the largest score error."""
+        from quiver_tpu_torch.ops.ivf_cuda import block_topw_reference, pair_scores_reference
+
+        if not self.calls:
+            raise AssertionError(f"{phase}: no block_topw call to check")
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        worst, diffs, bps = 0.0, 0, set()
+        for args, kw, k_kern in self.calls:
+            k_ref = block_topw_reference(*args, **kw)
+            s_sorted = pair_scores_reference(*args, **{
+                k: kw[k] for k in ("P", "scale", "col_add", "row_add", "col_mul", "sub_cent")})
+            s_orig = torch.empty_like(s_sorted)
+            s_orig[args[3].long()] = s_sorted
+            err, n_diff = compare_keys(torch, k_kern, k_ref, s_orig,
+                                       W=kw["W"], R=kw["R"], pos_bits=kw["pos_bits"])
+            worst, diffs = max(worst, err), diffs + n_diff
+            bps.add((int(args[3].shape[0]), kw["P"], kw["W"], kw["R"]))
+        log(f"{phase} live check: {len(self.calls)} block_topw calls within tolerance "
+            f"of block_topw_reference (BP, P, W, R in {sorted(bps)}): "
+            f"max_abs_err={worst!r} pos_diffs={diffs}")
+        self.calls, self._held = [], None
+        return worst
 
 
 def phase_kernels(torch, dev, *, shape, probes, reps):
@@ -265,6 +372,174 @@ def slice_probe_ids(eng, qdev, n_probe=3):
                        eng.config.probe_sel_approx)[2]
 
 
+def pairs_launches(counts) -> int:
+    """``block_topw`` launches of the pairs variant (W=32, R=2) in a
+    launch-count snapshot."""
+    return counts[(VARIANTS[0][1], VARIANTS[0][2])]
+
+
+def phase_writes(torch, dev, vecs, *, cache) -> float:
+    """Phase 7: the streaming and churn runs on the 1M corpus, gated, their
+    engines imported from phase 4's topology in ``cache``. Returns the
+    largest score error of the phase's own block_topw calls."""
+    from quiver_tpu_torch.benches import churn, streaming
+    from quiver_tpu_torch.ops import ivf_cuda
+
+    ivf_cuda.reset_launch_counts()
+    with LiveCheck() as live:
+        rows = streaming.run(dev, base=vecs, cache=cache, log=log)
+        res = churn.run(dev, base=vecs, cache=cache, log=log)
+    counts = dict(ivf_cuda.launch_counts)
+    stream = next(r for r in rows if r["metric"].startswith("ivf streaming"))
+    if not stream["recall_at_10_live"] >= 0.97:
+        raise AssertionError(f"streaming recall_at_10_live {stream['recall_at_10_live']} < 0.97")
+    if res["maint"]["error"] is not None or res["maint_swaps"] < 1:
+        raise AssertionError(f"churn maintenance: {res['maint']}")
+    if not (res["recall_at_10_live_min"] >= 0.92 and res["recall_at_10_final"] >= 0.93):
+        raise AssertionError(
+            f"churn recall: live min {res['recall_at_10_live_min']} (gate 0.92), "
+            f"final {res['recall_at_10_final']} (gate 0.93)")
+    log(f"writes launches: {counts}")
+    if pairs_launches(counts) <= 0:
+        raise AssertionError("block_topw pairs was not launched by the write phase")
+    return live.verify(torch, "writes")
+
+
+def phase_collection(torch, dev, vecs, *, n_req=2048, n_upd=8192, seed=5) -> float:
+    """Phase 8: the Collection on the card, gated (module docstring).
+    Returns the largest score error of the phase's own block_topw calls."""
+    from quiver_tpu_torch.ops import ivf_cuda
+
+    ivf_cuda.reset_launch_counts()
+    with LiveCheck() as live:
+        _collection_run(torch, dev, vecs, n_req=n_req, n_upd=n_upd, seed=seed)
+    counts = dict(ivf_cuda.launch_counts)
+    log(f"collection launches: {counts}")
+    if pairs_launches(counts) <= 0:
+        raise AssertionError("block_topw pairs was not launched by the collection phase")
+    return live.verify(torch, "collection")
+
+
+def _collection_run(torch, dev, vecs, *, n_req, n_upd, seed):
+    """Phase 8's run and gates, apart from its launch counts."""
+    from quiver_tpu_torch import Collection, make_engine
+    from quiver_tpu_torch.benches.common import recall_at_k
+    from quiver_tpu_torch.benches.streaming import stream_rows
+    from quiver_tpu_torch.index.exact import ExactIndex
+    from quiver_tpu_torch.types import Filter, SearchOptions, SearchRequest
+
+    n = len(vecs)
+
+    def factory(store):
+        return make_engine(
+            "ivf", store, n_clusters=1024, n_probe=3, q_cap_factor=2, kmeans_iters=8,
+            build_threshold=1024, rescore=False, recall_target=RECALL_TARGET)
+
+    coll = Collection("chip", 128, "euclidean", device=dev, engine_factory=factory)
+    rng = np.random.default_rng(seed)  # the recipe of benches/bench_filtered.py:23-26
+    cats = rng.integers(0, 10, n)
+    prices = rng.random(n) * 100
+    mds = [{"cat": int(c), "price": float(p)} for c, p in zip(cats, prices)]
+    ids = [f"v{i}" for i in range(n)]
+    t0 = time.perf_counter()
+    coll.add_batch(ids, vecs, mds)
+    torch.cuda.synchronize()
+    eng = coll.engine
+    log(f"collection load: n={coll.size} load_s={time.perf_counter() - t0!r} "
+        f"build_s={eng._last_rebuild_s!r} n_probe={eng.config.n_probe} "
+        f"tuned_recall={eng._tuned_recall!r} K'={eng.n_clusters}")
+    if not eng._built or eng.name != "ivf":
+        raise AssertionError("the collection's first add_batch did not build the IVF engine")
+
+    queries, _ = make_queries(vecs, n_req, n_req)
+    forms = {
+        "unfiltered": [],
+        "cat=3": [Filter("cat", "=", 3)],
+        "25<price<75": [Filter("price", ">", 25.0), Filter("price", "<", 75.0)],
+    }
+    exact = ExactIndex(coll.store)
+    store = coll.store
+
+    def requests(qs, filters, **kw):
+        return [SearchRequest(vector=q, top_k=TOP_K, filters=list(filters), **kw) for q in qs]
+
+    def slots_of(resps):
+        out = np.full((len(resps), TOP_K), -1, np.int64)
+        for b, r in enumerate(resps):
+            for j, it in enumerate(r.results):
+                out[b, j] = store.slot_of(it.id)
+        return out
+
+    def satisfied(resps, filters, cat_of, price_of):
+        for r in resps:
+            for it in r.results:
+                c, p = cat_of(it.id), price_of(it.id)
+                for f in filters:
+                    v = c if f.field == "cat" else p
+                    ok = {"=": v == f.value, ">": v > f.value, "<": v < f.value}[f.operator]
+                    if not ok:
+                        raise AssertionError(f"{it.id} ({c}, {p}) fails {f}")
+
+    def meta(vid, key):
+        return store.metadata_of_slot(store.slot_of(vid))[key]
+
+    for name, filters in forms.items():
+        reqs = requests(queries, filters)
+        coll.search_batch(reqs)  # first use
+        t0 = time.perf_counter()
+        resps = coll.search_batch(reqs)
+        ms = (time.perf_counter() - t0) * 1e3
+        mask = coll.facets.compile_request_filters(filters) if filters else None
+        _, truth = exact.search_slots(queries, TOP_K, mask=mask)
+        r = recall_at_k(slots_of(resps), truth, TOP_K)
+        satisfied(resps, filters, lambda v: meta(v, "cat"), lambda v: meta(v, "price"))
+        log(f"collection search_batch {name}: B={n_req} ms_per_call={ms!r} "
+            f"recall@{TOP_K}={r!r} (exact{' masked' if filters else ''} f32 oracle)")
+        if not filters and r < 0.95:
+            raise AssertionError(f"collection unfiltered recall@10 {r} < 0.95")
+
+    # updates (new vectors, new cat) and deletes of disjoint rows
+    pick = np.random.default_rng(seed + 1).permutation(np.arange(n_req, n))[: 2 * n_upd]
+    upd, dele = pick[:n_upd], pick[n_upd:]
+    new_vecs = stream_rows(n_upd, seed=seed + 2)
+    new_cats = (cats[upd] + 1) % 10
+    upd_ids = [ids[i] for i in upd]
+    del_ids = {ids[i] for i in dele}
+    t0 = time.perf_counter()
+    coll.update_batch(upd_ids, new_vecs, [{"cat": int(c), "price": float(prices[i])}
+                                          for c, i in zip(new_cats, upd)])
+    torch.cuda.synchronize()
+    t_upd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if coll.delete_batch(sorted(del_ids)) != n_upd:
+        raise AssertionError("delete_batch did not remove every row")
+    torch.cuda.synchronize()
+    log(f"collection update_batch {n_upd}: {t_upd!r} s; delete_batch {n_upd}: "
+        f"{time.perf_counter() - t0!r} s; size {coll.size}")
+
+    opts = SearchOptions(include_metadata=True)
+    hits = coll.search_batch(requests(new_vecs, [], options=opts))
+    top1 = np.mean([bool(r.results) and r.results[0].id == vid for r, vid in zip(hits, upd_ids)])
+    for r, vid, c in zip(hits, upd_ids, new_cats):
+        if r.results and r.results[0].id == vid and r.results[0].metadata["cat"] != int(c):
+            raise AssertionError(f"{vid}: include_metadata returned a stale cat")
+    follow = coll.search_batch([SearchRequest(vector=v, top_k=TOP_K, filters=[Filter("cat", "=", int(c))])
+                                for v, c in zip(new_vecs, new_cats)])
+    follow_hit = np.mean([any(it.id == vid for it in r.results) for r, vid in zip(follow, upd_ids)])
+    old = coll.search_batch([SearchRequest(vector=v, top_k=TOP_K, filters=[Filter("cat", "=", int(c))])
+                             for v, c in zip(new_vecs, cats[upd])])
+    if any(it.id == vid for r, vid in zip(old, upd_ids) for it in r.results):
+        raise AssertionError("an updated row still matches its old cat")
+    log(f"collection after update: self top-1 {float(top1)!r}, cat filter follows {float(follow_hit)!r}")
+    if top1 < 0.95 or follow_hit < 0.95:
+        raise AssertionError(f"updated rows: top-1 {top1}, cat filter {follow_hit} (gate 0.95)")
+    seen = [it.id for resps in (hits, follow, old) for r in resps for it in r.results]
+    for filters in forms.values():
+        seen += [it.id for r in coll.search_batch(requests(queries, filters)) for it in r.results]
+    if del_ids.intersection(seen):
+        raise AssertionError("a deleted id was returned")
+
+
 def main() -> int:
     import torch
 
@@ -322,6 +597,18 @@ def main() -> int:
     ivf_cuda.reset_launch_counts()
     bench_latency.latency_rows(eng)
     log(f"latency launches: {dict(ivf_cuda.launch_counts)}")
+    cache = cache_path(N, N_CLUSTERS)
+    save_cache(eng, cache)  # phase 7 imports this topology, builds none
+    del eng, qdev
+    torch.cuda.empty_cache()
+
+    # phase 7: the write path (streaming, then churn with background
+    # maintenance); phase 8: the Collection with facet filters. Their own
+    # block_topw calls join the pairs entry's error.
+    live_err = phase_writes(torch, dev, vecs, cache=cache)
+    torch.cuda.empty_cache()
+    live_err = max(live_err, phase_collection(torch, dev, vecs))
+    records["pairs"]["max_abs_err"] = max(records["pairs"]["max_abs_err"], live_err)
 
     kernels = []
     for variant, rec in records.items():

@@ -15,10 +15,15 @@ tensor lives on the device the store was created with; kernels build at
 first use (``_build.py``).
 """
 
+from quiver_tpu_torch.core.collection import Collection
 from quiver_tpu_torch.core.store import VectorStore
+from quiver_tpu_torch.index import make_engine
 from quiver_tpu_torch.index.exact import ExactIndex
 from quiver_tpu_torch.index.ivf import IVFConfig, IVFIndex
 from quiver_tpu_torch.types import DistanceType
 
-__all__ = ["DistanceType", "ExactIndex", "IVFConfig", "IVFIndex", "VectorStore"]
+__all__ = [
+    "Collection", "DistanceType", "ExactIndex", "IVFConfig", "IVFIndex",
+    "VectorStore", "make_engine",
+]
 __version__ = "0.1.0"

@@ -102,15 +102,16 @@ def make_queries(vecs: np.ndarray, b: int, b_oracle: int):
 def build_engine(
     vecs: np.ndarray, device, *, n_clusters: int = N_CLUSTERS, n_probe: int = 0,
     recall_target: Optional[float] = RECALL_TARGET, cache: Optional[Path] = None,
-    log=print,
+    capacity: Optional[int] = None, log=print,
 ):
-    """The headline engine over a store of ``vecs`` on ``device``.
-    ``n_probe`` 0 tunes it to ``recall_target``; a cached topology is
-    imported (then tuned) instead of built, and a fresh build is cached."""
+    """The headline engine over a store of ``vecs`` on ``device``, with
+    room for ``capacity`` rows (default: ``len(vecs)``). ``n_probe`` 0
+    tunes it to ``recall_target``; a cached topology is imported (then
+    tuned) instead of built, and a fresh build is cached."""
     from quiver_tpu_torch import IVFConfig, IVFIndex, VectorStore
 
     n, d = vecs.shape
-    store = VectorStore(dim=d, metric="euclidean", capacity=n, device=device)
+    store = VectorStore(dim=d, metric="euclidean", capacity=capacity or n, device=device)
     store.add_batch([f"v{i}" for i in range(n)], vecs)
     eng = IVFIndex(store, config=IVFConfig(
         n_clusters=n_clusters, n_probe=n_probe or 3, q_cap_factor=2,
@@ -129,12 +130,17 @@ def build_engine(
     eng.build()
     log(f"# build {time.perf_counter() - t0:.1f}s K'={eng.n_clusters}")
     if cache is not None:
-        topo = eng.export_topology()
-        cache.parent.mkdir(parents=True, exist_ok=True)
-        tmp = cache.with_suffix(".tmp.npz")
-        np.savez(tmp, centroids=topo["centroids"], assign=topo["assign"], cmax=topo["cmax"])
-        os.replace(tmp, cache)
+        save_cache(eng, cache)
     return eng
+
+
+def save_cache(eng, cache: Path) -> None:
+    """Write ``eng``'s topology where :func:`build_engine` reads it."""
+    topo = eng.export_topology()
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    tmp = cache.with_suffix(".tmp.npz")
+    np.savez(tmp, centroids=topo["centroids"], assign=topo["assign"], cmax=topo["cmax"])
+    os.replace(tmp, cache)
 
 
 def time_batches(eng, qdev: torch.Tensor, k: int, *, depth: int, rounds: int):

@@ -41,6 +41,15 @@ def clustered(n, seed=0):
     return out.astype(np.float32)
 
 
+def recall_at_k(got_idx, truth_idx, k: int) -> float:
+    """Mean overlap of each query's returned ids with its true top-k ids
+    (``benches/common.py:65-69``)."""
+    return float(np.mean([
+        len(set(got_idx[b].tolist()) & set(truth_idx[b].tolist())) / k
+        for b in range(len(got_idx))
+    ]))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean ms per call over ``reps`` back-to-back calls, by CUDA events
     after a warm-up call and a synchronize."""

@@ -7,7 +7,11 @@ of its device arrays, or its ``export_topology()`` dict). Two routes:
   tensors on a device, so both packages' query functions run on identical
   block arrays;
 * an index: ``IVFIndex.import_topology(jax_index.export_topology(), remap)``
-  on a port store holding the same ids lays out the same blocks.
+  on a port store holding the same ids lays out the same blocks;
+* a collection: :func:`collection_from_snapshot` loads the rows of a JAX
+  ``Collection.store.snapshot()`` into a port ``Collection`` and installs
+  its engine's topology, the route the JAX DB takes on reload
+  (``quiver_tpu/core/db.py:204-237``).
 
 One trap: ``np.asarray`` of a JAX bf16 array gives an ``ml_dtypes.bfloat16``
 array, which ``torch.from_numpy`` rejects. It crosses as its int16 bit
@@ -61,3 +65,40 @@ def ivf_arrays_from_numpy(
         torch.tensor(np.asarray(block_keep, bool), device=device),
         f32(store_vectors),
     )
+
+
+def collection_from_snapshot(
+    snapshot, *, name: str, metric, facet_fields=(), topology=None,
+    snapshot_slots=None, engine_factory=None, device,
+):
+    """A port ``Collection`` holding a JAX collection's rows.
+
+    ``snapshot`` is ``(ids, vectors f32[n, d], metadata)`` from the JAX
+    ``Collection.store.snapshot()``; the rows load through ``load_rows``
+    (no engine or WAL notification). With ``topology`` (the JAX engine's
+    ``export_topology()``) and ``snapshot_slots`` (the JAX store's
+    ``live_slots()``, the slot of each snapshot row), the engine imports the
+    topology with the old-slot -> new-slot remap; without it, the engine
+    indexes the rows as fresh inserts."""
+    from quiver_tpu_torch.core.collection import Collection
+
+    ids, vectors, metadatas = snapshot
+    vectors = np.asarray(vectors, np.float32)
+    coll = Collection(
+        name, vectors.shape[1], metric, facet_fields=facet_fields,
+        engine_factory=engine_factory, device=device,
+    )
+    if not len(ids):
+        return coll
+    slots = coll.load_rows(list(ids), vectors, list(metadatas))
+    engine = coll.engine
+    if topology is not None:
+        if snapshot_slots is None:
+            raise ValueError("a topology needs the snapshot's slots (live_slots())")
+        old = np.asarray(snapshot_slots, np.int64)
+        remap = np.full(int(old.max(initial=-1)) + 1, -1, np.int64)
+        remap[old] = slots
+        engine.import_topology(topology, remap)
+    elif hasattr(engine, "on_insert"):
+        engine.on_insert(slots, vectors)
+    return coll

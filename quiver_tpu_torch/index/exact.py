@@ -8,8 +8,8 @@ small corpora, Manhattan, per-query masks and the under-fill supplement.
 Not ported: the pow2 batch padding (``exact.py:110-125``), which exists only
 to bound XLA's compiled shapes; the host fetch helper
 (``utils/transfer.py``); and the approximate/bf16 scan modes
-(``approx_recall``, ``compute_dtype``) — products here are always f32 with
-TF32 off.
+(``approx_recall``, ``compute_dtype``: ROADMAP.md queue 1, item 8) —
+products here are always f32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -26,8 +26,14 @@ from quiver_tpu_torch.ops.scan import flat_scan_topk, negative_rerank
 class ExactIndex:
     """Flat-scan index; shares the collection's VectorStore (no extra copy)."""
 
+    name = "exact"
+
     def __init__(self, store: VectorStore):
         self.store = store
+
+    @property
+    def size(self) -> int:
+        return self.store.size
 
     def search_slots(
         self,

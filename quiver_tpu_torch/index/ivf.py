@@ -13,22 +13,59 @@ keep-bit tombstones (:meth:`_vacate_slots`); rows outside the blocks sit in
 an exactly scanned overflow set that is merged into every answer.
 
 The port has the build, the query, the n_probe tuner (``recall_target``,
-:meth:`IVFIndex.tune_n_probe`) and the engine's metrics. Still to come,
-each raising ``NotImplementedError`` with its ROADMAP.md item: the write
-path (``on_insert``/``on_update``/``on_delete``), maintenance
-(``refresh``, background rebuilds) and ``formulation="einsum"``.
+:meth:`IVFIndex.tune_n_probe`), the engine's metrics, and the live index:
+
+* the write path — :meth:`IVFIndex.on_insert` places each row at its
+  nearest centroid's next free block position (rows past ``cmax`` spill to
+  the exactly scanned overflow set; rows the centroids cannot represent go
+  there through the ``insert_drift`` router), :meth:`IVFIndex.on_update`
+  rewrites a row in place or moves it, :meth:`IVFIndex.on_delete` leaves a
+  keep-bit tombstone. The block arrays are written in place by
+  :func:`_scatter_blocks_dev`, which gathers the rows from the store's
+  device copy;
+* the churn tiers (:meth:`IVFIndex._maybe_rebuild`): a re-layout on the
+  trained centroids (:meth:`IVFIndex.refresh`, which escalates to
+  :meth:`IVFIndex.build` when the centroids no longer fit the corpus) past
+  ``rebuild_growth``, a retrain past ``retrain_growth`` or a drift-heavy
+  overflow;
+* background maintenance (``background_maintenance=True``): the tier runs
+  on a thread into a staging clone built from a store snapshot, catches up
+  with racing writes from the store's change feed, and is adopted under the
+  engine lock. On a CUDA store the job's device work runs on a stream the
+  engine owns (``_maint_stream``); queries and writes run on the caller's
+  stream (the device's default stream, where the store syncs). At the swap
+  the default stream waits for the job's last replay, and every adopted
+  tensor is marked used by it (``record_stream``), so the caching
+  allocator cannot give its memory to the next job while serving kernels
+  are queued on it. A CPU store runs the same job on its thread with no
+  stream. Serving from a stream of higher priority than the job's was
+  measured and not kept: the job's host steps, not its kernels, hold
+  queries back (``PERF.md``, PR 3).
+
+``formulation="einsum"`` still raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 
 Reference workarounds not ported, because their cause is absent here:
 
 * the host fetch helpers (``utils/transfer.py``; ``ivf.py:1709,1751,1778``)
   — results come back with one ``.cpu()``;
 * the XLA persistent compile cache (``quiver_tpu/__init__.py:30-59``);
-* ``maint_pace_s`` pacing and the chunked layout programs
-  (``ivf.py:199-260,362-372``) — the layout is one torch pass
-  (:func:`_layout_dev`);
-* the pow2 batch padding of ``search_slots`` (``ivf.py:1684-1692``) and the
-  pow2 padding of the overflow scan (``ivf.py:1769-1776``): PyTorch runs
-  eagerly and compiles nothing per shape;
+* ``maint_pace_s`` pacing: ``_pace``, ``_layout_dev_paced`` and
+  ``_layout_dev_chunk`` (``ivf.py:199-260,362-372,1244-1248``). Their cause
+  is one TPU program holding the chip; here maintenance runs on its own
+  CUDA stream and the layout is one torch pass (:func:`_layout_dev`). The
+  field stays in :class:`IVFConfig` so configs carry across, and is
+  ignored. So the reference's faults of pacing after the last chunk
+  (``ivf.py:920,952,1294``) cannot occur here;
+* ``_warm_staging`` (``ivf.py:1194-1218``) and the served-shape record it
+  reads: it compiles the staging layout's XLA programs before the swap, and
+  eager PyTorch compiles nothing;
+* the pow2 padding with out-of-bounds ``mode="drop"`` rows of the write
+  path, the keep-bit scatter and ``warmup`` (``ivf.py:1447-1458,
+  1529-1544, 838-850``), of ``search_slots``' batch
+  (``ivf.py:1684-1692``) and of the overflow scan (``ivf.py:1769-1776``):
+  they exist for XLA's static shapes; the port scatters and scores exactly
+  the batch's rows;
 * ``compute_dtype``: blocks are bf16, the only dtype the kernel takes;
 * ``fused_kg`` (``IVFConfig``): the CUDA kernel has no counterpart to the
   Pallas grid's cluster grouping and ignores it.
@@ -36,6 +73,8 @@ Reference workarounds not ported, because their cause is absent here:
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import threading
 import time
 from dataclasses import dataclass
@@ -58,6 +97,13 @@ from quiver_tpu_torch.ops.ivf_kernels import (
 )
 from quiver_tpu_torch.ops.scan import MASKED_DIST, negative_rerank
 from quiver_tpu_torch.types import DistanceType
+
+_log = logging.getLogger(__name__)
+
+#: swap-time replay budget: deltas larger than this replay without the
+#: engine lock first (catch-up loop), so the final locked replay — the only
+#: write/query stall the swap imposes — stays small and bounded
+_LOCKED_REPLAY_MAX = 8192
 
 
 def _pow2(n: int, lo: int = 8) -> int:
@@ -103,7 +149,9 @@ def _layout_dev(block_slot, vectors, norms_sq, cents):
     """Block layout in one pass on the device: gather every placed row
     from the store's device copy and form the block arrays. Returns
     (blocks_t bf16[K, d, Cmax], rns f32[K, Cmax], inv f32[K, Cmax],
-    keep bool[K, Cmax])."""
+    keep bool[K, Cmax], rsum f32[]): ``rsum`` is the sum of the placed
+    rows' squared residuals (unoccupied positions add zero), the drift
+    baseline's numerator."""
     keep = block_slot >= 0
     safe = block_slot.clamp_min(0).long()
     resid = torch.where(keep[..., None], vectors[safe] - cents[:, None, :], 0.0)
@@ -111,7 +159,56 @@ def _layout_dev(block_slot, vectors, norms_sq, cents):
     ns = torch.where(keep, norms_sq[safe], 0.0)
     inv = torch.where(ns > 0, torch.rsqrt(torch.clamp(ns, min=1e-30)), 0.0)
     blocks_t = resid.transpose(1, 2).to(torch.bfloat16).contiguous()
-    return blocks_t, rns, inv, keep
+    return blocks_t, rns, inv, keep, torch.sum(rns)
+
+
+def _affine_scores(v, cent, c_ns, live):
+    """Nearest-centroid affine scores 2 v.c - |c|^2, reserved ids
+    (``live`` False; None = all live) masked to -inf."""
+    scores = 2.0 * (v @ cent.T) - c_ns[None, :]
+    if live is not None:
+        scores = torch.where(live[None, :], scores, -torch.inf)
+    return scores
+
+
+def _nearest_centroid(v, cent, c_ns, live):
+    """(argmax, max) of :func:`_affine_scores`. |v - c*|^2 = |v|^2 - max,
+    so the max doubles as a residual readout (the drift router and the
+    refresh drift detector)."""
+    scores = _affine_scores(v, cent, c_ns, live)
+    best = torch.argmax(scores, dim=1)
+    return best, scores.gather(1, best[:, None])[:, 0]
+
+
+def _nearest_centroid_slots(slots, vectors, cent, c_ns, live):
+    """:func:`_nearest_centroid` for store rows addressed by slot: the
+    gather reads the store's device copy, so the write path and refresh
+    upload slot indices, never vector data."""
+    return _nearest_centroid(vectors[slots], cent, c_ns, live)
+
+
+def _scatter_blocks_dev(
+    blocks_t, block_ns, block_inv, block_slot,
+    vectors, norms_sq, cent, rows, pos, slots,
+):
+    """A write batch's block-array maintenance, in place: gather the rows
+    from the store's device copy, form residuals and per-row stats, and
+    scatter all four block arrays at (cluster ``rows``, position ``pos``).
+    Index tensors are int64 on the blocks' device, one entry per row.
+
+    ``blocks_t[rows, :, pos]`` is mixed advanced indexing on [K, d, Cmax]:
+    the two index tensors are separated by a slice, so the indexed view is
+    laid out [m, d] with the advanced dimension first (numpy's rule), and
+    each row writes d bf16 values at stride Cmax."""
+    v = vectors[slots]
+    resid = v - cent[rows]
+    rns = torch.sum(resid * resid, dim=1)
+    ns = norms_sq[slots]
+    inv = torch.where(ns > 0, torch.rsqrt(torch.clamp(ns, min=1e-30)), 0.0)
+    blocks_t[rows, :, pos] = resid.to(blocks_t.dtype)
+    block_ns[rows, pos] = rns
+    block_inv[rows, pos] = inv
+    block_slot[rows, pos] = slots.to(block_slot.dtype)
 
 
 def _overflow_topk(q, slots, vectors, norms_sq, *, metric, k):
@@ -156,14 +253,28 @@ class IVFConfig:
     rescore: bool = True
     #: below a quarter of this many rows the exact scan serves queries
     build_threshold: int = 8192
-    #: write-path and maintenance knobs (not ported yet; kept so configs
-    #: carry across)
+    #: re-layout (:meth:`IVFIndex.refresh`, existing centroids) when
+    #: (inserts+updates+deletes since the layout) / built size exceeds this
     rebuild_growth: float = 0.3
+    #: full retrain (k-means + split) when that ratio exceeds this
     retrain_growth: float = 1.0
+    #: refresh escalates to a retrain when the corpus's mean squared
+    #: residual exceeds this multiple of the at-build value
     refresh_drift: float = 2.0
+    #: per-row drift router: a written row whose squared residual exceeds
+    #: this multiple of the at-build mean goes to the exactly scanned
+    #: overflow set instead of a block (None disables it)
     insert_drift: Optional[float] = 6.0
+    #: churn maintenance goes straight to a retrain when drift-routed
+    #: overflow exceeds this fraction of the built corpus
     drift_rebuild: float = 0.03
+    #: run churn-triggered refresh/retrain in the background (a thread; on
+    #: a CUDA store its device work runs on the engine's own stream);
+    #: False runs the tier inline inside the triggering write call
     background_maintenance: bool = True
+    #: reference: sleep between the maintenance job's TPU programs. Ignored
+    #: here (the job runs on its own CUDA stream; module docstring); kept
+    #: so configs carry across
     maint_pace_s: float = 0.05
     #: n_probe tuner: set = build() tunes n_probe to this recall@10
     recall_target: Optional[float] = None
@@ -177,10 +288,25 @@ class IVFIndex:
     """Inverted-file engine over a shared VectorStore, on the store's
     device."""
 
-    def __init__(self, store: VectorStore, *, config: Optional[IVFConfig] = None):
+    name = "ivf"
+
+    def __init__(
+        self,
+        store: VectorStore,
+        *,
+        config: Optional[IVFConfig] = None,
+        compute_dtype=None,
+        **cfg_overrides,
+    ):
+        if compute_dtype not in (None, torch.bfloat16):
+            raise NotImplementedError(
+                f"IVFIndex compute_dtype={compute_dtype}: blocks are bf16 only "
+                "(other dtypes: ROADMAP.md queue 1, item 8)"
+            )
         self.store = store
         self.device = store.device
-        self.config = config or IVFConfig()
+        self.config = config or IVFConfig(**cfg_overrides)
+        self.compute_dtype = torch.bfloat16
         self._exact = ExactIndex(store)
         #: bool[K] — False rows are reserved cluster ids (None = all live)
         self._cluster_live = None
@@ -193,15 +319,41 @@ class IVFIndex:
         self._block_inv = None  # f32[K, Cmax] 1/|v| full-vector
         self._block_keep = None  # bool[K, Cmax] occupied & live
         self._keep_pending: list[tuple[int, int, bool]] = []  # lazy scatters
+        self._fill = None  # np i64[K] next free position per cluster
+        self._built_resid = None  # mean |v - c|^2 at layout (drift baseline)
         self._slot_pos = None  # np i64[cap, 2] slot -> (cluster, pos), -1
         self._overflow: set[int] = set()
+        #: subset of _overflow routed there by the per-row drift router
+        #: (config.insert_drift): refresh keeps them; only a retrain drains
+        self._drift: set[int] = set()
+        self._built_size = 0
+        self._churn = 0
         self._cmax = None
         self._n_retrains = 0  # full k-means builds
+        self._n_refreshes = 0  # re-layouts on existing centroids
         self._tuned_n_probe: Optional[int] = None  # recall_target tuner pick
         self._tuned_recall: Optional[float] = None  # its measured recall@k
         self._tuned_stderr: Optional[float] = None  # holdout sampling stderr
         self._last_rebuild_s = 0.0
+        # --- background maintenance: the engine lock serializes writes,
+        # layout swaps and the query path's host preamble; a staging clone
+        # (same class, same store) builds the next layout off-thread and
+        # _adopt() transplants it
         self._lock = threading.RLock()
+        self._staging = False  # True on maintenance clones (inert triggers)
+        self._layout_gen = 0  # bumps on every installed layout
+        self._maint_thread: Optional[threading.Thread] = None
+        self._maint_pending: Optional[str] = None
+        self._maint_error: Optional[str] = None
+        self._maint_swaps = 0
+        self._maint_last_stall_s = 0.0
+        #: the stream the maintenance job's device work runs on (CUDA
+        #: stores; created with the first job)
+        self._maint_stream: Optional[torch.cuda.Stream] = None
+
+    @property
+    def size(self) -> int:
+        return self.store.size
 
     @property
     def n_clusters(self) -> Optional[int]:
@@ -463,21 +615,20 @@ class IVFIndex:
             raise ValueError(f"immutable or unknown parameters: {sorted(unknown)}")
 
     def get_detailed_metrics(self) -> dict:
-        """The reference's keys (``quiver_tpu/index/ivf.py:1809-1843``).
-        Until the write path and maintenance are ported (ROADMAP.md queue 1,
-        item 7), their keys hold what an engine that has taken no writes
-        reports: no drift overflow, churn 0, no refreshes, no maintenance in
-        flight."""
+        """The reference's keys (``quiver_tpu/index/ivf.py:1809-1843``)."""
         with self._lock:
+            inflight = (
+                self._maint_thread is not None and self._maint_thread.is_alive()
+            )
             return {
-                "size": self.store.size,
+                "size": self.size,
                 "built": self._built,
                 "n_clusters": self.n_clusters,
                 "overflow": len(self._overflow),
-                "drift_overflow": 0,
-                "churn_since_build": 0,
+                "drift_overflow": len(self._drift),
+                "churn_since_build": self._churn,
                 "retrains": self._n_retrains,
-                "refreshes": 0,
+                "refreshes": self._n_refreshes,
                 "last_retrain_s": round(self._last_rebuild_s, 3),
                 "tuned_n_probe": self._tuned_n_probe,
                 "tuned_recall": (
@@ -487,11 +638,11 @@ class IVFIndex:
                     None if self._tuned_stderr is None else round(self._tuned_stderr, 4)
                 ),
                 "maintenance": {
-                    "inflight": False,
-                    "pending": None,
-                    "swaps": 0,
-                    "last_swap_stall_s": 0.0,
-                    "error": None,
+                    "inflight": inflight,
+                    "pending": self._maint_pending,
+                    "swaps": self._maint_swaps,
+                    "last_swap_stall_s": round(self._maint_last_stall_s, 4),
+                    "error": self._maint_error,
                 },
                 "device_bytes": self.device_bytes(),
                 "config": self.get_optimization_parameters(),
@@ -522,57 +673,536 @@ class IVFIndex:
         cent = torch.from_numpy(np.ascontiguousarray(cents, np.float32)).to(self.device)
         return cent, torch.sum(cent * cent, dim=1)
 
-    def _centroid_scores(self, v: torch.Tensor) -> torch.Tensor:
-        """Nearest-centroid affine scores 2 v.c - |c|^2, reserved cluster
-        ids masked to -inf."""
-        cent, c_ns = self._cent_dev
-        scores = 2.0 * (v @ cent.T) - c_ns[None, :]
-        if self._cluster_live is not None:
-            live = torch.as_tensor(self._cluster_live, device=self.device)
-            scores = torch.where(live[None, :], scores, -torch.inf)
-        return scores
+    def _live_dev(self) -> Optional[torch.Tensor]:
+        """``_cluster_live`` on the device (None: every cluster is live)."""
+        if self._cluster_live is None:
+            return None
+        return torch.as_tensor(np.asarray(self._cluster_live, bool), device=self.device)
 
     def _assign_scores(self, vectors: np.ndarray) -> np.ndarray:
         """Nearest-centroid affine scores for host rows (balance pass)."""
         v = torch.as_tensor(np.asarray(vectors, np.float32), device=self.device)
-        return self._centroid_scores(v).cpu().numpy()
+        return _affine_scores(v, *self._cent_dev, self._live_dev()).cpu().numpy()
 
     def _assign_nearest(self, vectors: np.ndarray, chunk: int = 1 << 16):
         """Nearest live-centroid id per host row, row-chunked so the
         [chunk, K] score tensor stays bounded."""
+        cent, c_ns = self._cent_dev
+        live = self._live_dev()
         out = np.empty(len(vectors), np.int64)
         for at in range(0, len(vectors), chunk):
             v = torch.as_tensor(
                 np.asarray(vectors[at: at + chunk], np.float32), device=self.device
             )
-            out[at: at + len(v)] = (
-                torch.argmax(self._centroid_scores(v), dim=1).cpu().numpy()
-            )
+            out[at: at + len(v)] = _nearest_centroid(v, cent, c_ns, live)[0].cpu().numpy()
         return out
 
-    # ---------------------------------------------------- not yet ported
+    def _assign_nearest_slots(self, slots: np.ndarray, chunk: int = 1 << 16):
+        """(nearest live-centroid id i64, winning affine score f32) for
+        store rows by slot, in chunks of ``chunk`` rows gathered from the
+        store's device copy: a full-corpus refresh uploads only slot
+        indices."""
+        vectors, _ = self._gather_source()
+        cent, c_ns = self._cent_dev
+        live = self._live_dev()
+        n = len(slots)
+        out = np.empty(n, np.int64)
+        scores = np.empty(n, np.float32)
+        for at in range(0, n, chunk):
+            s = torch.from_numpy(np.ascontiguousarray(slots[at: at + chunk], np.int64))
+            a, sc = _nearest_centroid_slots(s.to(self.device), vectors, cent, c_ns, live)
+            out[at: at + len(s)] = a.cpu().numpy()
+            scores[at: at + len(s)] = sc.cpu().numpy()
+        return out, scores
 
-    def on_insert(self, slots: np.ndarray, vectors: np.ndarray) -> None:
-        raise _not_yet("IVFIndex.on_insert (the write path)", "queue 1, item 7")
+    # ---------------------------------------------------------------- warmup
 
-    def on_update(self, slots: np.ndarray, vectors: np.ndarray) -> None:
-        raise _not_yet("IVFIndex.on_update (the write path)", "queue 1, item 7")
+    def warmup(
+        self,
+        *,
+        query_batches=(1, 256, 8192),
+        write_batches=(256, 8192),
+        k: int = 10,
+    ) -> float:
+        """Run the serving query once per batch size and the write path's
+        device steps once per write batch size, leaving the layout
+        untouched; returns wall seconds (synchronized on CUDA).
 
-    def on_delete(self, slots: np.ndarray) -> None:
-        raise _not_yet("IVFIndex.on_delete (the write path)", "queue 1, item 7")
+        There is no compile to warm: PyTorch runs eagerly. What the first
+        call of each shape pays here is first use — cuBLAS handles and
+        workspaces, the caching allocator's growth to the batch's working
+        set — so the benches' per-batch write walls measure the write path.
+        The write half assigns ``b`` rows (store row 0, repeated; a read)
+        and scatters an empty batch."""
+        t0 = time.perf_counter()
+        with self._lock:
+            if not self._built:
+                return 0.0
+            d = self.store.dim
+            for b in query_batches:
+                self.search_slots_device(
+                    torch.zeros((int(b), d), device=self.device), k
+                )
+            empty = np.zeros(0, np.int64)
+            for b in write_batches:
+                self._assign_slots(np.zeros(int(b), np.int64))
+                self._scatter_block_rows(empty, empty, empty)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    # -------------------------------------------------------- churn tiers
 
     def refresh(self) -> None:
-        raise _not_yet("IVFIndex.refresh (maintenance)", "queue 1, item 7")
+        """Re-layout every live row against the EXISTING centroids — no
+        k-means retrain, no cluster split: one chunked nearest-centroid
+        assignment plus the deterministic block layout. Absorbs the
+        overflow set, tombstoned block positions and update fragmentation,
+        and keeps the centroid set, cluster ids and cmax. Rows that land in
+        a full cluster spill to their nearest cluster with room
+        (``balance_assignment``); escalates to :meth:`build` when there is
+        no room even with spill, when drift-routed rows exceed
+        ``drift_rebuild`` of the corpus, when spill would exceed 2% of the
+        rows, or when the mean squared residual exceeds ``refresh_drift``
+        times the at-build value (``ivf.py:955-1033``)."""
+        with self._lock:
+            if not self._built or self._centroids is None:
+                return self.build()
+            rows = np.flatnonzero(self.store._np_valid)
+            n_live = len(rows)
+            if n_live < 16:
+                self._built = False
+                return
+            K = len(self._centroids)
+            cmax = int(self._cmax)
+            n_live_clusters = (
+                K if self._cluster_live is None else int(self._cluster_live.sum())
+            )
+            if n_live > n_live_clusters * cmax:
+                return self.build()  # no room even with spill
+            a, best_s = self._assign_nearest_slots(rows)
+            vecs = self.store._np_vectors[rows]  # host-only drift stat
+            # per-row drift router (the on_insert criterion): rows the
+            # trained centroids cannot represent stay in overflow
+            drift = self._drift_mask(vecs, best_s)
+            if drift.sum() > self.config.drift_rebuild * n_live:
+                return self.build()  # drift-heavy: only a retrain drains it
+            drift_slots = rows[drift]
+            if drift.any():
+                rows, a, vecs = rows[~drift], a[~drift], vecs[~drift]
+                best_s = best_s[~drift]
+                n_live = len(rows)
+                if n_live < 16:
+                    return self.build()
+            assign = np.full(self.store.capacity, -1, np.int64)
+            assign[rows] = a
+            counts = np.bincount(a, minlength=K)
+            spill = int(np.maximum(counts - cmax, 0).sum())
+            if spill > 0.02 * n_live:
+                return self.build()  # heavy overflow: centroids are stale
+            # drift detector: |v - c*|^2 = |v|^2 - best affine score
+            vns = np.sum(vecs.astype(np.float64) ** 2, axis=1)
+            resid_ms = float(np.mean(np.maximum(vns - best_s, 0.0)))
+            if self._built_resid is not None and resid_ms > (
+                self.config.refresh_drift * max(self._built_resid, 1e-12) + 1e-9
+            ):
+                return self.build()
+            base = self._built_resid
+            self._layout_from_assign(assign, K, cmax=cmax)
+            # the drift baseline belongs to the TRAINED centroids:
+            # successive refreshes must not ratchet it up
+            self._built_resid = base
+            if len(drift_slots):
+                self._overflow.update(int(s) for s in drift_slots)
+                self._drift.update(int(s) for s in drift_slots)
+            self._n_refreshes += 1
+
+    def _maybe_rebuild(self) -> None:
+        if self._staging:
+            return  # maintenance clones never recurse into maintenance
+        c = self.config
+        if not self._built:
+            # the initial build is a bulk-load moment: synchronous
+            if self.store.size >= c.build_threshold:
+                self.build()
+            return
+        if not self._built_size:
+            return
+        ratio = self._churn / max(self._built_size, 1)
+        if ratio > c.retrain_growth or len(self._drift) > c.drift_rebuild * self._built_size:
+            kind = "build"
+        elif (
+            ratio > c.rebuild_growth
+            # spill overflow is what a re-layout reclaims; drift rows do
+            # not count toward the refresh trigger
+            or (len(self._overflow) - len(self._drift)) > 0.05 * self._built_size
+        ):
+            kind = "refresh"
+        else:
+            return
+        if not c.background_maintenance:
+            (self.build if kind == "build" else self.refresh)()
+            return
+        self._submit_maintenance(kind)
+
+    # ------------------------------------------------ background maintenance
+
+    def _submit_maintenance(self, kind: str) -> None:
+        """Queue a churn-triggered rebuild on the maintenance thread. One
+        job runs at a time; a second trigger while one is in flight queues
+        (a queued refresh upgrades to a retrain, never the reverse)."""
+        with self._lock:
+            if self._maint_thread is not None and self._maint_thread.is_alive():
+                if kind == "build" or self._maint_pending == "build":
+                    self._maint_pending = "build"
+                else:
+                    self._maint_pending = self._maint_pending or kind
+                return
+            if self.device.type == "cuda" and self._maint_stream is None:
+                self._maint_stream = torch.cuda.Stream(device=self.device)
+            t = threading.Thread(
+                target=self._maintenance_job, args=(kind,),
+                name="ivf-maintenance", daemon=True,
+            )
+            self._maint_thread = t
+            t.start()
 
     def wait_maintenance(self, timeout: Optional[float] = None) -> bool:
-        raise _not_yet("background maintenance", "queue 1, item 7")
+        """Block until no maintenance job runs or queues (True), or the
+        timeout lapses (False). Benches and tests use it to make background
+        rebuilds deterministic; serving code never needs it."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            with self._lock:
+                t = self._maint_thread
+                if t is None and self._maint_pending is None:
+                    return True
+            if t is None:
+                time.sleep(0.005)
+            else:
+                t.join(None if deadline is None else max(deadline - time.monotonic(), 0.0))
+            if deadline is not None and time.monotonic() >= deadline:
+                with self._lock:
+                    return self._maint_thread is None and self._maint_pending is None
+
+    def _maintenance_job(self, kind: str) -> None:
+        ok = False
+        try:
+            if self._maint_stream is None:
+                self._run_maintenance(kind)
+            else:
+                with torch.cuda.stream(self._maint_stream):
+                    try:
+                        self._run_maintenance(kind)
+                    finally:
+                        # the job ends when its device work ends
+                        self._maint_stream.synchronize()
+            ok = True
+        except Exception as e:  # noqa: BLE001 — background thread boundary
+            _log.exception("IVF background maintenance (%s) failed", kind)
+            self._maint_error = repr(e)
+        finally:
+            # clear and re-evaluate under ONE lock acquisition, so a waiter
+            # never observes (no thread, no pending) while a queued job is
+            # owed a thread; triggers that fired during the job re-check
+            # against the post-swap counters. On failure nothing
+            # re-submits: churn was not reset, so the next write re-triggers.
+            with self._lock:
+                if ok:
+                    self._maint_error = None
+                self._maint_thread = None
+                pending, self._maint_pending = self._maint_pending, None
+                if pending is not None and ok:
+                    self._maybe_rebuild()
+
+    def _run_maintenance(self, kind: str) -> None:
+        """Double-buffered rebuild: build the next layout into a staging
+        clone from a store snapshot, catch up with writes that landed
+        meanwhile from the store's change feed (without the engine lock
+        while the delta is large), then take the lock for one final small
+        replay and the field swap. Write calls stall only for that last
+        replay (at most ``_LOCKED_REPLAY_MAX`` rows); queries keep serving
+        the old layout, which also absorbed every write, throughout. A
+        capacity growth (``changes_since`` returns None) restarts the job."""
+        for _attempt in range(4):
+            gen0 = self._layout_gen
+            # the cursor first: every write before it is in the host
+            # mirror, and the staging layout's first device_view() syncs it
+            # on the store's stream and orders this stream after it
+            cursor, _ = self.store.changes_since(None)
+            eng = self._make_staging(kind)
+            if kind == "build" or not eng._built:
+                eng.build()
+            else:
+                eng.refresh()  # may escalate to build() internally
+            if not eng._built:
+                return  # corpus shrank below viability; exact path serves
+            restart = False
+            while True:
+                cursor, delta = self.store.changes_since(cursor)
+                if delta is None:
+                    restart = True  # capacity growth / feed overflow
+                    break
+                if len(delta) > _LOCKED_REPLAY_MAX:
+                    self._replay_into(eng, delta)
+                    continue
+                t0 = time.perf_counter()
+                with self._lock:
+                    if self._layout_gen != gen0:
+                        return  # an explicit build/import superseded us
+                    cursor, delta2 = self.store.changes_since(cursor)
+                    if delta2 is None:
+                        restart = True
+                    else:
+                        if len(delta2):
+                            delta = np.union1d(delta, delta2)
+                        self._replay_into(eng, delta)
+                        self._adopt(eng)
+                        self._maint_last_stall_s = time.perf_counter() - t0
+                break
+            if not restart:
+                return
+
+    #: layout fields transplanted wholesale at swap time
+    _ADOPT_FIELDS = (
+        "_centroids", "_cent_dev", "_cluster_live", "_blocks_t",
+        "_block_slot", "_block_ns", "_block_inv", "_block_keep",
+        "_keep_pending", "_fill", "_built_resid", "_slot_pos", "_overflow",
+        "_drift", "_built", "_built_size", "_churn", "_cmax",
+        "_tuned_n_probe", "_tuned_recall", "_tuned_stderr",
+    )
+
+    def _clone_for_maintenance(self) -> "IVFIndex":
+        """A fresh engine of the same class over the same store: the
+        staging target of a background rebuild. Its config is a COPY: the
+        tuner inside a staging build assigns ``config.n_probe``, and the
+        tuned value installs at :meth:`_adopt`, atomically with the layout
+        it was measured on."""
+        return type(self)(self.store, config=dataclasses.replace(self.config))
+
+    def _make_staging(self, kind: str) -> "IVFIndex":
+        eng = self._clone_for_maintenance()
+        eng._staging = True
+        if kind != "build":
+            with self._lock:
+                # refresh reuses the trained centroids and geometry; the
+                # centroid tensors are never written in place, so the clone
+                # shares them (block tensors are not shared: the write path
+                # updates them in place)
+                eng._centroids = self._centroids
+                eng._cent_dev = self._cent_dev
+                eng._cluster_live = self._cluster_live
+                eng._cmax = self._cmax
+                eng._built_resid = self._built_resid
+                eng._built = self._built
+            if self._maint_stream is not None and eng._cent_dev is not None:
+                # read on this stream: their memory must outlive its reads
+                for t in eng._cent_dev:
+                    t.record_stream(self._maint_stream)
+        return eng
+
+    def _replay_into(self, eng: "IVFIndex", slots: np.ndarray) -> None:
+        """Bring a staging layout up to date with store mutations that
+        landed after its snapshot: vacate every touched slot, then
+        re-insert the live ones through the normal write path, in chunks of
+        32,768 rows. Idempotent: a slot replayed here AND written by a
+        racing writer after the swap resolves to one block entry
+        (on_insert vacates first)."""
+        slots = np.asarray(slots, np.int64)
+        slots = slots[slots < eng.store.capacity]
+        if not eng._built or not len(slots):
+            return
+        ch = 1 << 15
+        for at in range(0, len(slots), ch):
+            sl = slots[at: at + ch]
+            vecs, valid = self.store.read_rows(sl)
+            with eng._lock:
+                eng._grow_maps()
+                eng._vacate_slots(sl)
+                if valid.any():
+                    eng.on_insert(sl[valid], vecs[valid])
+
+    def _adopt(self, eng: "IVFIndex") -> None:
+        """Install a staging clone's layout as the serving layout (caller
+        holds the engine lock). On a CUDA store the device's default stream
+        — where queries, the write path and the store's syncs run — waits
+        for everything the job enqueued so far (its last replay included),
+        and each adopted tensor is marked used by that stream: the staging
+        tensors were allocated on the maintenance stream, whose next job
+        could otherwise be handed their memory while serving kernels are
+        still queued on it."""
+        for f in self._ADOPT_FIELDS:
+            setattr(self, f, getattr(eng, f))
+        if self._maint_stream is not None:
+            sync = self.store.sync_stream()
+            sync.wait_stream(self._maint_stream)
+            for t in (*self._cent_dev, self._blocks_t, self._block_slot,
+                      self._block_ns, self._block_inv, self._block_keep):
+                t.record_stream(sync)
+        # the staging tuner ran against the staging config copy; its pick
+        # takes effect here, with the layout it was measured on
+        if eng._tuned_n_probe is not None:
+            self.config.n_probe = eng.config.n_probe
+            self.config.rescore = eng.config.rescore
+        self._n_retrains += eng._n_retrains
+        self._n_refreshes += eng._n_refreshes
+        if eng._n_retrains or eng._n_refreshes:
+            self._last_rebuild_s = eng._last_rebuild_s
+        self._layout_gen += 1
+        self._maint_swaps += 1
+
+    # ------------------------------------------------------------- write API
+
+    def on_insert(self, slots: np.ndarray, vectors: np.ndarray) -> None:
+        """Place store rows (already in the store, by slot) into the
+        layout; before the first build, build once the store reaches
+        ``build_threshold``."""
+        slots = np.asarray(slots, np.int64)
+        vectors = np.asarray(vectors, np.float32)
+        with self._lock:
+            if not self._built:
+                self._maybe_rebuild()
+                return
+            self._grow_maps()
+            # idempotent: re-inserting a slot the layout already holds (a
+            # swap replay racing the writer) must not double-represent it
+            pos0 = self._slot_pos[slots]
+            if (pos0[:, 0] >= 0).any() or (
+                self._overflow and not self._overflow.isdisjoint(int(s) for s in slots)
+            ):
+                self._vacate_slots(slots)
+            # nearest centroid (one matmul); each row goes to its cluster's
+            # next free position: sort by cluster, rank within the batch's
+            # cluster runs, offset by the current fill
+            assign, best_s = self._assign_slots(slots)
+            n_in = len(slots)
+            drift = self._drift_mask(vectors, best_s)
+            if drift.any():
+                ds = slots[drift]
+                self._overflow.update(int(s) for s in ds)
+                self._drift.update(int(s) for s in ds)
+                slots, assign = slots[~drift], assign[~drift]
+            cmax = self._block_slot.shape[1]
+            order = np.argsort(assign, kind="stable")
+            sorted_a = assign[order]
+            n = len(order)
+            if n:
+                is_start = np.concatenate([[True], sorted_a[1:] != sorted_a[:-1]])
+                start = np.maximum.accumulate(np.where(is_start, np.arange(n), 0))
+                pos = self._fill[sorted_a] + (np.arange(n) - start)
+                fits = pos < cmax
+                app_rows = sorted_a[fits]
+                app_pos = pos[fits]
+                app_slots = slots[order][fits]
+                self._fill += np.bincount(app_rows, minlength=len(self._fill))
+                self._slot_pos[app_slots, 0] = app_rows
+                self._slot_pos[app_slots, 1] = app_pos
+                self._overflow.update(int(s) for s in slots[order][~fits])
+                self._keep_pending.extend(
+                    (int(a), int(p), True) for a, p in zip(app_rows, app_pos)
+                )
+                if len(app_rows):
+                    self._scatter_block_rows(app_rows, app_pos, app_slots)
+            self._churn += n_in
+            self._maybe_rebuild()
+
+    def on_update(self, slots: np.ndarray, vectors: np.ndarray) -> None:
+        """Re-place updated rows: a row whose nearest centroid is unchanged
+        is rewritten in place; one that moved (or drifted past the
+        centroids' reach) is vacated and inserted afresh."""
+        slots = np.asarray(slots, np.int64)
+        vectors = np.asarray(vectors, np.float32)
+        with self._lock:
+            if not self._built:
+                return
+            self._grow_maps()
+            new_assign, best_s = self._assign_slots(slots)
+            drift = self._drift_mask(vectors, best_s)
+            pos = self._slot_pos[slots]
+            known = pos[:, 0] >= 0
+            stay = known & (pos[:, 0] == new_assign) & ~drift
+            moved = ~stay
+            if stay.any():
+                self._scatter_block_rows(pos[stay, 0], pos[stay, 1], slots[stay])
+            if moved.any():
+                self._vacate_slots(slots[moved])
+                self.on_insert(slots[moved], vectors[moved])
+            self._churn += len(slots)
+            self._maybe_rebuild()
+
+    def on_delete(self, slots: np.ndarray) -> None:
+        """Mark the rows' block positions dead and forget them: the store
+        may reuse a slot for a fresh vector, and a slot-addressed validity
+        mask alone would resurrect the stale block entry."""
+        slots = np.asarray(slots, np.int64)
+        with self._lock:
+            if self._built:
+                self._vacate_slots(slots)
+            else:
+                self._overflow.difference_update(int(s) for s in slots)
+                self._drift.difference_update(int(s) for s in slots)
+            self._churn += len(slots)
+            self._maybe_rebuild()
+
+    def _gather_source(self):
+        """(vectors, norms_sq) device tensors the write path gathers rows
+        from: the store's view, ready on the current stream."""
+        view = self.store.device_view()
+        return view.vectors, view.norms_sq
+
+    def _assign_slots(self, slots_np: np.ndarray):
+        """(assign i64, best affine score f64) of the nearest live
+        centroid for store rows by slot, gathered from the store's device
+        copy (already synced by the store's writes): only the slot indices
+        upload and two small vectors download."""
+        vectors, _ = self._gather_source()
+        cent, c_ns = self._cent_dev
+        s = torch.from_numpy(np.ascontiguousarray(slots_np, np.int64)).to(self.device)
+        a, sc = _nearest_centroid_slots(s, vectors, cent, c_ns, self._live_dev())
+        return a.cpu().numpy().astype(np.int64), sc.cpu().numpy().astype(np.float64)
+
+    def _drift_mask(self, vectors: np.ndarray, best_s: np.ndarray) -> np.ndarray:
+        """True for rows the trained centroids cannot represent: squared
+        residual |v - c*|^2 = |v|^2 - best affine score above
+        ``insert_drift`` x the at-build mean."""
+        f = self.config.insert_drift
+        if f is None or not self._built_resid or self._built_resid <= 0:
+            return np.zeros(len(vectors), bool)
+        vns = np.sum(vectors.astype(np.float64) ** 2, axis=1)
+        resid = np.maximum(vns - best_s, 0.0)
+        return resid > f * self._built_resid
+
+    def _scatter_block_rows(self, rows_np, pos_np, slots_np) -> None:
+        """Scatter store rows (by slot) into the block arrays at (cluster,
+        position), in place (:func:`_scatter_blocks_dev`): three int64
+        index vectors upload, the vector data is gathered on the device."""
+        vectors, norms = self._gather_source()
+
+        def idx(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)
+
+        _scatter_blocks_dev(
+            self._blocks_t, self._block_ns, self._block_inv, self._block_slot,
+            vectors, norms, self._cent_dev[0],
+            idx(rows_np), idx(pos_np), idx(slots_np),
+        )
+
+    def _grow_maps(self) -> None:
+        cap = self.store.capacity
+        if self._slot_pos is not None and len(self._slot_pos) < cap:
+            extra = cap - len(self._slot_pos)
+            self._slot_pos = np.concatenate(
+                [self._slot_pos, np.full((extra, 2), -1, np.int64)]
+            )
 
     # ------------------------------------------------------------ keep mask
 
     def _vacate_slots(self, slots: np.ndarray) -> None:
         """Remove slots from the block layout: keep-bit tombstones for the
-        positions held (applied lazily by :meth:`_keep_dev`) plus map and
-        overflow resets. Caller holds the engine lock."""
+        positions held (applied lazily by :meth:`_keep_dev`) plus map,
+        overflow and drift resets. No-op for slots the layout does not
+        hold. Vacated positions are reclaimed at the next re-layout, not
+        reused in place. Caller holds the engine lock."""
         slots = np.asarray(slots, np.int64)
         pos = self._slot_pos[slots]
         known = pos[:, 0] >= 0
@@ -582,6 +1212,7 @@ class IVFIndex:
             )
         self._slot_pos[slots] = -1
         self._overflow.difference_update(int(s) for s in slots)
+        self._drift.difference_update(int(s) for s in slots)
 
     def _keep_dev(self):
         """Apply pending keep-bit scatters (one scatter per query batch at
@@ -604,7 +1235,7 @@ class IVFIndex:
         (dist f32[B, k], slot i64[B, k]) tensors out. The overflow merge,
         under-fill supplement and negative rerank of :meth:`search_slots`
         are host-side layers on top of this. ``mask``: optional bool[cap]
-        slot mask on the device."""
+        slot mask on the device. It runs on the caller's current stream."""
         with self._lock:
             if not self._built:
                 raise RuntimeError("IVF index is not built")
@@ -839,11 +1470,18 @@ class IVFIndex:
         view = self.store.device_view()
         slot_dev = torch.from_numpy(block_slot).to(self.device)
         (
-            self._blocks_t, self._block_ns, self._block_inv, self._block_keep,
+            self._blocks_t, self._block_ns, self._block_inv, self._block_keep, rsum,
         ) = _layout_dev(slot_dev, view.vectors, view.norms_sq, self._cent_dev[0])
+        # drift baseline: mean squared residual over the placed rows
+        self._built_resid = float(rsum) / max(n_live, 1)
         self._block_slot = slot_dev
         self._keep_pending = []
+        self._fill = fill.astype(np.int64)
         self._slot_pos = slot_pos
         self._overflow = set()
+        self._drift = set()
         self._built = True
+        self._built_size = n_live
+        self._churn = 0
         self._cmax = int(cmax)
+        self._layout_gen += 1

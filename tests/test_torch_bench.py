@@ -3,7 +3,10 @@
 ``quiver_tpu_torch.bench.headline`` and
 ``quiver_tpu_torch.benches.bench_latency.latency_rows`` run at n=8192
 (the headline corpus generator, 128-d) and B=256 and return the fields the
-card run prints; every entry point refuses to run without CUDA and prints
+card run prints, and so do the write path's benches
+(``benches.streaming``, ``benches.churn``) at a few stream batches, whose
+stream rows are bit-equal to ``benches/bench_streaming.py``'s; every entry
+point refuses to run without CUDA and prints
 no result; ``device_bytes()`` equals the JAX engine's on one imported
 topology (the two engines hold the same arrays: centroids and their
 norms, bf16 blocks, slot map, residual norms, inverse norms, keep mask),
@@ -73,10 +76,50 @@ def test_latency_rows_small_on_cpu():
         assert r["cpu_qps"] > 0 and "device_qps" not in r
 
 
+def test_stream_rows_match_the_reference():
+    from benches.bench_streaming import stream_rows as ref_stream_rows
+    from quiver_tpu_torch.benches.streaming import stream_rows
+
+    for n, seed in ((8192, 777), (1000, 3)):
+        np.testing.assert_array_equal(stream_rows(n, seed), ref_stream_rows(n, seed))
+
+
+def test_streaming_runs_small_on_cpu():
+    from quiver_tpu_torch.benches import streaming
+
+    rows = streaming.run("cpu", n=N_SMALL, stream_batches=3, stream_batch=512, b=64,
+                         n_clusters=K_SMALL, log=lambda _: None)
+    by = {r["metric"].split(",")[0]: r for r in rows}
+    live = by["ivf streaming inserts/s"]
+    for key in ("query_qps_during_stream", "recall_at_10_live", "first_batch_inserts_per_s"):
+        assert key in live, key
+    assert live["unit"] == "inserts/s" and live["value"] > 0 and live["card"] is None
+    assert 0.5 <= live["recall_at_10_live"] <= 1.0
+    assert "ivf refresh wall (existing centroids)" in by
+    assert by["ivf full rebuild wall (k-means retrain)"]["n_clusters"] > 0
+
+
+def test_churn_runs_small_on_cpu():
+    from quiver_tpu_torch.benches import churn
+
+    r = churn.run("cpu", n=N_SMALL, stream_batches=6, stream_batch=512, b=64,
+                  n_clusters=K_SMALL, log=lambda _: None)
+    for key in ("write_ms_p50", "write_ms_max", "inserts_per_s_steady",
+                "first_batch_inserts_per_s", "query_qps_mean", "query_qps_during_rebuild_min",
+                "n_rebuild_overlap_samples", "recall_at_10_live_min", "recall_at_10_final",
+                "maint_swaps", "maint_swap_stall_ms", "card"):
+        assert key in r, key
+    assert r["maint_swaps"] >= 1 and r["maint"]["error"] is None
+    assert r["unit"] == "ms write-call p99" and r["value"] >= r["write_ms_p50"] > 0
+    assert r["recall_at_10_final"] >= 0.5
+
+
 @pytest.mark.parametrize("module", [
     "quiver_tpu_torch.bench",
     "quiver_tpu_torch.benches.bench_latency",
     "quiver_tpu_torch.benches.probe",
+    "quiver_tpu_torch.benches.streaming",
+    "quiver_tpu_torch.benches.churn",
 ])
 def test_entry_points_refuse_without_cuda(module):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
@@ -97,6 +140,36 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_live_check_holds_every_call():
+    """chip_smoke's LiveCheck keeps every block_topw call the engine makes,
+    with the blocks as that call saw them (cloned again only after a
+    write), and holds each against the plain version."""
+    import chip_smoke
+    from quiver_tpu_torch.ops import ivf_kernels
+
+    vecs = small_clustered(3000)
+    ids = [f"v{i}" for i in range(len(vecs))]
+    store = VectorStore(dim=vecs.shape[1], metric="euclidean", capacity=len(vecs), device="cpu")
+    store.add_batch(ids[:2500], vecs[:2500])
+    eng = IVFIndex(store, config=IVFConfig(build_threshold=256, background_maintenance=False))
+    eng.build()
+    real = ivf_kernels.block_topw
+    with chip_smoke.LiveCheck() as live:
+        eng.search_slots(vecs[:16], 10)
+        eng.search_slots(vecs[16:32], 10)
+        slots = store.add_batch(ids[2500:2600], vecs[2500:2600])
+        eng.on_insert(np.asarray(slots), vecs[2500:2600])
+        eng.search_slots(vecs[2500:2516], 10)
+    assert ivf_kernels.block_topw is real
+    assert len(live.calls) == 3
+    blocks = [c[0][4] for c in live.calls]
+    assert blocks[0] is blocks[1] and blocks[2] is not blocks[1]
+    assert not torch.equal(blocks[1], blocks[2])  # the insert wrote into them
+    assert live.verify(torch, "test") == 0.0 and live.calls == []
+    with pytest.raises(AssertionError, match="no block_topw call"):
+        live.verify(torch, "test")
 
 
 def test_device_bytes_matches_jax():

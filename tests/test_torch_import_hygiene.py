@@ -29,6 +29,15 @@ MODULES = [
     "quiver_tpu_torch.benches.truth",
     "quiver_tpu_torch.benches.bench_latency",
     "quiver_tpu_torch.benches.probe",
+    "quiver_tpu_torch.benches.streaming",
+    "quiver_tpu_torch.benches.churn",
+    "quiver_tpu_torch.index",
+    "quiver_tpu_torch.core.collection",
+    "quiver_tpu_torch.facets.filters",
+    "quiver_tpu_torch.facets.columns",
+    "quiver_tpu_torch.observability.metrics",
+    "quiver_tpu_torch.observability.logging",
+    "quiver_tpu_torch.utils.profiling",
 ]
 
 

@@ -8,8 +8,8 @@ wherever separated from the k-th; score-derived distances within the
 quantization bound of tests/test_torch_ivf_query.py), including the
 overflow merge, the under-fill supplement and the negative rerank; the
 port's own ``build()`` from the same seed reaches the JAX build's tie-aware
-recall@10 within 0.01; the parts not ported yet (write path, maintenance,
-``formulation="einsum"``) raise.
+recall@10 within 0.01; the parts not ported yet (``formulation="einsum"``,
+the registry's other engine kinds) raise.
 """
 
 import numpy as np
@@ -175,21 +175,19 @@ def test_port_build_reaches_jax_recall(jax_topology):
 
 
 def test_unported_parts_raise(jax_topology):
+    from quiver_tpu_torch.index import make_engine, resolve_engine_config
+
     _, queries, _ = jax_topology
     _, te = engines(jax_topology)
-    slots = np.arange(4)
-    for call in (
-        lambda: te.on_insert(slots, queries[:4]),
-        lambda: te.on_update(slots, queries[:4]),
-        lambda: te.on_delete(slots),
-        te.refresh,
-        te.wait_maintenance,
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
     te.config.formulation = "einsum"
-    with pytest.raises(NotImplementedError, match="einsum"):
+    with pytest.raises(NotImplementedError, match="einsum.*ROADMAP.md"):
         te.search_slots(queries, KTOP)
+    for kind in ("hnsw", "hybrid", "sharded_exact", "sharded_hnsw", "sharded_ivf",
+                 "sharded_hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_engine(kind, te.store)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            resolve_engine_config(kind, {})
 
 
 def test_fused_and_device_checks(jax_topology):
