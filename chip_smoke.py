@@ -12,10 +12,15 @@ printing any result. Phases, one line each (any failure raises):
 2. build: ``csrc/*.cu`` compiled with nvcc (one process per source, in
    parallel) into the git-ignored build directory; build seconds;
 3. kernel against twin: ``block_topw`` against ``block_topw_reference`` on
-   the card at the main path's shapes (d=128, Cmax=1280, K=1405, B=65536,
-   P in {2, 3, 4}), pairs variant (W=32, R=2: L2, dot, cosine), fused
-   variant (W=128, R=4: L2, dot) and row mode (one window per row, R=16:
-   the per-pair branch small corpora take); times of both with CUDA events;
+   the card (:func:`check_call`) at the main path's shapes (d=128,
+   Cmax=1280, K=1405, B=65536, P in {2, 3, 4}) and at a 768-d one (B=16384,
+   K=1024, P=3), pairs variant (W=32, R=2: L2, dot, cosine; caff re-keyed
+   onto the winners for L2 and dot), fused variant (W=128, R=4: L2, dot)
+   and row mode (one window per row: R=16, the running top-R; R=100, every
+   key of the row and the wrapper's top-R); times of both with CUDA
+   events and the least time the card could take (:func:`topw_bound`);
+   then the error of the card's dot products against f64 at d=128 and 768
+   (:func:`phase_sums`);
 4. slice: the headline bench's path (``quiver_tpu_torch/bench.py``): the
    1M x 128-d clustered L2 corpus through ``VectorStore(device="cuda")`` ->
    ``IVFIndex.build()`` with ``recall_target=0.96``, so the build tunes
@@ -23,8 +28,11 @@ printing any result. Phases, one line each (any failure raises):
    ``recall_shortfall``; recall@10 at the tuned n_probe against an f64
    oracle (tie-aware, the rule of ``benches/truth.py``) >= 0.95; then
    n_probe in {2, 3} x {"pairs", "fused"}: recall and ms per batch / QPS of
-   ``search_slots_device`` at B=65536; ``device_bytes()`` and the peak of
-   allocated card memory; the kernel's launch counts over this phase;
+   ``search_slots_device`` at B=65536; a profile of the tuned batch (device
+   time by kernel, busy share); ``device_bytes()`` and the peak of
+   allocated card memory; one k=100 batch (B=4096, :func:`phase_k100`:
+   every slot filled, recall@100 recorded, the call held against the plain
+   version); the kernel's launch counts over this phase;
 5. probes: ``benches/probe.py``'s two kernels (``scatter_rows``,
    ``index_read``) at the TPU probe's shapes and at the main path's (the
    slice's own probe ids: 196,608 pairs over its clusters), each held
@@ -62,7 +70,9 @@ printing any result. Phases, one line each (any failure raises):
 The 1M corpus is generated once and shared by phases 4-8; phase 4's engine
 is dropped before phase 7. Then a JSON line of kernels (their launches are
 the main path's, phase 4; the pairs entry's error covers phases 3, 7 and
-8), the card line, and last the result line.
+8, the row mode's phases 3 and 4; ``bound_ms`` is computed from this run's
+operands and ``bound_share`` is it over ``ms``), the card line, and last
+the result line.
 """
 
 from __future__ import annotations
@@ -92,14 +102,19 @@ from quiver_tpu_torch.benches.truth import recall_with_ties
 #: build is ~1400 clusters of Cmax=1280)
 KERNEL_SHAPE = dict(B=65536, K=1405, Cmax=1280, d=128)
 KERNEL_PROBES = (2, 3, 4)
+#: a 768-d serving-like shape (the width of the reference deployment's
+#: embeddings): every variant at P=3
+WIDE_SHAPE = dict(B=16384, K=1024, Cmax=1280, d=768)
 #: (variant name, W, R, position bits, metrics); W = 0 is row mode (one
 #: window of Cmax columns, position bits to hold Cmax). Row mode serves the
-#: per-pair branch of corpora whose Cmax holds fewer than k windows, so the
-#: 1M slice does not launch it and the kernels line lists only the others.
+#: per-pair branch, taken when Cmax holds fewer than k windows: R=16 keeps
+#: a running top-R in the kernel, R=100 (the 1M slice at k=100) has the
+#: kernel write every key of the row for the wrapper's top-R.
 VARIANTS = (
     ("pairs", 32, 2, 5, ("euclidean", "dot_product", "cosine")),
     ("fused", 128, 4, 11, ("euclidean", "dot_product")),
     ("row", 0, 16, 0, ("euclidean", "dot_product", "cosine")),
+    ("row100", 0, 100, 0, ("euclidean", "dot_product", "cosine")),
 )
 
 
@@ -124,6 +139,7 @@ def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed):
     from quiver_tpu_torch.types import DistanceType
 
     g = torch.Generator(device=dev).manual_seed(seed)
+    win_add = None
     q = torch.randn(B, d, generator=g, device=dev)
     cents = 0.5 * torch.randn(K, d, generator=g, device=dev)
     probe = torch.rand(B, K, generator=g, device=dev).topk(P, dim=1).indices
@@ -137,8 +153,11 @@ def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed):
     starts = torch.zeros(K + 1, dtype=torch.int32, device=dev)
     starts[1:] = torch.cumsum(torch.bincount(flat_c, minlength=K), 0)
     m = DistanceType.parse(metric)
-    if variant in ("pairs", "row"):
+    if variant != "fused":
         scale, sub_cent, col_add, row_add, col_mul = _epilogue(m, keep, rns, inv, c_dots, probe)
+        if variant == "pairs" and m != DistanceType.COSINE:
+            # the per-pair constant caff, re-keyed onto each winner
+            win_add = 0.25 * d * torch.randn(B * P, generator=g, device=dev)
     elif m == DistanceType.EUCLIDEAN:
         scale, sub_cent, row_add, col_mul = 2.0, True, None, None
         col_add = torch.where(keep, -rns, NEG_BIG)
@@ -148,16 +167,72 @@ def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed):
     args = (q, cents, starts, order, blocks_t)
     kw = dict(P=P, scale=scale, col_add=col_add, row_add=row_add,
               col_mul=col_mul, sub_cent=sub_cent)
+    if win_add is not None:
+        kw["win_add"] = win_add
     return args, kw
 
 
-def compare_keys(torch, k_kern, k_ref, s_orig, *, W, R, pos_bits):
+#: the keyword operands of pair_scores_reference (block_topw's less the
+#: window, the sentinel and win_add)
+SCORE_KEYS = ("P", "scale", "col_add", "row_add", "col_mul", "sub_cent")
+
+
+def pair_scores_orig(torch, args, kw):
+    """f32[BP, Cmax] plain scores of a block_topw call, rows in original
+    pair order (what compare_keys reads positions against)."""
+    from quiver_tpu_torch.ops.ivf_cuda import pair_scores_reference
+
+    s_sorted = pair_scores_reference(*args, **{k: kw.get(k) for k in SCORE_KEYS})
+    s_orig = torch.empty_like(s_sorted)
+    s_orig[args[3].long()] = s_sorted
+    return s_orig
+
+
+#: the card's sums keep |kernel - f64| <= SUM_ERR * 2^-24 * sum_scale (see
+#: :func:`sum_scale`); phase 3 measures the ratio and fails above it
+SUM_ERR = 16.0
+
+
+def sum_scale(torch, args, kw):
+    """f32[BP] per pair, original order: |scale| * ||a|| * max_j |col_mul[c, j]|
+    * ||b_j||, with a the pair's bf16 query row (minus the centroid for L2)
+    and b_j the columns of its cluster's block. By Cauchy-Schwarz it bounds
+    scale * col_mul * sum_k |a_k b_kj|, which scales the rounding error of
+    the dot products."""
+    q, cents, starts, order, blocks = args
+    K, _, Cmax = blocks.shape
+    BP = order.shape[0]
+    sorted_c = torch.repeat_interleave(torch.arange(K, device=q.device),
+                                       (starts[1:] - starts[:-1]).long(), output_size=BP)
+    a = q[order.long() // kw["P"]]
+    if kw["sub_cent"]:
+        a = a - cents[sorted_c]
+    a = torch.linalg.vector_norm(a.to(torch.bfloat16).float(), dim=1)
+    bn = torch.cat([torch.linalg.vector_norm(blocks[c:c + 64].float(), dim=1)
+                    for c in range(0, K, 64)])  # f32[K, Cmax]
+    if kw.get("col_mul") is not None:
+        bn = bn * kw["col_mul"].abs()
+    out = torch.empty(BP, dtype=torch.float32, device=q.device)
+    out[order.long()] = abs(kw["scale"]) * a * bn.max(dim=1).values[sorted_c]
+    return out
+
+
+def compare_keys(torch, k_kern, k_ref, s_orig, sums, *, W, R, pos_bits, win_add=None):
     """Hold kernel keys against the twin's. Stated tolerance: unpacked
     scores agree within 2 quanta of the packing (2^(pos_bits-22) relative)
-    plus 1e-4 absolute, which covers f32 summation order over d=128 bf16
-    products of magnitude ~1; winner positions agree wherever the
-    competing scores differ by more than that; masked winners agree key
-    for key. Returns (max abs score error, positions that differ)."""
+    plus the sums' own error, SUM_ERR * 2^-24 * sums[row] (``sums``:
+    :func:`sum_scale`; on an NVIDIA H100 80GB HBM3 at 700 W the tensor
+    cores' f32 sums of bf16 products strayed from f64 by up to 2.29 of
+    those units at d=768 where the f32 twin strayed by 0.26, and a score
+    that cancels to near zero carries that absolute error; phase 3 measures
+    it on every run);
+    winner positions agree wherever the competing scores differ by more
+    than that; masked winners agree key for key. Lane ``r*S + w`` holds
+    window w's r-th winner (S windows). With ``win_add`` (f32[BP],
+    original pair order) each winner was packed before the add as well as
+    after it, so its quanta are counted at both magnitudes: |score| +
+    |win_add| bounds the one before. Returns (max abs score error,
+    positions that differ)."""
     from quiver_tpu_torch.ops.ivf_cuda import _from_key
     from quiver_tpu_torch.ops.scan import NEG_BIG
 
@@ -165,14 +240,16 @@ def compare_keys(torch, k_kern, k_ref, s_orig, *, W, R, pos_bits):
     sk = _from_key(k_kern & ~pm)
     sr = _from_key(k_ref & ~pm)
     real = sr > NEG_BIG / 2
-    tol = 2.0 ** (pos_bits - 22) * sr.abs() + 1e-4
+    mag = sr.abs() if win_add is None else sr.abs() + win_add.abs()[:, None]
+    tol = 2.0 ** (pos_bits - 22) * mag + SUM_ERR * 2.0 ** -24 * sums[:, None]
     err = torch.where(real, (sk - sr).abs(), 0.0)
     if not bool((err <= tol).all()):
         bad = int((err > tol).sum())
         raise AssertionError(f"{bad} winner scores differ beyond tolerance; max {float(err.max())}")
     if not bool((k_kern == k_ref)[~real].all()):
         raise AssertionError("masked winners differ")
-    lane_w = (torch.arange(k_kern.shape[1], device=k_kern.device) // R) * W
+    S = k_kern.shape[1] // R
+    lane_w = (torch.arange(k_kern.shape[1], device=k_kern.device) % S) * W
     col_k = lane_w + ((k_kern & pm) % W).long()
     col_r = lane_w + ((k_ref & pm) % W).long()
     diff = (col_k != col_r) & real
@@ -184,6 +261,19 @@ def compare_keys(torch, k_kern, k_ref, s_orig, *, W, R, pos_bits):
         if not bool(((a - b).abs() <= 2 * tol[diff]).all()):
             raise AssertionError("winner positions differ where scores are separated")
     return float(err.max()), n_diff
+
+
+def check_call(torch, args, kw, k_kern):
+    """:func:`compare_keys` of one block_topw call's keys against
+    ``block_topw_reference`` on the same operands (``kw`` with W, R,
+    pos_bits and sentinel). Returns (max abs score error, positions that
+    differ)."""
+    from quiver_tpu_torch.ops.ivf_cuda import block_topw_reference
+
+    k_ref = block_topw_reference(*args, **kw)
+    return compare_keys(torch, k_kern, k_ref, pair_scores_orig(torch, args, kw),
+                        sum_scale(torch, args, kw), W=kw["W"], R=kw["R"],
+                        pos_bits=kw["pos_bits"], win_add=kw.get("win_add"))
 
 
 class LiveCheck:
@@ -238,21 +328,13 @@ class LiveCheck:
         """Hold every kept call against the plain version (the tolerance of
         :func:`compare_keys`); raises on a mismatch or when no call was
         kept. Returns the largest score error."""
-        from quiver_tpu_torch.ops.ivf_cuda import block_topw_reference, pair_scores_reference
-
         if not self.calls:
             raise AssertionError(f"{phase}: no block_topw call to check")
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         worst, diffs, bps = 0.0, 0, set()
         for args, kw, k_kern in self.calls:
-            k_ref = block_topw_reference(*args, **kw)
-            s_sorted = pair_scores_reference(*args, **{
-                k: kw[k] for k in ("P", "scale", "col_add", "row_add", "col_mul", "sub_cent")})
-            s_orig = torch.empty_like(s_sorted)
-            s_orig[args[3].long()] = s_sorted
-            err, n_diff = compare_keys(torch, k_kern, k_ref, s_orig,
-                                       W=kw["W"], R=kw["R"], pos_bits=kw["pos_bits"])
+            err, n_diff = check_call(torch, args, kw, k_kern)
             worst, diffs = max(worst, err), diffs + n_diff
             bps.add((int(args[3].shape[0]), kw["P"], kw["W"], kw["R"]))
         log(f"{phase} live check: {len(self.calls)} block_topw calls within tolerance "
@@ -262,11 +344,35 @@ class LiveCheck:
         return worst
 
 
+#: published peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
+#: device memory bytes/s and bf16 dense tensor FLOP/s
+HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
+
+
+def bound(nbytes, flops):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_b, t_o = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return (1e3 * t_b, "bytes") if t_b >= t_o else (1e3 * t_o, "operations")
+
+
+def topw_bound(args, kw, out):
+    """bound() of one block_topw call: each input read once (the blocks,
+    col_add and col_mul rows of the clusters some pair probes), the keys
+    written once; the products 2 * BP * Cmax * d in bf16."""
+    q, cents, starts, order, blocks = args
+    K, d, Cmax = blocks.shape
+    probed = int(((starts[1:] - starts[:-1]) > 0).sum())
+    per_cluster = d * Cmax * blocks.element_size() + Cmax * 4 * (1 + (kw.get("col_mul") is not None))
+    per_pair = 4 * (1 + (kw.get("row_add") is not None) + (kw.get("win_add") is not None))
+    nbytes = (q.numel() * 4 + cents.numel() * 4 + starts.numel() * 4 + probed * per_cluster
+              + order.shape[0] * per_pair + out.numel() * out.element_size())
+    return bound(nbytes, 2.0 * order.shape[0] * Cmax * d)
+
+
 def phase_kernels(torch, dev, *, shape, probes, reps):
-    """Kernel against twin at the given shape; returns per-variant records."""
-    from quiver_tpu_torch.ops.ivf_cuda import (
-        block_topw, block_topw_reference, pair_scores_reference,
-    )
+    """Kernel against twin at the given shape; returns per-variant records
+    (max error; at P=3 L2: kernel, plain-version and bound ms)."""
+    from quiver_tpu_torch.ops import ivf_cuda
 
     records = {}
     for variant, W, R, pos_bits, metrics in VARIANTS:
@@ -279,29 +385,59 @@ def phase_kernels(torch, dev, *, shape, probes, reps):
                     seed=1000 * P + len(metric), **shape,
                 )
                 wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
-                k_kern = block_topw(*args, **wkw)
-                k_ref = block_topw_reference(*args, **wkw)
-                s_sorted = pair_scores_reference(*args, **kw)
-                s_orig = torch.empty_like(s_sorted)
-                s_orig[args[3].long()] = s_sorted
-                del s_sorted
-                err, n_diff = compare_keys(
-                    torch, k_kern, k_ref, s_orig, W=W, R=R, pos_bits=pos_bits)
-                del s_orig, k_ref
-                ms = cuda_ms(lambda: block_topw(*args, **wkw), reps)
-                plain_ms = cuda_ms(lambda: block_topw_reference(*args, **wkw), 1)
+                k_kern = ivf_cuda.block_topw(*args, **wkw)
+                err, n_diff = check_call(torch, args, wkw, k_kern)
+                ms = cuda_ms(lambda: ivf_cuda.block_topw(*args, **wkw), reps)
+                plain_ms = cuda_ms(lambda: ivf_cuda.block_topw_reference(*args, **wkw), 1)
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                extra = ""
                 if P == 3 and metric == "euclidean":
                     rec["ms"], rec["plain_ms"] = ms, plain_ms
+                    rec["bound_ms"], rec["bound_by"] = topw_bound(args, wkw, k_kern)
+                    extra = (f" bound_ms={rec['bound_ms']!r} ({rec['bound_by']}) "
+                             f"bound_share={rec['bound_ms'] / ms!r}")
                 log(
-                    f"kernel {variant} W={W} R={R} {metric} B={shape['B']} P={P} "
+                    f"kernel {variant} W={W} R={R} {metric} B={shape['B']} P={P} d={shape['d']} "
                     f"BP={shape['B'] * P}: max_abs_err={err!r} pos_diffs={n_diff} "
-                    f"kernel_ms={ms!r} twin_ms={plain_ms!r}"
+                    f"kernel_ms={ms!r} twin_ms={plain_ms!r}{extra}"
                 )
                 del args, kw, wkw, k_kern
-                if dev.type == "cuda":
-                    torch.cuda.empty_cache()
+                torch.cuda.empty_cache()
     return records
+
+
+def phase_sums(torch, dev, *, d, seed=11):
+    """The error of the card's dot products against f64 on the same bf16
+    operands, in units of 2^-24 * sum_scale: row mode at Cmax=8 keeps all 8
+    keys of each pair (3 position bits, one quantum 2^-20 of the score,
+    taken off). Fails above SUM_ERR, the unit count compare_keys allows."""
+    from quiver_tpu_torch.ops import ivf_cuda
+
+    B, K, Cmax = 65536, 1024, 8
+    args, kw = kernel_inputs(torch, dev, B=B, P=1, K=K, Cmax=Cmax, d=d, metric="euclidean",
+                             variant="row", seed=seed)
+    q, cents, starts, order, blocks = args
+    keys = ivf_cuda.block_topw(*args, **kw, W=Cmax, R=Cmax, pos_bits=3, sentinel=ivf_cuda.KEY_MIN)
+    sk = torch.empty(B, Cmax, device=dev)
+    sk.scatter_(1, (keys & 7).long(), ivf_cuda._from_key(keys & ~7))
+    s32 = pair_scores_orig(torch, args, kw)
+    sorted_c = torch.repeat_interleave(torch.arange(K, device=dev), (starts[1:] - starts[:-1]).long())
+    o = order.long()
+    a = (q[o] - cents[sorted_c]).to(torch.bfloat16).double()
+    s64 = torch.empty(B, Cmax, dtype=torch.float64, device=dev)
+    s64[o] = kw["scale"] * torch.einsum("pd,pdc->pc", a, blocks.double()[sorted_c]) \
+        + kw["col_add"][sorted_c].double()
+    unit = 2.0 ** -24 * sum_scale(torch, args, kw).double()[:, None]
+    real = s64 > -1e30
+    ratios = []
+    for s in (sk, s32):
+        e = ((s.double() - s64).abs() - 2.0 ** -20 * s64.abs()).clamp(min=0)
+        ratios.append(float((e / unit)[real].max()))
+    log(f"sums d={d}: max |kernel - f64| = {ratios[0]!r}, max |f32 twin - f64| = "
+        f"{ratios[1]!r} units of 2^-24 * sum_scale (B={B}, Cmax={Cmax}; tolerance {SUM_ERR})")
+    if ratios[0] > SUM_ERR:
+        raise AssertionError(f"the card's sums stray {ratios[0]} units from f64 at d={d}")
+    return ratios
 
 
 def phase_slice(torch, dev, vecs, *, b_serve, reps):
@@ -358,9 +494,61 @@ def phase_slice(torch, dev, vecs, *, b_serve, reps):
             log(f"slice search_slots_device {form} n_probe={n_probe} B={b_serve}: "
                 f"ms_per_batch={ms!r} qps={b_serve / (ms / 1e3)!r}")
     eng.config.formulation, eng.config.n_probe = "pairs", tuned
+    slice_profile(torch, eng, qdev)
     log(f"slice memory: device_bytes={eng.device_bytes()} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
     return eng, qdev
+
+
+def slice_profile(torch, eng, qdev, *, batches=5, top=8):
+    """Device time by kernel over ``batches`` back-to-back slice batches
+    (``torch.profiler``, CUDA activity; each kernel's interval from the
+    trace) and the card's busy share of the window (CUDA events)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.search_slots_device(qdev, TOP_K)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(batches):
+            eng.search_slots_device(qdev, TOP_K)
+        e1.record()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            by_name[name[:64]] += ev.time_range.elapsed_us() / 1e3 / batches
+    busy, wall = sum(by_name.values()), e0.elapsed_time(e1) / batches
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    log(f"slice profile (pairs, n_probe={eng.config.n_probe}, B={qdev.shape[0]}, {batches} "
+        f"batches): ms_per_batch={wall!r} device_busy_ms={busy!r} busy_share={busy / wall!r}; "
+        + "; ".join(f"{name} {ms!r}" for name, ms in rows))
+
+
+def phase_k100(torch, dev, eng, qb, vecs, *, b=4096, k=100) -> float:
+    """Phase 4's k=100 batch: B=4096 serving queries through ``search_slots``
+    at the tuned n_probe. Cmax=1280 holds 40 windows of 32 < k, so the
+    per-pair branch serves it (row mode, R=100: every key of each row, then
+    the wrapper's top-R). Every slot must be filled; recall@100 against the
+    f64 oracle is recorded, not gated; the call is held against the plain
+    version. Returns its largest score error."""
+    q = qb[:b]
+    kth = oracle_kth(dev, q, vecs, k)
+    with LiveCheck() as live:
+        dist, slots = eng.search_slots(q, k)
+    if dist.shape != (b, k) or (slots < 0).any() or not np.isfinite(dist).all():
+        raise AssertionError(f"k={k}: {int((slots < 0).sum())} empty slots, shape {dist.shape}")
+    qdev = torch.from_numpy(q).to(dev)
+    ms = cuda_ms(lambda: eng.search_slots_device(qdev, k), 3)
+    log(f"slice k={k} B={b} n_probe={eng.config.n_probe}: all {b * k} slots filled; "
+        f"recall@{k} {recall_with_ties(slots, q, vecs, kth, k)!r} (f64 oracle, tie-aware); "
+        f"ms_per_batch={ms!r}")
+    return live.verify(torch, f"slice k={k}")
 
 
 def slice_probe_ids(eng, qdev, n_probe=3):
@@ -571,6 +759,11 @@ def main() -> int:
 
     # phase 3: kernel against twin (these launches are not the main path's)
     records = phase_kernels(torch, dev, shape=KERNEL_SHAPE, probes=KERNEL_PROBES, reps=10)
+    wide = phase_kernels(torch, dev, shape=WIDE_SHAPE, probes=(3,), reps=10)
+    for variant, rec in wide.items():
+        records[variant]["max_abs_err"] = max(records[variant]["max_abs_err"], rec["max_abs_err"])
+    for d in (KERNEL_SHAPE["d"], WIDE_SHAPE["d"]):
+        phase_sums(torch, dev, d=d)
 
     # phase 4: the main path; launch counts cover exactly this phase
     t0 = time.perf_counter()
@@ -579,6 +772,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ivf_cuda.reset_launch_counts()
     eng, qdev = phase_slice(torch, dev, vecs, b_serve=B_SERVE, reps=10)
+    k100_err = phase_k100(torch, dev, eng, qdev.cpu().numpy(), vecs)
+    records["row100"]["max_abs_err"] = max(records["row100"]["max_abs_err"], k100_err)
     counts = dict(ivf_cuda.launch_counts)
     log(f"slice launches: {counts}")
 
@@ -588,7 +783,8 @@ def main() -> int:
     prec = probe.run_probes(dev, probe=probe_ids, K=eng.n_clusters, log=log)
     probe_counts = dict(probe_cuda.launch_counts)
     log(f"probe launches: {probe_counts}")
-    probe_times = probe.time_probes(dev, prec.pop("main"), log=log)
+    scatter_ops, read_ops = prec.pop("main")
+    probe_times = probe.time_probes(dev, (scatter_ops, read_ops), log=log)
     del probe_ids
     torch.cuda.empty_cache()
 
@@ -610,28 +806,44 @@ def main() -> int:
     live_err = max(live_err, phase_collection(torch, dev, vecs))
     records["pairs"]["max_abs_err"] = max(records["pairs"]["max_abs_err"], live_err)
 
+    # bounds: block_topw's from phase 3's operands (topw_bound); the probes'
+    # from their main-path operands: scatter_rows reads and writes its rows,
+    # index_read moves one entry of big, x and its output
+    vals = scatter_ops["vals"]
+    probe_bounds = {
+        "scatter_rows": bound(2 * vals.numel() * 4 + 4 * (scatter_ops["starts"].numel()
+                                                          + scatter_ops["pos"].numel()), 0.0),
+        "index_read": bound(12, 0.0),
+    }
+    replaces = {"pairs": "quiver_tpu/ops/ivf_kernels.py:633",
+                "fused": "quiver_tpu/ops/ivf_pallas.py:145",
+                "row100": "quiver_tpu/ops/ivf_kernels.py:716"}
     kernels = []
     for variant, rec in records.items():
-        if variant == "row":  # not on the 1M slice's path (see VARIANTS)
+        if variant not in replaces:  # row mode at R=16: not on the 1M slice's path
             continue
-        launches = counts[(rec["W"], rec["R"])]
-        if launches <= 0:
+        key = ivf_cuda.ROW_MODE if rec["W"] == KERNEL_SHAPE["Cmax"] else (rec["W"], rec["R"])
+        if counts[key] <= 0:
             raise AssertionError(f"block_topw {variant} was not launched by the main path")
         kernels.append({
             "name": f"block_topw[W={rec['W']},R={rec['R']}] ({variant})",
             "route": "cuda",
             "source": "quiver_tpu_torch/csrc/ivf_block_topw.cu",
-            "replaces": ("quiver_tpu/ops/ivf_kernels.py:633" if variant == "pairs"
-                         else "quiver_tpu/ops/ivf_pallas.py:145"),
-            "launches": launches,
+            "replaces": replaces[variant],
+            "launches": counts[key],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "bound_share": rec["bound_ms"] / rec["ms"],
+            "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
         })
     for name, replaces in (("scatter_rows", "benches/probe_pallas.py:42"),
                            ("index_read", "benches/probe_pallas.py:101")):
         if probe_counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by the probes' path")
+        bound_ms, bound_by = probe_bounds[name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -641,6 +853,10 @@ def main() -> int:
             "max_abs_err": prec[name]["max_abs_err"],
             "ms": probe_times[name][0],
             "plain_ms": probe_times[name][1],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_share": bound_ms / probe_times[name][0],
+            "library_ms": None,  # none: no one PyTorch call does what either probe does
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line, flush=True)

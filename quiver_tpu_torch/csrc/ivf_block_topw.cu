@@ -8,249 +8,626 @@
 // f32 sums, applies the epilogue
 //   s = (scale * dot + row_add[pair]) * col_mul[c, j] + col_add[c, j],
 // packs (score | column) into a monotone int32 key and keeps the top R keys
-// of every W-column window, written straight to the pair's original row.
-// W = 0 selects one window spanning the whole row (the per-pair top-R).
+// of every W-column window, written straight to the pair's original row in
+// lane r*S + w (S = Cmax / W), each optionally re-keyed with a per-pair f32
+// constant (win_add). W = 0 selects one window spanning the whole row: the
+// running top-R (R <= 32) in the kernel, or every key of the row for the
+// wrapper's top-R (R > 32).
 //
-// What bounds it on an H100: at the serving shape (B=65536, n_probe=2,
-// K~1400, Cmax=1280, d=128) the stage is 43 GFLOP of products against
-// ~0.46 GB of blocks, plus one re-read of a cluster's block per tile of
-// pairs that probe it (~1.1 GB in all, mostly from L2). Against the data
-// sheet's peaks (H100 SXM at 700 W: 989 TFLOP/s bf16 tensor, 3.35 TB/s)
-// the block bytes bound it, at ~0.1-0.3 ms. This first version computes
-// the products on the CUDA cores in f32 (bf16 operands are exact in f32),
-// so the f32 FMA rate bounds it instead (67 TFLOP/s peak: 0.64 ms). It
-// measured 2.45 ms at n_probe=2 and 3.41 ms at n_probe=3 (B=65536) on an
-// NVIDIA H100 80GB HBM3 at a 700 W power limit: ~26% of that f32 peak.
+// What bounds it on an H100 (SXM, 700 W: 3.35 TB/s, 989 TFLOP/s bf16
+// dense). At the serving shape (B=65536, n_probe=3, K=1405, Cmax=1280,
+// d=128) the work is 64.4 GFLOP of products (0.065 ms on the tensor cores)
+// against 565 MB that must move (blocks 460 MB, keys out 63 MB, queries
+// 34 MB): 0.169 ms, so bytes bound it. This design takes 0.623 ms there
+// (27% of that bound; 0.655 ms fused) and 1.166 ms at d=768 (B=16384,
+// K=1024: 53% of its 0.623 ms bound), where the previous one (CUDA-core
+// f32 FMAs, synchronous slab loads, keys through shared memory) took 3.394
+// ms and could not run d=768 at all (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py phase 3). Neither the tensor cores nor device memory are
+// the limit now: the time goes to the epilogue (about ten float and integer
+// operations for each of the 252M scores, between a warpgroup's products)
+// and to streaming each cluster's block once per 64-pair tile (~1.2 GB from
+// L2). Blocks of 2 or 4 tiles sharing each slab measured slower than three
+// independent one-tile blocks per SM, as did a persistent grid (PERF.md).
 //
-// Design, simple first: one block of 256 threads per (cluster, tile of
-// TQ=64 sorted pairs); a grid of ceil(BP/TQ) + K blocks is an upper bound
-// on the tile count (surplus blocks exit), so the host never syncs. Each
-// block loads its own pair indices (there is no scalar prefetch), gathers
-// its query tile into shared memory (f32, centroid subtracted, rounded to
-// bf16), then walks the cluster block in 128-column slabs: a slab of
-// d x 128 bf16 is 32 KB where the whole block (320 KB at the serving
-// shape) would not fit the 227 KB of shared memory, and windows of W <= 128
-// columns align with the slabs. Each thread accumulates a 4 x 8 register
-// tile; the epilogue writes packed keys over the consumed slab in shared
-// memory, and each warp then reduces whole windows (W/32 keys per lane, R
-// passes of a warp max, the winner replaced by the sentinel). In row mode
-// (W = 0) a warp merges each slab into the row's running top-R (R <= 32,
-// one per lane) instead. Every output row belongs to exactly one block: no
-// atomics. wgmma, TMA and a ring of slabs are later work.
+// Design. A prologue kernel gathers each sorted pair's query (minus the
+// centroid for L2, rounded to bf16, zero past d) into a [BP, d_pad] scratch
+// in sorted order, so both operands of the product arrive by TMA. The main
+// kernel gives each block one tile of 64 pairs of one cluster (a sync-free
+// map: the grid is an upper bound on the tiles and surplus blocks exit). Its
+// consumer warpgroup runs wgmma.m64n128k16 (bf16 -> f32; A K-major, B
+// MN-major, 128-byte swizzle) over a ring of STAGES stages that one producer
+// thread keeps full with TMA loads completing on mbarriers: per stage a
+// 64-deep d chunk of the block slab (64 x 128 bf16) and, when d needs more
+// than A_RES_KC chunks, of the tile's queries; for d <= 128 the query tile
+// loads once and stays resident. The slab's last stage also brings its
+// col_add and col_mul rows (a bulk copy) and is held until the epilogue has
+// read them.
+// Shared memory does not grow with d (any d: the tensor maps' out-of-bounds
+// fill zeroes the rows past d). The epilogue runs on the accumulators in
+// registers: in the m64nNk16 layout a W-column window of one row lies in
+// one quad of threads, so each thread keeps its top R of its W/4 values,
+// two xor-shuffle rounds merge the quad, and the quad stores the window
+// winners straight to the pair's row. Row mode stages each slab's keys in
+// shared memory per warp (a warp's 16 rows are its own) and merges them
+// into a running top-R, or copies them out whole.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TQ = 64;        // sorted pairs per tile
-constexpr int SLAB = 128;     // block columns per slab
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 8 outputs each
-constexpr int RM = 4;         // tile rows per thread
-constexpr int CN = 8;         // slab columns per thread
-constexpr int QS = TQ + 4;    // query tile row stride (floats), 16 B aligned
-constexpr int ROW_RMAX = 32;  // row mode: winners kept, one per lane
+constexpr int TQ = 64;              // pair rows per tile (block): the wgmma M
+constexpr int SLAB = 128;           // block columns per slab: the wgmma N
+constexpr int DK = 64;              // d per ring stage: one 128-byte bf16 row
+constexpr int STAGES = 3;           // ring depth
+constexpr int MIN_BLOCKS = 3;       // windowed variants: blocks per SM, for the registers
+constexpr int GATHER_ROWS = 8;      // prologue: sorted pairs per warp
+constexpr int THREADS = 128 + 32;   // the consumer warpgroup, then the producer warp
+constexpr int CHUNK = 64 * DK * 2;  // 8 KB: the tile's query chunk, or half a slab
+// the query tile stays resident when d needs at most this many chunks
+// (d <= 128); otherwise each stage brings its chunk too
+constexpr int A_RES_KC = 2;
+constexpr int ROW_RMAX = 32;        // row mode: running winners, one per lane
+constexpr int STG = SLAB + 8;       // row mode: staging row stride (ints)
+constexpr int ROW_SMEM = TQ * STG + TQ * ROW_RMAX + TQ;  // row mode: ints
+
+// One ring stage: the tile's query chunk (unless resident), the slab's two
+// 64-column halves, then the slab's col_add and col_mul rows.
+template <bool AR>
+struct Stage {
+  static constexpr int B = AR ? 0 : CHUNK;
+  static constexpr int AUX = B + 2 * CHUNK;
+  static constexpr int BYTES = AUX + 2 * SLAB * 4;  // a multiple of 1024
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of the given parity; a
+// wait of more than ~2^36 cycles (tens of seconds) traps, so a broken
+// pipeline fails the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (!done) {
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 36)) {
+      __trap();
+    }
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// plain bulk copy global -> shared (16-byte multiples), completion on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d[64] (+)= A[64 x 16] (K-major) * B[16 x 128] (MN-major: trans-b = 1)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// keep the compiler from touching the accumulators across wgmma's async writes
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
 __device__ __forceinline__ int to_key(float s) {
   const int b = __float_as_int(s);
   return b ^ ((b >> 31) & 0x7FFFFFFF);
 }
 
-// W > 0: top R per W-column window. W == 0: top r_keep (<= 32) of the row.
-template <int W, int R>
-__global__ void __launch_bounds__(THREADS, 2) block_topw_kernel(
-    const float* __restrict__ q, const float* __restrict__ cents,
-    const int* __restrict__ starts, const int* __restrict__ tile_start,
-    const int* __restrict__ order, const __nv_bfloat16* __restrict__ blocks,
-    const float* __restrict__ row_add, const float* __restrict__ col_mul,
-    const float* __restrict__ col_add, int* __restrict__ out, int K, int d,
-    int Cmax, int P, float scale, int sub_cent, int pos_bits, int sentinel,
-    int r_keep) {
-  static_assert(W == 0 || (W % 32 == 0 && W <= SLAB && SLAB % (W ? W : 1) == 0),
-                "window");
-  constexpr int EPL = W > 0 ? W / 32 : SLAB / 32;  // keys per lane
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_orig[TQ];
-  __shared__ int s_run[W > 0 ? 1 : TQ * ROW_RMAX];  // row mode: running top-R
-  float* qs = reinterpret_cast<float*>(smem);  // [d][QS] query tile^T
-  unsigned char* slab_raw = smem + (size_t)d * QS * sizeof(float);
-  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(slab_raw);  // [d][SLAB]
-  int* keys = reinterpret_cast<int*>(slab_raw);  // [TQ][SLAB], aliases bs
+__device__ __forceinline__ float from_key(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7FFFFFFF));
+}
 
-  const int t = blockIdx.x;
-  if (t >= tile_start[K]) return;  // surplus block of the upper-bound grid
-  // cluster c with tile_start[c] <= t < tile_start[c + 1]
-  int lo = 0, hi = K;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (tile_start[mid] <= t) lo = mid; else hi = mid;
-  }
-  const int c = lo;
-  const int row0 = starts[c] + (t - tile_start[c]) * TQ;
-  const int n_rows = min(TQ, starts[c + 1] - row0);
-  const int tid = threadIdx.x;
+// a consumer warp is done with a stage
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
 
-  if (tid < TQ) s_orig[tid] = tid < n_rows ? order[row0 + tid] : -1;
-  if constexpr (W == 0) {
-    for (int e = tid; e < TQ * ROW_RMAX; e += THREADS) s_run[e] = sentinel;
-  }
-  __syncthreads();
-
-  // query tile: row r is query order[row0 + r] / P, minus the centroid
-  // (f32) for L2, rounded to bf16 as the reference rounds it
-  const float* cent = cents + (size_t)c * d;
-  for (int e = tid; e < TQ * d; e += THREADS) {
-    const int r = e / d, kk = e - r * d;
-    const int o = s_orig[r];
-    float v = 0.f;
-    if (o >= 0) {
-      v = q[(size_t)(o / P) * d + kk];
-      if (sub_cent) v = __fsub_rn(v, cent[kk]);
-      v = __bfloat162float(__float2bfloat16_rn(v));
-    }
-    qs[kk * QS + r] = v;
-  }
-
-  const int tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int pm = (1 << pos_bits) - 1;
-  const int out_w = W > 0 ? (Cmax / W) * R : r_keep;
-  const __nv_bfloat16* blk = blocks + (size_t)c * d * Cmax;
-  const float* cadd = col_add + (size_t)c * Cmax;
-  const float* cmul = col_mul ? col_mul + (size_t)c * Cmax : nullptr;
-
-  for (int col0 = 0; col0 < Cmax; col0 += SLAB) {
-    const int ncols = min(SLAB, Cmax - col0);
-    __syncthreads();  // previous slab's keys consumed; query tile written
-    for (int e = tid; e < d * (SLAB / 8); e += THREADS) {
-      const int kk = e / (SLAB / 8), j8 = (e - kk * (SLAB / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (j8 < ncols)
-        v = *reinterpret_cast<const uint4*>(blk + (size_t)kk * Cmax + col0 + j8);
-      *reinterpret_cast<uint4*>(bs + kk * SLAB + j8) = v;
-    }
-    __syncthreads();
-
-    float acc[RM][CN];
+// insert a key into a descending top-R list
+template <int R>
+__device__ __forceinline__ void insert(int (&t)[R], int key) {
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(qs + kk * QS + ty * RM);
-      const uint4 b4 = *reinterpret_cast<const uint4*>(bs + kk * SLAB + tx * CN);
-      const float a[RM] = {a4.x, a4.y, a4.z, a4.w};
-      const unsigned bw[4] = {b4.x, b4.y, b4.z, b4.w};
-      float b[CN];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        b[2 * h] = __uint_as_float(bw[h] << 16);
-        b[2 * h + 1] = __uint_as_float(bw[h] & 0xFFFF0000u);
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // slab reads done: keys overwrite it
-
-    // epilogue: packed keys; rounding per operation (no contraction) so it
-    // matches the plain version's separate multiply and add
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty * RM + i;
-      const int o = s_orig[r];
-      const float radd = (row_add != nullptr && o >= 0) ? row_add[o] : 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int jc = tx * CN + j;
-        const int col = col0 + jc;
-        int key = sentinel;
-        if (jc < ncols) {
-          float s = __fmul_rn(scale, acc[i][j]);
-          if (row_add != nullptr) s = __fadd_rn(s, radd);
-          if (cmul != nullptr) s = __fmul_rn(s, cmul[col]);
-          s = __fadd_rn(s, cadd[col]);
-          key = (to_key(s) & ~pm) | (col & pm);
-        }
-        keys[r * SLAB + jc] = key;
-      }
-    }
-    __syncthreads();
-
-    if constexpr (W > 0) {
-      // windowed top-R: one warp per (row, window)
-      const int wps = ncols / W;
-      for (int task = warp; task < n_rows * wps; task += THREADS / 32) {
-        const int r = task / wps, w = task - r * wps;
-        int v[EPL];
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) v[e] = keys[r * SLAB + w * W + e * 32 + lane];
-        int* dst = out + (size_t)s_orig[r] * out_w + (col0 / W + w) * R;
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-          int m = v[0];
-#pragma unroll
-          for (int e = 1; e < EPL; ++e) m = max(m, v[e]);
-          m = __reduce_max_sync(0xFFFFFFFFu, m);
-#pragma unroll
-          for (int e = 0; e < EPL; ++e)
-            if (v[e] == m) v[e] = sentinel;
-          if (lane == 0) dst[rr] = m;
-        }
-      }
-    } else {
-      // row mode: merge the slab into the running top-r_keep, one warp per
-      // row; the winner of pass rr lands in lane rr
-      for (int r = warp; r < n_rows; r += THREADS / 32) {
-        int v[EPL + 1];
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) v[e] = keys[r * SLAB + e * 32 + lane];
-        v[EPL] = s_run[r * ROW_RMAX + lane];
-        int mine = sentinel;
-        for (int rr = 0; rr < r_keep; ++rr) {
-          int m = v[0];
-#pragma unroll
-          for (int e = 1; e <= EPL; ++e) m = max(m, v[e]);
-          m = __reduce_max_sync(0xFFFFFFFFu, m);
-#pragma unroll
-          for (int e = 0; e <= EPL; ++e)
-            if (v[e] == m) v[e] = sentinel;
-          if (lane == rr) mine = m;
-        }
-        s_run[r * ROW_RMAX + lane] = mine;
-      }
-    }
-  }
-
-  if constexpr (W == 0) {
-    __syncwarp();
-    for (int r = warp; r < n_rows; r += THREADS / 32)
-      if (lane < r_keep) out[(size_t)s_orig[r] * out_w + lane] = s_run[r * ROW_RMAX + lane];
+  for (int r = 0; r < R; ++r) {
+    const int hi = max(t[r], key);
+    key = min(t[r], key);
+    t[r] = hi;
   }
 }
 
-template <int W, int R>
-cudaError_t launch(const float* q, const float* cents, const int* starts,
-                   const int* tile_start, const int* order,
-                   const __nv_bfloat16* blocks, const float* row_add,
-                   const float* col_mul, const float* col_add, int* out, int K,
-                   int d, int Cmax, int P, int n_tiles_max, float scale,
-                   int sub_cent, int pos_bits, int sentinel, int r_keep,
-                   cudaStream_t stream) {
-  const size_t slab_bytes = (size_t)d * SLAB * sizeof(__nv_bfloat16);
-  const size_t key_bytes = (size_t)TQ * SLAB * sizeof(int);
-  const size_t smem = (size_t)d * QS * sizeof(float) +
-                      (slab_bytes > key_bytes ? slab_bytes : key_bytes);
+// the cluster of tile g (tile_start[c] <= g < tile_start[c + 1])
+__device__ __forceinline__ int find_cluster(const int* tile_start, int K, int g) {
+  int lo = 0, hi = K;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (tile_start[mid] <= g) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// one row of the prologue: dst = bf16(qr - cr) (or of qr alone), zero past d
+__device__ __forceinline__ void gather_row(const float* __restrict__ qr,
+                                           const float* __restrict__ cr,
+                                           __nv_bfloat162* __restrict__ dst, int d, int d_pad,
+                                           int sub_cent, bool vec, int lane) {
+  if (vec) {  // 16-byte loads where the rows allow them
+    for (int k4 = lane; k4 < d_pad / 4; k4 += 32) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * k4 < d) {
+        v = reinterpret_cast<const float4*>(qr)[k4];
+        if (sub_cent) {
+          const float4 c = reinterpret_cast<const float4*>(cr)[k4];
+          v = make_float4(__fsub_rn(v.x, c.x), __fsub_rn(v.y, c.y), __fsub_rn(v.z, c.z),
+                          __fsub_rn(v.w, c.w));
+        }
+      }
+      dst[2 * k4] = __floats2bfloat162_rn(v.x, v.y);
+      dst[2 * k4 + 1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+    return;
+  }
+  for (int k2 = lane; k2 < d_pad / 2; k2 += 32) {
+    float v[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = 2 * k2 + j;
+      if (k < d) v[j] = sub_cent ? __fsub_rn(qr[k], cr[k]) : qr[k];
+    }
+    dst[k2] = __floats2bfloat162_rn(v[0], v[1]);
+  }
+}
+
+// Prologue: qa[i, :] = bf16(q[order[i] / P] - cents[c_i]) for sorted pair i
+// of cluster c_i (no centroid for dot / cosine), zero from d to d_pad. A
+// warp takes GATHER_ROWS consecutive pairs: one search of starts, then a
+// walk (a search per pair made the prologue latency-bound).
+__global__ void __launch_bounds__(256) gather_queries(
+    const float* __restrict__ q, const float* __restrict__ cents,
+    const int* __restrict__ starts, const int* __restrict__ order,
+    __nv_bfloat162* __restrict__ qa, int K, int d, int d_pad, int P, int BP, int sub_cent) {
+  const int row0 = (blockIdx.x * 8 + (threadIdx.x >> 5)) * GATHER_ROWS;
+  const int lane = threadIdx.x & 31;
+  if (row0 >= BP) return;
+  const bool vec = (d & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(cents)) & 15) == 0;
+  int lo = 0, hi = K;  // starts[lo] <= row0 < starts[lo + 1]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (starts[mid] <= row0) lo = mid; else hi = mid;
+  }
+  for (int row = row0; row < min(row0 + GATHER_ROWS, BP); ++row) {
+    while (starts[lo + 1] <= row) ++lo;
+    gather_row(q + static_cast<size_t>(order[row] / P) * d, cents + static_cast<size_t>(lo) * d,
+               qa + static_cast<size_t>(row) * (d_pad / 2), d, d_pad, sub_cent, vec, lane);
+  }
+}
+
+// W > 0: top R per W-column window (W in {32, 64, 128}). W == 0: row mode,
+// the running top r_keep (<= 32) of the row, or every key when r_keep > 32.
+template <int W, int R, bool AR>
+__global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+    const int* __restrict__ starts, const int* __restrict__ tile_start,
+    const int* __restrict__ order, const float* __restrict__ row_add,
+    const float* __restrict__ col_mul, const float* __restrict__ col_add,
+    const float* __restrict__ win_add, int* __restrict__ out, int K, int n_kc, int Cmax,
+    float scale, int pos_bits, int sentinel, int r_keep) {
+  static_assert(W == 0 || (W % 32 == 0 && SLAB % (W ? W : 1) == 0), "window");
+  const int g = blockIdx.x;
+  if (g >= tile_start[K]) return;  // the grid is an upper bound on the tiles
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle pattern repeats every 8 rows
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  using St = Stage<AR>;
+  // the ring, the resident query tile (AR), the barriers, row mode's rows
+  unsigned char* ares = smem + STAGES * St::BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ares + (AR ? n_kc * CHUNK : 0));
+  uint64_t* empty = full + STAGES;
+  uint64_t* afull = empty + STAGES;  // AR: the tile's query chunks arrived
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // every consumer warp releases every stage
+    }
+    mbar_init(afull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int c = find_cluster(tile_start, K, g);
+  const int row0 = starts[c] + (g - tile_start[c]) * TQ;  // the tile's first sorted pair
+
+  if (tid >= 128) {
+    // ---- producer: one thread keeps the ring full
+    if (tid != 128) return;
+    if constexpr (AR) {
+      mbar_expect_tx(afull, n_kc * CHUNK);
+      for (int kc = 0; kc < n_kc; ++kc) tma_2d(ares + kc * CHUNK, &map_a, afull, kc * DK, row0);
+    }
+    int stage = 0, phase = 0;
+    for (int col0 = 0; col0 < Cmax; col0 += SLAB) {
+      const int halves = col0 + 64 < Cmax ? 2 : 1;
+      for (int kc = 0; kc < n_kc; ++kc) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * St::BYTES;
+        // the slab's last chunk also brings its col_add (and col_mul) row
+        const int aux_bytes =
+            kc + 1 < n_kc ? 0 : min(SLAB, Cmax - col0) * 4 * (col_mul != nullptr ? 2 : 1);
+        mbar_expect_tx(&full[stage], (halves + (AR ? 0 : 1)) * CHUNK + aux_bytes);
+        if (aux_bytes) {
+          const size_t off = static_cast<size_t>(c) * Cmax + col0;
+          bulk_copy(st + St::AUX, col_add + off, min(SLAB, Cmax - col0) * 4, &full[stage]);
+          if (col_mul != nullptr)
+            bulk_copy(st + St::AUX + SLAB * 4, col_mul + off, min(SLAB, Cmax - col0) * 4,
+                      &full[stage]);
+        }
+        tma_3d(st + St::B, &map_b, &full[stage], col0, kc * DK, c);
+        if (halves == 2)
+          tma_3d(st + St::B + CHUNK, &map_b, &full[stage], col0 + 64, kc * DK, c);
+        if constexpr (!AR) tma_2d(st, &map_a, &full[stage], kc * DK, row0);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const int rl = warp * 16 + (lane >> 2);  // this thread's rows: rl, rl + 8
+  const int pm = (1 << pos_bits) - 1;
+  int* stg = reinterpret_cast<int*>(afull + 1);  // [TQ][STG] keys of the slab (row mode)
+  int* run = stg + TQ * STG;                     // [TQ][ROW_RMAX] running winners
+  int* s_orig = run + TQ * ROW_RMAX;             // [TQ] original pair of each row
+  const bool whole = r_keep > ROW_RMAX;
+  const int n_rows = min(TQ, starts[c + 1] - row0);
+  int orow[2];
+  float radd[2], wadd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rl + 8 * h;
+    orow[h] = r < n_rows ? order[row0 + r] : -1;
+    radd[h] = (row_add != nullptr && orow[h] >= 0) ? row_add[orow[h]] : 0.f;
+    wadd[h] = (win_add != nullptr && orow[h] >= 0) ? win_add[orow[h]] : 0.f;
+  }
+  if constexpr (W == 0) {
+    if (lane < 16) {
+      const int r = warp * 16 + lane;
+      s_orig[r] = r < n_rows ? order[row0 + r] : -1;
+    }
+    for (int e = lane; e < 16 * ROW_RMAX; e += 32) run[warp * 16 * ROW_RMAX + e] = sentinel;
+    __syncwarp();
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int stage = 0, phase = 0;
+
+  if constexpr (AR) mbar_wait(afull, 0);
+  for (int col0 = 0; col0 < Cmax; col0 += SLAB) {
+    int last = 0;  // the slab's last stage: released after the epilogue
+    for (int kc = 0; kc < n_kc; ++kc) {
+      mbar_wait(&full[stage], phase);
+      unsigned char* st = smem + stage * St::BYTES;
+      const uint64_t da = desc_sw128(smem_u32(AR ? ares + kc * CHUNK : st), 16, 1024);
+      const uint64_t db = desc_sw128(smem_u32(st + St::B), CHUNK, 1024);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int k16 = 0; k16 < DK / 16; ++k16)  // A: +32 B along a row; B: +16 rows
+        wgmma_m64n128k16(acc, da + 2 * k16, db + 128 * k16, kc > 0 || k16 > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_acc(acc);
+      if (kc + 1 < n_kc) release(&empty[stage], lane); else last = stage;
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+    // the slab's col_add and col_mul, staged by the producer
+    const float* cadd = reinterpret_cast<const float*>(smem + last * St::BYTES + St::AUX);
+    const float* cmul = col_mul != nullptr ? cadd + SLAB : nullptr;
+
+    if constexpr (W > 0) {
+      // ---- windowed top-R in registers: thread holds rows rl, rl + 8 at
+      // columns col0 + 8i + 2*quad + {0, 1}; window w of the slab is i in
+      // [w*W/8, (w+1)*W/8), shared by the 4 threads of the quad
+      constexpr int NWS = SLAB / W, IPW = W / 8;
+      int top[2][NWS][R];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int w = 0; w < NWS; ++w)
+#pragma unroll
+          for (int r = 0; r < R; ++r) top[h][w][r] = static_cast<int>(0x80000000u);
+#pragma unroll
+      for (int i = 0; i < SLAB / 8; ++i) {
+        const int col = col0 + 8 * i + 2 * quad;
+        // past Cmax the staged values are stale: those windows are not stored
+        const float2 ca = *reinterpret_cast<const float2*>(cadd + 8 * i + 2 * quad);
+        const float2 cm = cmul != nullptr ? *reinterpret_cast<const float2*>(cmul + 8 * i + 2 * quad)
+                                          : make_float2(1.f, 1.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            // rounding per operation (no contraction), as the plain version
+            float s = __fmul_rn(scale, acc[4 * i + 2 * h + j]);
+            if (row_add != nullptr) s = __fadd_rn(s, radd[h]);
+            if (cmul != nullptr) s = __fmul_rn(s, j ? cm.y : cm.x);
+            s = __fadd_rn(s, j ? ca.y : ca.x);
+            insert<R>(top[h][i / IPW], (to_key(s) & ~pm) | ((col + j) & pm));
+          }
+      }
+      // merge the quad: keys are distinct (their column bits differ)
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int w = 0; w < NWS; ++w) {
+            int other[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              other[r] = __shfl_xor_sync(0xFFFFFFFFu, top[h][w][r], off);
+#pragma unroll
+            for (int r = 0; r < R; ++r) insert<R>(top[h][w], other[r]);
+          }
+      // the quad stores entry e = r*NWS + w of the slab's winners from
+      // thread e % 4, to lane r*S + col0/W + w of the pair's row
+      const int S = Cmax / W, w0 = col0 / W;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (orow[h] < 0) continue;
+        int* dst = out + static_cast<size_t>(orow[h]) * (S * R);
+#pragma unroll
+        for (int e = 0; e < NWS * R; ++e) {
+          const int r = e / NWS, w = e % NWS;
+          if ((e & 3) != quad || w0 + w >= S) continue;
+          int m = top[h][w][r];
+          if (win_add != nullptr)
+            m = (to_key(__fadd_rn(from_key(m & ~pm), wadd[h])) & ~pm) | (m & pm);
+          dst[r * S + w0 + w] = m;
+        }
+      }
+      release(&empty[last], lane);
+    } else {
+      // ---- row mode: the warp stages its own 16 rows of the slab
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < SLAB / 8; ++i) {
+        const int col = col0 + 8 * i + 2 * quad;
+        // past Cmax (Cmax is even: a column pair never straddles it) the
+        // staged values are stale and the keys are the sentinel
+        const float2 ca = *reinterpret_cast<const float2*>(cadd + 8 * i + 2 * quad);
+        const float2 cm = cmul != nullptr ? *reinterpret_cast<const float2*>(cmul + 8 * i + 2 * quad)
+                                          : make_float2(1.f, 1.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int kv[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float s = __fmul_rn(scale, acc[4 * i + 2 * h + j]);
+            if (row_add != nullptr) s = __fadd_rn(s, radd[h]);
+            if (cmul != nullptr) s = __fmul_rn(s, j ? cm.y : cm.x);
+            s = __fadd_rn(s, j ? ca.y : ca.x);
+            kv[j] = col < Cmax ? (to_key(s) & ~pm) | ((col + j) & pm) : sentinel;
+          }
+          *reinterpret_cast<int2*>(stg + (rl + 8 * h) * STG + 8 * i + 2 * quad) =
+              make_int2(kv[0], kv[1]);
+        }
+      }
+      release(&empty[last], lane);  // syncs the warp: its staged rows are written
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = warp * 16 + rr;
+        if (r >= n_rows) break;
+        if (whole) {
+#pragma unroll
+          for (int e = 0; e < SLAB / 32; ++e) {
+            const int col = col0 + e * 32 + lane;
+            if (col < Cmax)
+              out[static_cast<size_t>(s_orig[r]) * Cmax + col] = stg[r * STG + e * 32 + lane];
+          }
+          continue;
+        }
+        // merge the slab into the running top r_keep; pass p's winner
+        // lands in lane p
+        int v[SLAB / 32 + 1];
+#pragma unroll
+        for (int e = 0; e < SLAB / 32; ++e) v[e] = stg[r * STG + e * 32 + lane];
+        v[SLAB / 32] = run[r * ROW_RMAX + lane];
+        int mine = sentinel;
+        for (int p = 0; p < r_keep; ++p) {
+          int m = v[0];
+#pragma unroll
+          for (int e = 1; e <= SLAB / 32; ++e) m = max(m, v[e]);
+          m = __reduce_max_sync(0xFFFFFFFFu, m);
+#pragma unroll
+          for (int e = 0; e <= SLAB / 32; ++e)
+            if (v[e] == m) v[e] = sentinel;
+          if (lane == p) mine = m;
+        }
+        run[r * ROW_RMAX + lane] = mine;
+      }
+    }
+  }
+
+  if constexpr (W == 0) {
+    if (!whole) {
+      __syncwarp();
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = warp * 16 + rr;
+        if (r >= n_rows) break;
+        if (lane < r_keep)
+          out[static_cast<size_t>(s_orig[r]) * r_keep + lane] = run[r * ROW_RMAX + lane];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up through the CUDA runtime, so the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// bf16 tensor map with 64 x 64 (x 1) boxes and the 128-byte swizzle; the
+// out-of-bounds fill is zero
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t box[3] = {64, 64, 1}, ones[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+                        dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int W, int R, bool AR>
+cudaError_t launch_ar(const CUtensorMap& map_a, const CUtensorMap& map_b, const int* starts,
+                      const int* tile_start, const int* order, const float* row_add,
+                      const float* col_mul, const float* col_add, const float* win_add,
+                      int* out, int K, int n_kc, int Cmax, int n_tiles, float scale,
+                      int pos_bits, int sentinel, int r_keep, cudaStream_t stream) {
+  const size_t smem = 1024 + static_cast<size_t>(STAGES) * Stage<AR>::BYTES +
+                      (AR ? static_cast<size_t>(n_kc) * CHUNK : 0) +
+                      (2 * STAGES + 1) * sizeof(uint64_t) +
+                      (W == 0 ? ROW_SMEM * sizeof(int) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      block_topw_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      block_topw_kernel<W, R, AR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  block_topw_kernel<W, R><<<n_tiles_max, THREADS, smem, stream>>>(
-      q, cents, starts, tile_start, order, blocks, row_add, col_mul, col_add,
-      out, K, d, Cmax, P, scale, sub_cent, pos_bits, sentinel, r_keep);
+  block_topw_kernel<W, R, AR><<<n_tiles, THREADS, smem, stream>>>(
+      map_a, map_b, starts, tile_start, order, row_add, col_mul, col_add, win_add, out, K,
+      n_kc, Cmax, scale, pos_bits, sentinel, r_keep);
   return cudaGetLastError();
+}
+
+// the query tile resident when d needs at most A_RES_KC chunks
+template <int W, int R>
+cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const int* starts,
+                   const int* tile_start, const int* order, const float* row_add,
+                   const float* col_mul, const float* col_add, const float* win_add, int* out,
+                   int K, int n_kc, int Cmax, int n_tiles, float scale, int pos_bits,
+                   int sentinel, int r_keep, cudaStream_t stream) {
+  return n_kc <= A_RES_KC
+             ? launch_ar<W, R, true>(map_a, map_b, starts, tile_start, order, row_add, col_mul,
+                                     col_add, win_add, out, K, n_kc, Cmax, n_tiles, scale,
+                                     pos_bits, sentinel, r_keep, stream)
+             : launch_ar<W, R, false>(map_a, map_b, starts, tile_start, order, row_add,
+                                      col_mul, col_add, win_add, out, K, n_kc, Cmax, n_tiles,
+                                      scale, pos_bits, sentinel, r_keep, stream);
 }
 
 }  // namespace
@@ -265,41 +642,54 @@ const char* ivf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns the cudaError_t of the launch (0 = queued). Pointers are device
-// pointers on `device`; row_add and col_mul may be null. W = 0 is row mode
-// (top R <= 32 of the whole row). BP (the pair count) is implied by the
-// tile map and kept for the interface's self-description. The library
-// links its own CUDA runtime, whose current device is set here rather than
-// inherited from the caller's runtime.
+// Returns the cudaError_t of the launches (0 = queued). Pointers are device
+// pointers on `device`; row_add, col_mul and win_add may be null. qa is
+// scratch of BP x d_pad bf16 (d_pad = d rounded up to 64). tile_start[K+1]
+// counts each cluster's tiles of TQ sorted pairs; n_tiles, the grid, is an
+// upper bound on their count.
+// W = 0 is row mode: the top R <= 32 of the whole row, or every key of the
+// row ([BP, Cmax]) when R > 32. The library links its own CUDA runtime,
+// whose current device is set here rather than inherited from the caller's.
 int ivf_block_topw(const float* q, const float* cents, const int* starts,
-                   const int* tile_start, const int* order, const void* blocks,
-                   const float* row_add, const float* col_mul,
-                   const float* col_add, int* out, int K, int d, int Cmax,
-                   int P, int BP, int n_tiles_max, float scale, int sub_cent,
-                   int W, int R, int pos_bits, int sentinel, int device,
-                   void* stream) {
-  (void)BP;
-  if (n_tiles_max <= 0) return 0;
+                   const int* tile_start, const int* order, const void* blocks, void* qa,
+                   const float* row_add, const float* col_mul, const float* col_add,
+                   const float* win_add, int* out, int K, int d, int Cmax, int P, int BP,
+                   int n_tiles, float scale, int sub_cent, int W, int R, int pos_bits,
+                   int sentinel, int device, void* stream) {
+  if (BP <= 0 || n_tiles <= 0) return 0;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const auto* b = static_cast<const __nv_bfloat16*>(blocks);
   auto s = static_cast<cudaStream_t>(stream);
-#define QV_CASE(WW, RR)                                                      \
-  if (W == WW && R == RR)                                                    \
-    return (int)launch<WW, RR>(q, cents, starts, tile_start, order, b,       \
-                               row_add, col_mul, col_add, out, K, d, Cmax, P, \
-                               n_tiles_max, scale, sub_cent, pos_bits,       \
-                               sentinel, R, s);
+  const int d_pad = (d + DK - 1) / DK * DK;
+  const int per_block = 8 * GATHER_ROWS;
+  gather_queries<<<(BP + per_block - 1) / per_block, 256, 0, s>>>(q, cents, starts, order,
+                                              static_cast<__nv_bfloat162*>(qa), K, d, d_pad, P,
+                                              BP, sub_cent);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_a, map_b;
+  const cuuint64_t dims_a[2] = {(cuuint64_t)d_pad, (cuuint64_t)BP};
+  const cuuint64_t strides_a[1] = {(cuuint64_t)d_pad * 2};
+  const cuuint64_t dims_b[3] = {(cuuint64_t)Cmax, (cuuint64_t)d, (cuuint64_t)K};
+  const cuuint64_t strides_b[2] = {(cuuint64_t)Cmax * 2, (cuuint64_t)d * Cmax * 2};
+  err = make_map(&map_a, qa, 2, dims_a, strides_a);
+  if (err == cudaSuccess) err = make_map(&map_b, blocks, 3, dims_b, strides_b);
+  if (err != cudaSuccess) return (int)err;
+  const int n_kc = d_pad / DK;
+#define QV_CASE(WW, RR)                                                                     \
+  if (W == WW && R == RR)                                                                   \
+    return (int)launch<WW, RR>(map_a, map_b, starts, tile_start, order, row_add, col_mul,  \
+                               col_add, win_add, out, K, n_kc, Cmax, n_tiles, scale,       \
+                               pos_bits, sentinel, R, s);
   QV_CASE(32, 2)
   QV_CASE(64, 2)
   QV_CASE(128, 2)
   QV_CASE(128, 4)
 #undef QV_CASE
-  if (W == 0 && R >= 1 && R <= ROW_RMAX)
-    return (int)launch<0, ROW_RMAX>(q, cents, starts, tile_start, order, b,
-                                    row_add, col_mul, col_add, out, K, d,
-                                    Cmax, P, n_tiles_max, scale, sub_cent,
-                                    pos_bits, sentinel, R, s);
+  if (W == 0 && R >= 1 && R <= Cmax)
+    return (int)launch<0, ROW_RMAX>(map_a, map_b, starts, tile_start, order, row_add,
+                                    col_mul, col_add, win_add, out, K, n_kc, Cmax, n_tiles,
+                                    scale, pos_bits, sentinel, R, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
 """IVF candidate-stage kernel ``block_topw``: grouped block scoring plus a
-windowed top-R, in one CUDA kernel (``csrc/ivf_block_topw.cu``).
+windowed top-R, in one CUDA kernel (``csrc/ivf_block_topw.cu``: tensor
+cores through ``wgmma``, both operands through a TMA ring; see its header).
 
 It replaces both candidate formulations of the JAX package:
 
@@ -8,10 +9,12 @@ It replaces both candidate formulations of the JAX package:
   position bits, ``KEY_MIN`` sentinel);
 * the XLA chain ``ragged_dot`` + bias epilogue + packed top-2 per 32-lane
   window of ``quiver_tpu/ops/ivf_kernels.py::_pairs_candidates``
-  (``ivf_kernels.py:629-672``; ``formulation="pairs"``: W=32, R=2, 5
-  position bits, ``_mask_key(32)`` sentinel);
+  (``ivf_kernels.py:629-694``; ``formulation="pairs"``: W=32, R=2, 5
+  position bits, ``_mask_key(32)`` sentinel), the per-pair constant
+  ``caff`` included (``win_add``, the f32 add of ``ivf_kernels.py:692-693``
+  on each winner);
 * that function's per-pair top-R branch (``ivf_kernels.py:716-759``), as
-  one window spanning the row (W=Cmax, R <= 32 on CUDA, ``KEY_MIN``
+  one window spanning the row (W=Cmax, any R <= Cmax, ``KEY_MIN``
   sentinel). Unlike the reference's f32 top-k, the packed keys quantize the
   score by ceil(log2(Cmax)) bits.
 
@@ -21,7 +24,9 @@ centroid, for L2) against the cluster's bf16 block with f32 sums, applies
 the epilogue ``s = (scale*dot + row_add[pair]) * col_mul[c, j] +
 col_add[c, j]``, packs (score | position) into a monotone int32 key, keeps
 the top R keys of every W-lane window and writes them to the pair's
-ORIGINAL row, so no regroup by inverse permutation is needed.
+ORIGINAL row in lane ``r*S + w`` (S = Cmax // W windows; the reference's
+``concat([m1 over windows, m2 over windows])``), so no regroup by inverse
+permutation and no transpose is needed.
 
 ``block_topw`` dispatches on the device of its inputs: CPU tensors take the
 plain PyTorch version ``block_topw_reference`` (bf16-rounded operands, f32
@@ -44,7 +49,7 @@ _INT_MASK = 0x7FFFFFFF
 #: (W, R) pairs the CUDA library instantiates (csrc/ivf_block_topw.cu):
 #: (W, 2) serves formulation="pairs" at seg_width W, (128, 4)
 #: formulation="fused". Any other W equal to Cmax runs in row mode (one
-#: window, R <= 32).
+#: window, any R <= Cmax).
 CUDA_VARIANTS = ((32, 2), (64, 2), (128, 2), (128, 4))
 ROW_MODE = "row"
 
@@ -137,27 +142,34 @@ def pair_scores_reference(
 
 def block_topw_reference(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add,
-    row_add=None, col_mul=None, sub_cent, W, R, pos_bits, sentinel,
+    row_add=None, col_mul=None, win_add=None, sub_cent, W, R, pos_bits,
+    sentinel,
 ):
     """Plain PyTorch version of the kernel: i32[BP, R*S] winner keys
-    (S = Cmax // W) in original pair order, lane ``w*R + r`` holding the
-    r-th best key of window w."""
+    (S = Cmax // W) in original pair order, lane ``r*S + w`` holding the
+    r-th best key of window w; with ``win_add`` each winner ``m`` becomes
+    ``(to_key(from_key(m & ~pm) + win_add[pair]) & ~pm) | (m & pm)``."""
     Cmax = blocks_t.shape[2]
     BP = order.shape[0]
     S = Cmax // W
+    pm = (1 << pos_bits) - 1
     s = pair_scores_reference(
         q, centroids, starts, order, blocks_t, P=P, scale=scale,
         col_add=col_add, row_add=row_add, col_mul=col_mul, sub_cent=sub_cent,
     )
-    keys = _pack_lane(s, (1 << pos_bits) - 1).reshape(BP, S, W)
+    keys = _pack_lane(s, pm).reshape(BP, S, W)
     sent = torch.tensor(int(sentinel), dtype=torch.int32, device=q.device)
     wins = []
     for _ in range(R):
         m = keys.max(dim=2).values
         wins.append(m)
         keys = torch.where(keys == m[:, :, None], sent, keys)
-    out = torch.empty(BP, S * R, dtype=torch.int32, device=q.device)
-    out[order.long()] = torch.stack(wins, dim=2).reshape(BP, S * R)
+    wins = torch.stack(wins, dim=1).reshape(BP, R * S)
+    if win_add is not None:
+        f = _from_key(wins & ~pm) + win_add[order.long()][:, None]
+        wins = (_to_key(f) & ~pm) | (wins & pm)
+    out = torch.empty(BP, R * S, dtype=torch.int32, device=q.device)
+    out[order.long()] = wins
     return out
 
 
@@ -190,9 +202,11 @@ def _raise_on(err: int, fn: str, lib) -> None:
 
 def block_topw(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add,
-    row_add=None, col_mul=None, sub_cent, W, R, pos_bits, sentinel,
+    row_add=None, col_mul=None, win_add=None, sub_cent, W, R, pos_bits,
+    sentinel,
 ):
-    """Winner keys i32[BP, R*(Cmax//W)] of every (query, probe) pair.
+    """Winner keys i32[BP, R*(Cmax//W)] of every (query, probe) pair, lane
+    ``r*S + w`` (S = Cmax // W) in each pair's original row.
 
     Args:
       q: f32[B, d] queries; centroids: f32[K, d].
@@ -202,12 +216,22 @@ def block_topw(
       blocks_t: bf16[K, d, Cmax] residual blocks.
       col_add: f32[K, Cmax]; row_add: optional f32[B*P] per original pair;
         col_mul: optional f32[K, Cmax] (the epilogue in the module doc).
+      win_add: optional f32[B*P] per original pair, added in f32 to each
+        winner's unpacked score and packed again (its position bits kept):
+        the per-pair constant of the affine identity, which cannot change
+        the ranking within a pair. Windowed variants only on CUDA.
       sub_cent: subtract the pair's centroid from the query (f32) before
         rounding it to bf16.
       W, R: window width (a power of two dividing Cmax, or Cmax itself:
         one window per row) and winners kept per window; pos_bits: low key
         bits replaced by the block column (W <= 2**pos_bits); sentinel:
         the key a removed winner is replaced by.
+
+    On CUDA, row mode (W = Cmax outside ``CUDA_VARIANTS``) keeps a running
+    top-R in the kernel for R <= 32; above that the kernel writes every
+    packed key of each pair's row (i32[B*P, Cmax], 671 MB at B=65536, P=2,
+    Cmax=1280) and ``torch.topk`` takes the R best, as the reference takes
+    ``lax.top_k`` outside any kernel.
     """
     dev = q.device
     B, d = q.shape
@@ -223,13 +247,16 @@ def block_topw(
         _check("row_add", row_add, torch.float32, (BP,), dev)
     if col_mul is not None:
         _check("col_mul", col_mul, torch.float32, (K, Cmax), dev)
+    if win_add is not None:
+        _check("win_add", win_add, torch.float32, (BP,), dev)
     if W < 1 or (W & (W - 1) and W != Cmax) or Cmax % W or not 1 <= R <= W:
         raise ValueError(f"block_topw: bad window W={W}, R={R} for Cmax={Cmax}")
     if not (W <= (1 << pos_bits) and 0 < pos_bits < 31):
         raise ValueError(f"block_topw: pos_bits={pos_bits} cannot hold W={W}")
     kw = dict(
         P=P, scale=scale, col_add=col_add, row_add=row_add, col_mul=col_mul,
-        sub_cent=sub_cent, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel,
+        win_add=win_add, sub_cent=sub_cent, W=W, R=R, pos_bits=pos_bits,
+        sentinel=sentinel,
     )
     if dev.type == "cpu":
         return block_topw_reference(q, centroids, starts, order, blocks_t, **kw)
@@ -240,26 +267,38 @@ def block_topw(
 
 def _launch_cuda(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add, row_add,
-    col_mul, sub_cent, W, R, pos_bits, sentinel,
+    col_mul, win_add, sub_cent, W, R, pos_bits, sentinel,
 ):
     from quiver_tpu_torch._build import load_library
 
     B, d = q.shape
     K, _, Cmax = blocks_t.shape
     if Cmax % 8:
-        # the kernel loads block rows 8 bf16 (16 bytes) at a time
+        # the tensor map's row stride (Cmax bf16) must be a multiple of 16 bytes
         raise ValueError(f"block_topw: Cmax={Cmax} must be a multiple of 8 on CUDA")
+    for name, t in (("blocks_t", blocks_t), ("col_add", col_add), ("col_mul", col_mul)):
+        if t is not None and t.data_ptr() % 16:
+            # TMA and bulk copies read from 16-byte aligned addresses
+            raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
     lib = load_library()
+    whole = False
     if (W, R) in CUDA_VARIANTS:
         variant, w_arg = (W, R), W
-    elif W == Cmax and R <= lib.ivf_block_topw_row_max():
+    elif W == Cmax and win_add is None:
+        # row mode: the running top-R, or every key of the row above 32
         variant, w_arg = ROW_MODE, 0
+        whole = R > lib.ivf_block_topw_row_max()
     else:
         raise ValueError(
-            f"block_topw: no CUDA variant for W={W}, R={R} (built: "
-            f"{CUDA_VARIANTS}, and W=Cmax with R <= 32; ROADMAP.md queue 2, A1)"
+            f"block_topw: no CUDA variant for W={W}, R={R}"
+            f"{'' if win_add is None else ' with win_add'} (built: {CUDA_VARIANTS}, "
+            f"and W=Cmax without win_add)"
         )
     BP = B * P
+    out = torch.empty(BP, Cmax if whole else (Cmax // W) * R, dtype=torch.int32,
+                      device=q.device)
+    if BP == 0:
+        return out[:, :R] if whole else out
     tq = lib.ivf_block_topw_tile_rows()
     # tile map without a host sync: cluster c owns tiles
     # [tile_start[c], tile_start[c+1]); the grid is an upper bound on the
@@ -268,19 +307,26 @@ def _launch_cuda(
     tile_start = torch.zeros(K + 1, dtype=torch.int32, device=q.device)
     tile_start[1:] = torch.cumsum((counts + (tq - 1)) // tq, 0)
     n_tiles_max = (BP + tq - 1) // tq + K
-    out = torch.empty(BP, (Cmax // W) * R, dtype=torch.int32, device=q.device)
+    # the prologue's output: each sorted pair's bf16 query row, d padded to
+    # the kernel's 64-deep chunks
+    qa = torch.empty(BP, (d + 63) // 64 * 64, dtype=torch.bfloat16, device=q.device)
     err = lib.ivf_block_topw(
         q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
         tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
+        qa.data_ptr(),
         0 if row_add is None else row_add.data_ptr(),
         0 if col_mul is None else col_mul.data_ptr(),
-        col_add.data_ptr(), out.data_ptr(),
+        col_add.data_ptr(),
+        0 if win_add is None else win_add.data_ptr(),
+        out.data_ptr(),
         K, d, Cmax, P, BP, n_tiles_max, float(scale), int(bool(sub_cent)),
         w_arg, R, pos_bits, int(sentinel), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "block_topw", lib)
     launch_counts[variant] += 1
+    if whole:
+        out = torch.topk(out, R, dim=1).values  # keys are distinct in a row
     return out
 
 
@@ -289,7 +335,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     stream as c_void_p, so ctypes passes 64-bit values)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ivf_block_topw.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, ci, ci, vp,
     ]
     lib.ivf_block_topw.restype = ci

@@ -427,11 +427,12 @@ def _pairs_candidates(
     *, metric, k, oversample, seg_width,
 ):
     """Grouped candidate stage, windowed top-2 (``seg_width`` lanes):
-    ``block_topw`` scores every pair and keeps the top 2 packed keys per
-    window in the pair's original row; the per-pair constant ``caff``
-    (euclidean / dot — it cannot change within-pair ranking) re-enters in
-    f32 after the kernel; then the survivor top-k and the flat block
-    position rebuilt from (probe slot, window, lane).
+    ``block_topw`` scores every pair, keeps the top 2 packed keys per
+    window in the pair's original row and re-keys each winner with the
+    per-pair constant ``caff`` (euclidean / dot — it cannot change
+    within-pair ranking; the reference's f32 add after its regroup); then
+    the survivor top-k and the flat block position rebuilt from (probe
+    slot, window, lane).
 
     Returns ``(best_s f32[B, n_sur], best_flat i64[B, n_sur])`` where
     ``best_flat`` indexes the flattened [K * Cmax] block grid; masked
@@ -458,16 +459,14 @@ def _pairs_candidates(
     if W >= 2 and (W & (W - 1)) == 0 and Cmax % W == 0 and Cmax // W >= k:
         S = Cmax // W
         LM = W - 1
-        keys = block_topw(
+        # i32[BP, 2S] in the reference's lane order (concat([m1 over
+        # windows, m2 over windows])), rows in original pair order, caff
+        # added to each winner in f32 by the kernel
+        cand = block_topw(
             q, centroids, starts, order, blocks_t,
-            W=W, R=2, pos_bits=W.bit_length() - 1, sentinel=_mask_key(W), **kw,
-        )  # i32[BP, 2S], lane w*2 + r, rows in original pair order
-        # reference lane order: concat([m1 over windows, m2 over windows])
-        cand = keys.reshape(B, P, S, 2).transpose(2, 3).reshape(B, P, 2 * S)
-        if caff is not None:
-            cand_f = _from_key(cand & ~LM) + caff[:, :, None]
-            cand = (_to_key(cand_f) & ~LM) | (cand & LM)
-        cand = cand.reshape(B, P * 2 * S)
+            W=W, R=2, pos_bits=W.bit_length() - 1, sentinel=_mask_key(W),
+            win_add=None if caff is None else caff.reshape(BP).contiguous(), **kw,
+        ).reshape(B, P * 2 * S)
         n_sur = min(k * oversample, P * 2 * S)
         # survivors: top-k on the f32 view of the keys (order matches;
         # lane bits ride along in the low mantissa)

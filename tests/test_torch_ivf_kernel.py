@@ -9,7 +9,13 @@ inputs feed both packages:
   ``quiver_tpu.ops.ivf_pallas.fused_block_topw(..., interpret=True)``;
 * pairs variant (W=32, R=2, 5 position bits) against the window winners of
   ``quiver_tpu.ops.ivf_kernels._pairs_candidates`` (every winner kept as a
-  survivor, exact top-k: ``probe_approx=None``).
+  survivor, exact top-k: ``probe_approx=None``), at d=32, 100 and 768;
+  and, on operands whose products and sums are exact in f32, bit for bit:
+  the winners in the reference's lane order with ``caff`` re-keyed onto
+  them inside ``block_topw``.
+
+Lanes: ``block_topw`` writes window w's r-th winner to lane ``r*S + w`` for
+every variant; the Pallas kernel writes it to ``w*R + r``.
 
 Tolerance: the packed keys quantize the score by the position bits, and the
 two packages sum the bf16 products in different orders, so unpacked scores
@@ -34,12 +40,12 @@ D, K, CMAX, B, P = 32, 8, 256, 16, 2
 NEG_BIG = -3.0e38
 
 
-def _case(seed):
+def _case(seed, d=D):
     """Operands shared by both packages (numpy; blocks rounded to bf16)."""
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, D)).astype(np.float32)
-    cents = (0.5 * rng.normal(size=(K, D))).astype(np.float32)
-    blocks = jnp.asarray(0.5 * rng.normal(size=(K, D, CMAX)), jnp.bfloat16)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    cents = (0.5 * rng.normal(size=(K, d))).astype(np.float32)
+    blocks = jnp.asarray(0.5 * rng.normal(size=(K, d, CMAX)), jnp.bfloat16)
     keep = rng.random((K, CMAX)) > 0.1
     keep[3, 128:] = False  # one fully masked window pair
     rns = np.sum(np.asarray(blocks, np.float32) ** 2, axis=1)
@@ -87,7 +93,8 @@ def test_fused_variant_matches_pallas_kernel(metric):
     S = CMAX // 128
     assert got.shape == (B * P, 4 * S)
     assert np.all(want[:, 4 * S:] == tc.KEY_MIN)  # the reference's empty lanes
-    want = want[:, :4 * S]
+    # the Pallas kernel's lane w*4 + r is block_topw's r*S + w
+    want = want[:, :4 * S].reshape(B * P, S, 4).transpose(0, 2, 1).reshape(B * P, 4 * S)
     js, jpos, jvalid = (np.asarray(a) for a in jp.unpack_keys(jnp.asarray(want)))
     ts, tpos, tvalid = (a.numpy() for a in tc.unpack_keys(torch.from_numpy(got)))
     np.testing.assert_array_equal(tvalid, jvalid)
@@ -108,9 +115,9 @@ def test_fused_variant_matches_pallas_kernel(metric):
     assert len(rows) <= 0.02 * real.sum()
 
 
-@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
-def test_pairs_variant_matches_pairs_candidates(metric):
-    q, cents, blocks, keep, rns, inv, _ = _case(2)
+def _both_pairs_candidates(q, cents, blocks, keep, rns, inv, metric):
+    """(JAX, port) survivors of the pairs stage on the same operands, every
+    window winner kept (k=8, oversample to 2*P*S)."""
     jm = JDT.parse(metric)
     cns = np.sum(cents * cents, axis=1)
     c_dots, c_aff, probe, caff = jk.probe_stage(
@@ -137,6 +144,12 @@ def test_pairs_variant_matches_pairs_candidates(metric):
     want_s, want_f = np.asarray(want_s), np.asarray(want_f)
     got_s, got_f = got_s.numpy(), got_f.numpy()
     assert got_s.shape == want_s.shape == (B, 2 * P * S)
+    return want_s, want_f, got_s, got_f
+
+
+def _check_pairs_against_jax(metric, d):
+    q, cents, blocks, keep, rns, inv, _ = _case(2, d)
+    want_s, want_f, got_s, got_f = _both_pairs_candidates(q, cents, blocks, keep, rns, inv, metric)
     scale = float(np.abs(want_s[want_s > NEG_BIG / 2]).max())
     n_moved = 0
     for b in range(B):
@@ -150,6 +163,19 @@ def test_pairs_variant_matches_pairs_candidates(metric):
         assert np.all(np.abs(gs - ws)[ok] <= tol[ok])
     # a window winner moves only on a near-tie inside its window
     assert n_moved <= 0.02 * want_f.size
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_pairs_variant_matches_pairs_candidates(metric):
+    _check_pairs_against_jax(metric, D)
+
+
+@pytest.mark.parametrize("d", [100, 768])
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_pairs_variant_matches_pairs_candidates_wide_d(metric, d):
+    """d=100 (not a multiple of the kernel's 64-deep chunks) and d=768 (12
+    of them)."""
+    _check_pairs_against_jax(metric, d)
 
 
 def test_pairs_variant_keys_against_packing_by_hand():
@@ -168,8 +194,31 @@ def test_pairs_variant_keys_against_packing_by_hand():
     m1 = win.max(axis=2)
     m2 = np.where(win == m1[:, :, None], tc._mask_key(32), win).max(axis=2)
     want = np.empty_like(keys)
-    want[order] = np.stack([m1, m2], axis=2).reshape(B * P, -1)
+    want[order] = np.concatenate([m1, m2], axis=1)  # lane r*S + w
     np.testing.assert_array_equal(keys, want)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_pairs_survivors_bit_exact_against_pairs_candidates(metric):
+    """Operands that are small multiples of powers of two make every product
+    and sum exact in f32, so both packages score each pair alike bit for
+    bit whatever their summation order. Then the port's survivors (window
+    winners in lane r*S + w, caff added to each in f32 inside block_topw)
+    equal the reference's (winners regrouped, transposed and re-keyed after
+    its reduce) key for key and position for position."""
+    rng = np.random.default_rng(8)
+    q = (rng.integers(-8, 9, (B, D)) / 4).astype(np.float32)
+    cents = (rng.integers(-4, 5, (K, D)) / 4).astype(np.float32)
+    blocks_f = (rng.integers(-8, 9, (K, D, CMAX)) / 8).astype(np.float32)
+    blocks = jnp.asarray(blocks_f, jnp.bfloat16)  # 4 significant bits: exact
+    keep = rng.random((K, CMAX)) > 0.1
+    rns = np.sum(blocks_f ** 2, axis=1).astype(np.float32)
+    inv = (0.5 + rng.random((K, CMAX))).astype(np.float32)
+    want_s, want_f, got_s, got_f = _both_pairs_candidates(q, cents, blocks, keep, rns, inv, metric)
+    for b in range(B):  # every winner survives: compare as sets, by position
+        wf, gf = np.argsort(want_f[b]), np.argsort(got_f[b])
+        np.testing.assert_array_equal(got_f[b][gf], want_f[b][wf])
+        np.testing.assert_array_equal(got_s[b][gf].view(np.int32), want_s[b][wf].view(np.int32))
 
 
 def test_row_mode_keys_are_the_per_row_top_r():

@@ -57,18 +57,18 @@ def graft_arrays(K=16, Cmax=512, d=32, B=16, seed=0, keep_frac=0.95):
 
 
 def run_both(queries, ops, *, metric, formulation, rescore, n_probe=4, seg_width=32,
-             probe_sel_approx=None):
+             probe_sel_approx=None, k=KTOP):
     jops = [jnp.asarray(o) for o in ops]
     jops[2] = jops[2].astype(jnp.bfloat16)
     dj, ij = jax_ivf_query(
-        jnp.asarray(queries), *jops, metric=metric, k=KTOP, n_probe=n_probe,
+        jnp.asarray(queries), *jops, metric=metric, k=k, n_probe=n_probe,
         q_cap=64, probe_approx=None, probe_sel_approx=probe_sel_approx,
         formulation=formulation, seg_width=seg_width, rescore=rescore,
         fused_interpret=True,
     )
     tops = ivf_arrays_from_numpy(*[np.asarray(o) for o in jops], device="cpu")
     dt, it = ivf_query(
-        torch.from_numpy(queries), *tops, metric=metric, k=KTOP, n_probe=n_probe,
+        torch.from_numpy(queries), *tops, metric=metric, k=k, n_probe=n_probe,
         probe_sel_approx=probe_sel_approx, formulation=formulation,
         seg_width=seg_width, rescore=rescore,
     )
@@ -90,17 +90,39 @@ def oracle_dist(q, vectors, slots, metric):
 
 
 def tie_recall(slots, q, ops, metric):
-    """Tie-aware recall@k of ``slots`` against the exact f64 top-k over the
-    kept rows: a hit is a returned row no farther than the true k-th."""
+    """Tie-aware recall@k (k = the slots' width) of ``slots`` against the
+    exact f64 top-k over the kept rows: a hit is a returned row no farther
+    than the true k-th."""
     vectors, keep, block_slot = ops[7], ops[6], ops[3]
     live = block_slot[keep]
     d_all = oracle_dist(q, vectors, np.broadcast_to(live, (len(q), len(live))), metric)
-    kth = np.sort(d_all, axis=1)[:, KTOP - 1]
+    kth = np.sort(d_all, axis=1)[:, slots.shape[1] - 1]
     d_got = oracle_dist(q, vectors, slots, metric)
     return float(np.mean(d_got <= kth[:, None] + 1e-9 * np.abs(kth[:, None])))
 
 
-def check(queries, ops, dj, ij, dt, it, *, metric, rescore, pos_bits):
+def caff_of(queries, ops, slots, metric):
+    """|caff| of each returned slot: the per-pair constant of the affine
+    identity at the slot's cluster (|q|^2 - |q-c|^2 for L2, q.c for dot; 0
+    for cosine, which has none)."""
+    block_slot, cents = ops[3], ops[0].astype(np.float64)
+    cluster = np.zeros(int(block_slot.max()) + 1, np.int64)
+    cluster[block_slot.reshape(-1)] = np.repeat(np.arange(block_slot.shape[0]), block_slot.shape[1])
+    c = cents[cluster[np.maximum(slots, 0)]]
+    q = queries.astype(np.float64)[:, None, :]
+    if metric == "euclidean":
+        caff = np.sum(q * q, axis=2) - np.sum((q - c) ** 2, axis=2)
+    elif metric == "dot_product":
+        caff = np.sum(q * c, axis=2)
+    else:
+        caff = np.zeros(slots.shape)
+    return np.where(slots >= 0, np.abs(caff), 0.0)
+
+
+def check(queries, ops, dj, ij, dt, it, *, metric, rescore, pos_bits, caff=None):
+    """``caff``: |caff| per reference slot, where the port packs each score
+    before caff is added (the per-pair branch) and the two may cancel: its
+    quanta then count at |score| + |caff|, the bound of the packed one."""
     if rescore:
         assert_topk_agree(dt, it, dj, ij, rtol=1e-4, atol=1e-4)
     else:
@@ -111,7 +133,8 @@ def check(queries, ops, dj, ij, dt, it, *, metric, rescore, pos_bits):
         else:
             xg, xw = 1.0 - dt.astype(np.float64), 1.0 - dj.astype(np.float64)
             s = xw
-        tol = (2.0 ** (pos_bits - 22) + 2.0 ** -20) * np.abs(s) + 1e-4
+        mag = np.abs(s) if caff is None else np.abs(s) + caff
+        tol = (2.0 ** (pos_bits - 22) + 2.0 ** -20) * mag + 1e-4
         assert np.all(np.abs(xg - xw) <= tol), float(np.max(np.abs(xg - xw) - tol))
         # ids inside the k-th distance (beyond the tolerance) agree as sets
         for b in range(len(queries)):
@@ -152,6 +175,31 @@ def test_ivf_query_per_pair_fallback_matches_jax(metric):
     dj, ij, dt, it = run_both(
         queries, ops, metric=metric, formulation="pairs", rescore=False)
     check(queries, ops, dj, ij, dt, it, metric=metric, rescore=False, pos_bits=6)
+
+
+@pytest.mark.parametrize("k", [48, 100])
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_ivf_query_per_pair_large_k_matches_jax(metric, k):
+    """The per-pair branch at k=48 (R=48) and k=100 (R=Cmax=64): above the
+    32 winners the kernel keeps in its running top-R, so on the card it
+    writes every key of the row and the wrapper takes the top R."""
+    queries, ops = graft_arrays(K=32, Cmax=64, seed=1)
+    dj, ij, dt, it = run_both(
+        queries, ops, metric=metric, formulation="pairs", rescore=False, k=k)
+    assert dt.shape == (len(queries), k)
+    check(queries, ops, dj, ij, dt, it, metric=metric, rescore=False, pos_bits=6,
+          caff=caff_of(queries, ops, ij, metric))
+
+
+@pytest.mark.parametrize("d", [100, 768])
+@pytest.mark.parametrize("rescore", [True, False])
+def test_ivf_query_pairs_wide_d_matches_jax(d, rescore):
+    """The pairs stage at d=100 (not a multiple of the kernel's 64-deep
+    chunks) and d=768 (the reference deployment's width), tiny B and K."""
+    queries, ops = graft_arrays(K=8, Cmax=256, d=d, B=8, seed=5)
+    dj, ij, dt, it = run_both(
+        queries, ops, metric="euclidean", formulation="pairs", rescore=rescore)
+    check(queries, ops, dj, ij, dt, it, metric="euclidean", rescore=rescore, pos_bits=5)
 
 
 def test_ivf_query_windowed_probe_selection_matches_jax():
