@@ -37,7 +37,11 @@ printing any result. Phases, one line each (any failure raises):
    ``index_read``) at the TPU probe's shapes and at the main path's (the
    slice's own probe ids: 196,608 pairs over its clusters), each held
    against its expectation and its plain version; launch counts over that
-   run; then kernel and plain version timed;
+   run; then kernel and plain version timed (``time_probes``):
+   ``scatter_rows`` also at uniform clusters and beside PyTorch's own
+   scatter of the same rows, ``index_read`` as device time from a CUDA
+   graph replay beside its launch floor (one grid step) and its host cost
+   per call;
 6. latency: ``benches/bench_latency.py``'s rows at B in {1, 128, 2048,
    65536} for the slice's engine (n_probe=3, "pairs") and the exact scan;
 7. writes: ``benches/streaming.py``'s run (8 x 8,192 inserts into the 1M
@@ -95,7 +99,7 @@ from quiver_tpu_torch.bench import (
     save_cache,
 )
 from quiver_tpu_torch.benches.common import K as TOP_K
-from quiver_tpu_torch.benches.common import N, card, clustered, cuda_ms, oracle_kth
+from quiver_tpu_torch.benches.common import N, card, clustered, cuda_ms, kernel_ms, oracle_kth
 from quiver_tpu_torch.benches.truth import recall_with_ties
 
 #: kernel-phase shapes: the serving point of the slice (K' of the headline
@@ -116,6 +120,12 @@ VARIANTS = (
     ("row", 0, 16, 0, ("euclidean", "dot_product", "cosine")),
     ("row100", 0, 100, 0, ("euclidean", "dot_product", "cosine")),
 )
+
+
+#: the probes' times beside ms and plain_ms in the kernels line
+#: (benches/probe.py::time_probes): scatter_rows at uniform clusters;
+#: index_read's launch floor (grid=1) and the wrapper's host cost per call
+PROBE_EXTRAS = {"scatter_rows": ("uniform_ms",), "index_read": ("floor_ms", "host_us")}
 
 
 def variant_args(variant, W, R, pos_bits, Cmax):
@@ -502,28 +512,9 @@ def phase_slice(torch, dev, vecs, *, b_serve, reps):
 
 def slice_profile(torch, eng, qdev, *, batches=5, top=8):
     """Device time by kernel over ``batches`` back-to-back slice batches
-    (``torch.profiler``, CUDA activity; each kernel's interval from the
-    trace) and the card's busy share of the window (CUDA events)."""
-    from collections import defaultdict
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    eng.search_slots_device(qdev, TOP_K)
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        e0.record()
-        for _ in range(batches):
-            eng.search_slots_device(qdev, TOP_K)
-        e1.record()
-        torch.cuda.synchronize()
-    by_name = defaultdict(float)
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            name = ev.name.replace("(anonymous namespace)::", "").replace("void ", "")
-            by_name[name[:64]] += ev.time_range.elapsed_us() / 1e3 / batches
-    busy, wall = sum(by_name.values()), e0.elapsed_time(e1) / batches
+    (:func:`kernel_ms`) and the card's busy share of the window."""
+    by_name, wall = kernel_ms(lambda: eng.search_slots_device(qdev, TOP_K), batches)
+    busy = sum(by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     log(f"slice profile (pairs, n_probe={eng.config.n_probe}, B={qdev.shape[0]}, {batches} "
         f"batches): ms_per_batch={wall!r} device_busy_ms={busy!r} busy_share={busy / wall!r}; "
@@ -808,12 +799,12 @@ def main() -> int:
 
     # bounds: block_topw's from phase 3's operands (topw_bound); the probes'
     # from their main-path operands: scatter_rows reads and writes its rows,
-    # index_read moves one entry of big, x and its output
+    # index_read reads G entries of big and x once and writes G floats
     vals = scatter_ops["vals"]
     probe_bounds = {
         "scatter_rows": bound(2 * vals.numel() * 4 + 4 * (scatter_ops["starts"].numel()
                                                           + scatter_ops["pos"].numel()), 0.0),
-        "index_read": bound(12, 0.0),
+        "index_read": bound(8 * read_ops["grid"] + 4, 0.0),
     }
     replaces = {"pairs": "quiver_tpu/ops/ivf_kernels.py:633",
                 "fused": "quiver_tpu/ops/ivf_pallas.py:145",
@@ -844,6 +835,7 @@ def main() -> int:
         if probe_counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by the probes' path")
         bound_ms, bound_by = probe_bounds[name]
+        t = probe_times[name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -851,12 +843,13 @@ def main() -> int:
             "replaces": replaces,
             "launches": probe_counts[name],
             "max_abs_err": prec[name]["max_abs_err"],
-            "ms": probe_times[name][0],
-            "plain_ms": probe_times[name][1],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "bound_share": bound_ms / probe_times[name][0],
+            "bound_share": bound_ms / t["ms"],
             "library_ms": None,  # none: no one PyTorch call does what either probe does
+            **{k: t[k] for k in PROBE_EXTRAS[name]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line, flush=True)

@@ -17,16 +17,19 @@ port's two kernels (``ops/probe_cuda.py``).
    (uneven, as the slice's are) and the pair order as targets: the write
    ``block_topw`` makes to each pair's original row; ``index_read`` with
    ``big`` = that pair order (196,608 i32, 768 KB, above the TPU's
-   scalar-prefetch bound) and ceil(196,608 / 64) blocks at stride 64, one
-   per tile of pairs, each reading its tile's first pair index as
-   ``block_topw``'s blocks do.
+   scalar-prefetch bound) and ceil(196,608 / 64) = 3,072 grid steps at
+   stride 64, one per tile of pairs, each reading its tile's first pair
+   index as ``block_topw``'s blocks do.
 
 Each result is asserted: against the probe's own expectation and against
 the kernel's plain PyTorch version (exactly: the kernels copy and double
-floats, which is exact). Then kernel and plain version are timed by CUDA
-events at the main path's shape. Without CUDA it exits non-zero before
-printing a result; its functions take a device, so tests call them on the
-CPU, where the wrappers run the plain versions.
+floats, which is exact). Then kernel and plain version are timed at the
+main path's shape (:func:`time_probes`): ``scatter_rows`` by CUDA events,
+also at uniform clusters and beside PyTorch's own scatter of the same rows;
+``index_read`` as device time from a CUDA graph replay, beside its launch
+floor at one grid step and the wrapper's host cost per call. Without CUDA
+it exits non-zero before printing a result; its functions take a device,
+so tests call them on the CPU, where the wrappers run the plain versions.
 """
 
 from __future__ import annotations
@@ -34,7 +37,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from quiver_tpu_torch.benches.common import clustered, device_ms, require_cuda
+from quiver_tpu_torch.benches.common import (
+    clustered,
+    device_ms,
+    graph_ms,
+    host_us,
+    kernel_ms,
+    require_cuda,
+)
 from quiver_tpu_torch.ops.probe_cuda import (
     index_read,
     index_read_reference,
@@ -163,20 +173,64 @@ def run_probes(device, *, probe=None, K=MAIN_K, log=print) -> dict:
     }
 
 
+def uniform_starts(starts: torch.Tensor, BPc: int) -> torch.Tensor:
+    """Starts of K equal clusters over the same chunk, ``arange(K+1) *
+    (BPc // K)``: the layout beside which the slice's uneven one is timed
+    (the last ``BPc % K`` rows are in no range)."""
+    K = starts.shape[0] - 1
+    return (torch.arange(K + 1, device=starts.device) * (BPc // K)).to(torch.int32)
+
+
 def time_probes(device, main, *, reps=20, log=print) -> dict:
-    """Kernel and plain version at the main path's shape, ms per call (CUDA
-    events on the card): {name: (ms, plain_ms)}."""
+    """Kernel and plain version at the main path's shape, ms per call.
+
+    ``scatter_rows`` by CUDA events over back-to-back calls (``ms``), the
+    same at uniform clusters (``uniform_ms``, :func:`uniform_starts`), and
+    PyTorch's own scatter of the same rows (``torch_scatter_ms``: a multiply
+    and an indexed store, without the ranges). ``index_read`` takes a few
+    microseconds on the card, less than the wrapper's host cost, so its
+    ``ms`` is device time from a CUDA graph replay (``graph_ms``), beside
+    its launch floor at one grid step timed the same way (``floor_ms``) and
+    the host µs per call (``host_us``). On CUDA it also logs
+    ``scatter_rows``'s device time by pass (``kernel_ms``). On the CPU
+    (tests) every time is the host clock's. Returns {name: record}."""
     device = torch.device(device)
     scatter, read = main
-    times = {
-        "scatter_rows": (device_ms(device, lambda: scatter_rows(**scatter), reps),
-                         device_ms(device, lambda: scatter_rows_reference(**scatter), reps)),
-        "index_read": (device_ms(device, lambda: index_read(**read), reps),
-                       device_ms(device, lambda: index_read_reference(**read), reps)),
+    BPc = scatter["vals"].shape[1]
+    uniform = dict(scatter, starts=uniform_starts(scatter["starts"], BPc))
+    vals, tgt = scatter["vals"], scatter["pos"].long()
+
+    def torch_scatter():
+        out = torch.empty_like(vals)
+        out[0, tgt] = 2.0 * vals[0]
+
+    rec = {
+        "scatter_rows": {
+            "ms": device_ms(device, lambda: scatter_rows(**scatter), reps),
+            "uniform_ms": device_ms(device, lambda: scatter_rows(**uniform), reps),
+            "torch_scatter_ms": device_ms(device, torch_scatter, reps),
+            "plain_ms": device_ms(device, lambda: scatter_rows_reference(**scatter), reps),
+        },
+        "index_read": {
+            "host_us": host_us(device, lambda: index_read(**read), reps),
+            "ms": graph_ms(device, lambda: index_read(**read), reps),
+            "floor_ms": graph_ms(device, lambda: index_read(**dict(read, grid=1)), reps),
+            "plain_ms": device_ms(device, lambda: index_read_reference(**read), reps),
+        },
     }
-    for name, (ms, plain) in times.items():
-        log(f"probe {name} (main path shape): kernel_ms={ms!r} plain_ms={plain!r}")
-    return times
+    if device.type == "cuda":
+        passes, _ = kernel_ms(lambda: scatter_rows(**scatter), reps)
+        log("probe scatter_rows passes (device ms per call): " + "; ".join(
+            f"{name.split('(')[0]} {ms!r}" for name, ms in sorted(passes.items(), key=lambda kv: -kv[1])))
+    s, r = rec["scatter_rows"], rec["index_read"]
+    log(f"probe scatter_rows yardstick: torch scatter of the same rows "
+        f"(out[0, pos] = 2 * vals[0]) ms={s['torch_scatter_ms']!r}")
+    log(f"probe index_read host: us_per_call={r['host_us']!r} (the wrapper's host cost)")
+    log(f"probe scatter_rows (main path shape): kernel_ms={s['ms']!r} "
+        f"uniform_clusters_ms={s['uniform_ms']!r} plain_ms={s['plain_ms']!r}")
+    log(f"probe index_read (main path shape, grid={read['grid']}): device_ms={r['ms']!r} "
+        f"floor_ms={r['floor_ms']!r} (grid=1) plain_ms={r['plain_ms']!r}")
+    return rec
 
 
 def main() -> None:

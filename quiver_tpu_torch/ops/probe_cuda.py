@@ -2,14 +2,23 @@
 (``csrc/probe_kernels.cu``).
 
 * ``scatter_rows`` replaces ``kernel`` in ``probe_pallas.py::main``
-  (``:42-71``, ``pallas_call`` at ``:83``): each chunk's output is filled
-  with -1.0, then ``out[c, pos[c*BPc + r]] = 2 * vals[c, r]`` for every row
-  r inside a cluster's range ``[starts[c*(K+1)+k], starts[c*(K+1)+k+1])``.
-  It is the scatter-by-pair-row by which ``block_topw`` writes a pair's
-  winners to the pair's original row.
+  (``:42-71``, ``pallas_call`` at ``:83``): ``out[c, pos[c*BPc + r]] =
+  2 * vals[c, r]`` for every row r inside a cluster's range
+  ``[starts[c*(K+1)+k], starts[c*(K+1)+k+1])``; output rows that no copied
+  row targets hold -1.0. It is the scatter-by-pair-row by which
+  ``block_topw`` writes a pair's winners to the pair's original row. On the
+  card it is three passes over one-byte flags that the wrapper zeroes: the
+  rows the ranges cover are marked (a byte per row, so the largest cluster
+  is cheap), then warps copy fixed tiles of rows whatever the clusters'
+  sizes, several rows' loads in flight before their stores, and flag each
+  target they write, then only unflagged output rows are filled with -1.0.
+  At the main path's shape (196,608 rows x 128 f32, a permutation covered
+  by the ranges) that is ~201 MB of rows and no fill; it is bound by those
+  bytes.
 * ``index_read`` replaces ``kernel2`` (``:101-103``, ``pallas_call`` at
-  ``:105``): block i of G reads ``big[i*stride]`` from device memory and
-  writes ``x + float(big[i*stride])`` to ``out[i]``. The TPU kernel's grid
+  ``:105``): grid step i of G, one thread each, reads ``big[i*stride]``
+  from device memory and writes ``x + float(big[i*stride])`` to ``out[i]``.
+  It moves 8 G + 4 bytes and is bound by its launch. The TPU kernel's grid
   steps all write one revisited ``[1, 1]`` output, so its last step wins;
   the wrapper returns ``out[G-1]`` as ``[1, 1]``, which is that value.
 
@@ -97,8 +106,9 @@ def scatter_rows(vals, starts, pos, *, K):
 
     lib = load_library()
     out = torch.empty_like(vals)
+    flags = torch.zeros(2, nchunks * BPc, dtype=torch.uint8, device=dev)  # covered rows, hit targets
     err = lib.probe_scatter_rows(
-        vals.data_ptr(), starts.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        vals.data_ptr(), starts.data_ptr(), pos.data_ptr(), out.data_ptr(), flags.data_ptr(),
         nchunks, K, BPc, L, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -155,7 +165,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of the two kernels (pointers and the stream
     as c_void_p, so ctypes passes 64-bit values)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.probe_scatter_rows.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.probe_scatter_rows.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.probe_scatter_rows.restype = ci
     lib.probe_index_read.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.probe_index_read.restype = ci

@@ -132,13 +132,30 @@ def test_block_topw_rejects_unaligned_cmax(cuda):
 
 def _scatter_case(case, dev):
     """Operands of one scatter_rows launch: the TPU probe's shape; an empty
-    cluster; ranges that leave rows unwritten; a width of 64 lanes."""
+    cluster; ranges that leave rows unwritten; a width of 64 lanes; one
+    cluster with 90% of 24,000 rows (many row tiles of the kernel) beside an
+    overlapping and a decreasing range; the overlapping, decreasing and
+    empty ranges of test_torch_probe.py::test_scatter_rows_edges with a
+    target outside the chunk."""
     from quiver_tpu_torch.benches import probe
 
     rng = np.random.default_rng(5)
     if case == "tpu_probe":
         st, pos, vals, _ = probe.tpu_scatter_inputs(**probe.TPU_SCATTER)
         K = probe.TPU_SCATTER["K"]
+    elif case in ("skewed", "overlap"):
+        if case == "skewed":
+            nchunks, BPc, K, L = 2, 24000, 6, 128
+            big = 9 * BPc // 10
+            st = np.array([[0, big, big - 300, big + 100, big + 300, BPc - 40, BPc - 20],
+                           [20, 20, big + 20, big - 500, big + 200, BPc, BPc]], dtype=np.int32)
+        else:
+            nchunks, BPc, K, L = 2, 40, 5, 8
+            st = np.array([[2, 9, 9, 20, 31, 35], [0, 10, 5, 25, 30, 40]], dtype=np.int32)
+        st = st.reshape(-1)
+        pos = np.stack([rng.permutation(BPc) for _ in range(nchunks)]).astype(np.int32).reshape(-1)
+        pos[3] = BPc + 7  # chunk 0, row 3: a target outside the chunk, skipped
+        vals = rng.normal(size=(nchunks, BPc, L)).astype(np.float32)
     else:
         nchunks, BPc, K = 2, 1000, 7
         L = 64 if case == "lanes64" else 128
@@ -154,7 +171,8 @@ def _scatter_case(case, dev):
             torch.from_numpy(pos).to(dev)), K
 
 
-@pytest.mark.parametrize("case", ["tpu_probe", "empty_cluster", "unwritten_rows", "lanes64"])
+@pytest.mark.parametrize(
+    "case", ["tpu_probe", "empty_cluster", "unwritten_rows", "lanes64", "skewed", "overlap"])
 def test_scatter_rows_kernel_matches_plain(cuda, case):
     from quiver_tpu_torch.ops import probe_cuda
 
@@ -175,7 +193,8 @@ def test_scatter_rows_kernel_matches_plain(cuda, case):
             assert bool((got[c][outside] == -1.0).all())
 
 
-@pytest.mark.parametrize("n,grid,stride", [(65536, 4, 1000), (196_608, 3072, 64), (5, 1, 0)])
+@pytest.mark.parametrize("n,grid,stride", [(65536, 4, 1000), (196_608, 3072, 64), (5, 1, 0),
+                                           (320_000, 5000, 64)])
 def test_index_read_kernel_matches_plain(cuda, n, grid, stride):
     from quiver_tpu_torch.ops import probe_cuda
 

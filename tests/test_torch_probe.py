@@ -106,6 +106,42 @@ def test_scatter_rows_edges():
     assert (got.numpy()[0, unwritten] == -1.0).all() and len(unwritten) >= 7
 
 
+def _per_row(vals, starts, pos, K):
+    """The scatter row by row in numpy: every row of every range, in range
+    order, copied to its target when the target lies in the chunk."""
+    nchunks, BPc, L = vals.shape
+    want = np.full((nchunks, BPc, L), -1.0, np.float32)
+    st = starts.reshape(nchunks, K + 1)
+    ps = pos.reshape(nchunks, BPc)
+    for c in range(nchunks):
+        for k in range(K):
+            for r in range(max(st[c, k], 0), min(st[c, k + 1], BPc)):
+                if 0 <= ps[c, r] < BPc:
+                    want[c, ps[c, r]] = 2.0 * vals[c, r]
+    return want
+
+
+def test_scatter_rows_skewed_layout():
+    """One cluster holds 90% of the chunk's rows (the layout the card's
+    kernel splits by rows, not by cluster), beside an overlapping range, a
+    decreasing one and rows in no range, against the per-row loop."""
+    rng = np.random.default_rng(3)
+    nchunks, BPc, K, L = 2, 5000, 6, 8
+    big = 9 * BPc // 10
+    starts = np.array([[0, big, big - 300, big + 100, big + 300, BPc - 40, BPc - 20],
+                       [20, 20, big + 20, big - 500, big + 200, BPc, BPc]],
+                      dtype=np.int32).reshape(-1)  # chunk 1: its first 20 rows in no range
+    pos = np.stack([rng.permutation(BPc) for _ in range(nchunks)]).astype(np.int32).reshape(-1)
+    vals = rng.normal(size=(nchunks, BPc, L)).astype(np.float32)
+    got = scatter_rows_reference(torch.from_numpy(vals), torch.from_numpy(starts),
+                                 torch.from_numpy(pos), K=K)
+    want = _per_row(vals, starts, pos, K)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == -1.0).all(axis=2).sum() == 20 + 20  # chunk 0's tail, chunk 1's head
+    counts = np.diff(starts.reshape(nchunks, K + 1), axis=1)
+    assert counts.max() >= 0.9 * BPc and (counts < 0).any()
+
+
 def test_wrappers_check_operands():
     v = torch.zeros(1, 8, 4)
     with pytest.raises(ValueError, match="starts shape"):
@@ -133,3 +169,23 @@ def test_probe_bench_runs_on_cpu():
     assert read["grid"] == 2048 * 3 // probe.TILE
     times = probe.time_probes("cpu", rec["main"], reps=1, log=lines.append)
     assert set(times) == {"scatter_rows", "index_read"}
+
+
+def test_time_probes_records():
+    """time_probes' records: scatter_rows at the slice's layout and at
+    uniform clusters beside PyTorch's own scatter; index_read's device time
+    beside its one-step floor and its host cost per call (host clock on the
+    CPU); each printed."""
+    pid = probe.synthetic_probe("cpu", B=512, P=3, K=64)
+    scatter, read = probe.main_inputs(pid, 64)
+    lines = []
+    times = probe.time_probes("cpu", (scatter, read), reps=2, log=lines.append)
+    assert set(times["scatter_rows"]) == {"ms", "uniform_ms", "torch_scatter_ms", "plain_ms"}
+    assert set(times["index_read"]) == {"ms", "floor_ms", "host_us", "plain_ms"}
+    for rec in times.values():
+        assert all(v > 0 and np.isfinite(v) for v in rec.values())
+    assert any("floor_ms=" in ln and "device_ms=" in ln for ln in lines)
+    assert any("us_per_call=" in ln for ln in lines)
+    assert any("uniform_clusters_ms=" in ln for ln in lines)
+    uni = probe.uniform_starts(scatter["starts"], 512 * 3)
+    assert uni.dtype == torch.int32 and uni.tolist() == [i * (1536 // 64) for i in range(65)]
