@@ -17,10 +17,14 @@ printing any result. Phases, one line each (any failure raises):
    K=1024, P=3), pairs variant (W=32, R=2: L2, dot, cosine; caff re-keyed
    onto the winners for L2 and dot), fused variant (W=128, R=4: L2, dot)
    and row mode (one window per row: R=16, the running top-R; R=100, every
-   key of the row and the wrapper's top-R); times of both with CUDA
-   events and the least time the card could take (:func:`topw_bound`);
-   then the error of the card's dot products against f64 at d=128 and 768
-   (:func:`phase_sums`);
+   key of the row and the wrapper's top-R); then the same variants over
+   f32 blocks (``csrc/ivf_block_topw_f32.cu``; pairs and row mode on the
+   f32 query, fused on the bf16-rounded one) at P in {2, 3} and at the
+   768-d shape; times of kernel and plain version with CUDA events and the
+   least time the card could take (:func:`topw_bound`: bytes at 3.35 TB/s,
+   products at the bf16 tensor-core peak or, for f32 blocks, the f32
+   CUDA-core peak); then the error of the card's dot products against f64
+   at d=128 and 768, for bf16 and for f32 blocks (:func:`phase_sums`);
 4. slice: the headline bench's path (``quiver_tpu_torch/bench.py``): the
    1M x 128-d clustered L2 corpus through ``VectorStore(device="cuda")`` ->
    ``IVFIndex.build()`` with ``recall_target=0.96``, so the build tunes
@@ -58,10 +62,12 @@ printing any result. Phases, one line each (any failure raises):
    inside the timed query);
 8. collection: a ``Collection`` on ``cuda:0`` whose engine comes from the
    registry (``make_engine("ivf", ...)``, the headline config with
-   ``recall_target=0.96``) loads the 1M corpus with ``{"cat", "price"}``
-   metadata in one ``add_batch`` (its first ``on_insert`` builds and tunes
-   the engine); ``search_batch`` of 2,048 requests unfiltered, ``cat = 3``
-   and ``25 < price < 75``; then ``update_batch`` of 8,192 rows (new vectors
+   ``recall_target=0.96`` and clusters scaled with the rows) loads the
+   first 262,144 rows of the corpus (``COLLECTION_ROWS``: cut from 1M for
+   the run's time) with ``{"cat", "price"}`` metadata in one
+   ``add_batch`` (its first ``on_insert`` builds and tunes the engine);
+   ``search_batch`` of 2,048 requests unfiltered, ``cat = 3`` and
+   ``25 < price < 75``; then ``update_batch`` of 8,192 rows (new vectors
    and ``cat``) and ``delete_batch`` of 8,192 others. Gates: unfiltered
    recall@10 >= 0.95 against the exact f32 scan; every filtered result
    satisfies its filter (recall against the masked exact scan recorded,
@@ -69,14 +75,39 @@ printing any result. Phases, one line each (any failure raises):
    return their new ``cat`` and follow it through the ``cat`` filter; no
    deleted id is returned; ``block_topw`` launched, and every one of its
    calls in the phase (tuner, filter masks, keep bits cleared by the
-   deletes) held against its plain version as in phase 7.
+   deletes) held against its plain version as in phase 7;
+9. the database at its defaults (``DB``: engine "hybrid", compute dtype
+   "float32", so a collection is the hybrid engine over an IVF engine with
+   f32 blocks): (a) with persistence off, the 1M corpus through
+   ``batch_insert`` (the headline IVF config as the collection's
+   ``engine_config``), ``batch_search`` of 2,048 requests at k=10 (gate
+   recall@10 >= 0.95 against the exact f32 scan; the hybrid's split by
+   engine recorded) and 512 at k=100 (every slot filled), the collector's
+   ``measure_recall`` (gate >= 0.95), then the f32 slice: the hybrid's IVF
+   side at its tuned n_probe, pairs and fused, recall@10 against the f64
+   oracle (gate >= 0.95), ms per B=65536 batch and ``device_bytes()``; (b)
+   the persistence round trip at 65,536 rows of the corpus
+   (``PERSIST_ROWS``: every insert is journaled as a JSON record), the
+   same engine config: 8,192-row ``batch_insert`` calls through the native
+   WAL (rows/s), ``close()`` (flush seconds, the snapshot's format:
+   Parquet with pyarrow, JSON without), a reopen through ``topology.npz``
+   (load seconds; recall@10 >= 0.95 on 256 queries; the share of top-10
+   lists identical to those before the close), a crash (a flush, 1,024
+   deletes and 1,024 adds in the WAL only, the DB dropped unclosed; no
+   deleted id returns, each added row is its own top-1), and a reopen
+   without the sidecar (the cold build's seconds beside the sidecar's).
+   Every ``block_topw`` call of (a) and (b) is held against its plain
+   version (:class:`LiveCheck`); their launch counts are the f32 kernel's
+   entries in the kernels line. The f32 slice is timed after them, on the
+   engine of (a).
 
-The 1M corpus is generated once and shared by phases 4-8; phase 4's engine
-is dropped before phase 7. Then a JSON line of kernels (their launches are
-the main path's, phase 4; the pairs entry's error covers phases 3, 7 and
-8, the row mode's phases 3 and 4; ``bound_ms`` is computed from this run's
-operands and ``bound_share`` is it over ``ms``), the card line, and last
-the result line.
+The 1M corpus is generated once and shared by phases 4-9; phase 4's engine
+is dropped before phase 7. Then a JSON line of kernels (the bf16 kernel's
+launches are the main path's, phase 4, and the f32 kernel's the
+database's, phase 9; the pairs entry's error covers phases 3, 7 and 8,
+the row mode's phases 3 and 4, the f32 entries' phases 3 and 9;
+``bound_ms`` is computed from this run's operands and ``bound_share`` is
+it over ``ms``), the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -109,6 +140,9 @@ KERNEL_PROBES = (2, 3, 4)
 #: a 768-d serving-like shape (the width of the reference deployment's
 #: embeddings): every variant at P=3
 WIDE_SHAPE = dict(B=16384, K=1024, Cmax=1280, d=768)
+#: phase 8's rows: the first quarter of the 1M corpus (cut from 1M to keep
+#: the run's time; its host-bound load is per-row Python)
+COLLECTION_ROWS = 262144
 #: (variant name, W, R, position bits, metrics); W = 0 is row mode (one
 #: window of Cmax columns, position bits to hold Cmax). Row mode serves the
 #: per-pair branch, taken when Cmax holds fewer than k windows: R=16 keeps
@@ -137,13 +171,20 @@ def variant_args(variant, W, R, pos_bits, Cmax):
     return W, pos_bits, int(_mask_key(W)) if variant == "pairs" else KEY_MIN
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run, prefixed with the seconds since the script began."""
+    print(f"[{time.perf_counter() - _T0:6.1f}s] {msg}", flush=True)
 
 
-def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed):
+def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed, dtype=None):
     """Random operands of one block_topw call at the given shape, built the
-    way ivf_query builds them (stable pair sort, CSR starts, epilogue)."""
+    way ivf_query builds them (stable pair sort, CSR starts, epilogue).
+    ``dtype``: the blocks' (bf16 by default); f32 blocks take the f32 query
+    in the pairs and row variants (``round_query=False``, the reference's
+    f32 ragged_dot) and the bf16-rounded one in the fused variant."""
     from quiver_tpu_torch.ops.ivf_kernels import _epilogue
     from quiver_tpu_torch.ops.scan import NEG_BIG
     from quiver_tpu_torch.types import DistanceType
@@ -153,7 +194,8 @@ def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed):
     q = torch.randn(B, d, generator=g, device=dev)
     cents = 0.5 * torch.randn(K, d, generator=g, device=dev)
     probe = torch.rand(B, K, generator=g, device=dev).topk(P, dim=1).indices
-    blocks_t = (0.5 * torch.randn(K, d, Cmax, generator=g, device=dev)).to(torch.bfloat16)
+    dtype = torch.bfloat16 if dtype is None else dtype
+    blocks_t = (0.5 * torch.randn(K, d, Cmax, generator=g, device=dev)).to(dtype)
     keep = torch.rand(K, Cmax, generator=g, device=dev) > 0.1
     rns = 0.25 * d * torch.rand(K, Cmax, generator=g, device=dev)
     inv = 0.5 + torch.rand(K, Cmax, generator=g, device=dev)
@@ -179,12 +221,14 @@ def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed):
               col_mul=col_mul, sub_cent=sub_cent)
     if win_add is not None:
         kw["win_add"] = win_add
+    if dtype == torch.float32 and variant != "fused":
+        kw["round_query"] = False
     return args, kw
 
 
 #: the keyword operands of pair_scores_reference (block_topw's less the
 #: window, the sentinel and win_add)
-SCORE_KEYS = ("P", "scale", "col_add", "row_add", "col_mul", "sub_cent")
+SCORE_KEYS = ("P", "scale", "col_add", "row_add", "col_mul", "sub_cent", "round_query")
 
 
 def pair_scores_orig(torch, args, kw):
@@ -192,7 +236,7 @@ def pair_scores_orig(torch, args, kw):
     pair order (what compare_keys reads positions against)."""
     from quiver_tpu_torch.ops.ivf_cuda import pair_scores_reference
 
-    s_sorted = pair_scores_reference(*args, **{k: kw.get(k) for k in SCORE_KEYS})
+    s_sorted = pair_scores_reference(*args, **{k: kw[k] for k in SCORE_KEYS if k in kw})
     s_orig = torch.empty_like(s_sorted)
     s_orig[args[3].long()] = s_sorted
     return s_orig
@@ -205,8 +249,9 @@ SUM_ERR = 16.0
 
 def sum_scale(torch, args, kw):
     """f32[BP] per pair, original order: |scale| * ||a|| * max_j |col_mul[c, j]|
-    * ||b_j||, with a the pair's bf16 query row (minus the centroid for L2)
-    and b_j the columns of its cluster's block. By Cauchy-Schwarz it bounds
+    * ||b_j||, with a the pair's query row as the product takes it (minus the
+    centroid for L2, bf16-rounded unless ``round_query`` is False) and b_j
+    the columns of its cluster's block. By Cauchy-Schwarz it bounds
     scale * col_mul * sum_k |a_k b_kj|, which scales the rounding error of
     the dot products."""
     q, cents, starts, order, blocks = args
@@ -217,7 +262,9 @@ def sum_scale(torch, args, kw):
     a = q[order.long() // kw["P"]]
     if kw["sub_cent"]:
         a = a - cents[sorted_c]
-    a = torch.linalg.vector_norm(a.to(torch.bfloat16).float(), dim=1)
+    if kw.get("round_query", True):
+        a = a.to(torch.bfloat16).float()
+    a = torch.linalg.vector_norm(a, dim=1)
     bn = torch.cat([torch.linalg.vector_norm(blocks[c:c + 64].float(), dim=1)
                     for c in range(0, K, 64)])  # f32[K, Cmax]
     if kw.get("col_mul") is not None:
@@ -343,10 +390,14 @@ class LiveCheck:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         worst, diffs, bps = 0.0, 0, set()
+        #: the largest score error by (blocks' dtype, W, R)
+        self.worst_by = {}
         for args, kw, k_kern in self.calls:
             err, n_diff = check_call(torch, args, kw, k_kern)
             worst, diffs = max(worst, err), diffs + n_diff
             bps.add((int(args[3].shape[0]), kw["P"], kw["W"], kw["R"]))
+            key = (str(args[4].dtype).split(".")[-1], kw["W"], kw["R"])
+            self.worst_by[key] = max(self.worst_by.get(key, 0.0), err)
         log(f"{phase} live check: {len(self.calls)} block_topw calls within tolerance "
             f"of block_topw_reference (BP, P, W, R in {sorted(bps)}): "
             f"max_abs_err={worst!r} pos_diffs={diffs}")
@@ -355,20 +406,23 @@ class LiveCheck:
 
 
 #: published peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
-#: device memory bytes/s and bf16 dense tensor FLOP/s
-HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
+#: device memory bytes/s, bf16 dense tensor FLOP/s, f32 FLOP/s outside the
+#: tensor cores
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
-def bound(nbytes, flops):
-    """(least ms the card could take, "bytes" or "operations")."""
-    t_b, t_o = nbytes / HBM_BPS, flops / BF16_FLOPS
+def bound(nbytes, flops, peak=BF16_FLOPS):
+    """(least ms the card could take, "bytes" or "operations") for
+    ``nbytes`` moved and ``flops`` done at the rate ``peak``."""
+    t_b, t_o = nbytes / HBM_BPS, flops / peak
     return (1e3 * t_b, "bytes") if t_b >= t_o else (1e3 * t_o, "operations")
 
 
 def topw_bound(args, kw, out):
     """bound() of one block_topw call: each input read once (the blocks,
     col_add and col_mul rows of the clusters some pair probes), the keys
-    written once; the products 2 * BP * Cmax * d in bf16."""
+    written once; the products 2 * BP * Cmax * d, at the bf16 tensor-core
+    peak for bf16 blocks and the f32 CUDA-core peak for f32 ones."""
     q, cents, starts, order, blocks = args
     K, d, Cmax = blocks.shape
     probed = int(((starts[1:] - starts[:-1]) > 0).sum())
@@ -376,14 +430,17 @@ def topw_bound(args, kw, out):
     per_pair = 4 * (1 + (kw.get("row_add") is not None) + (kw.get("win_add") is not None))
     nbytes = (q.numel() * 4 + cents.numel() * 4 + starts.numel() * 4 + probed * per_cluster
               + order.shape[0] * per_pair + out.numel() * out.element_size())
-    return bound(nbytes, 2.0 * order.shape[0] * Cmax * d)
+    peak = F32_FLOPS if blocks.element_size() == 4 else BF16_FLOPS
+    return bound(nbytes, 2.0 * order.shape[0] * Cmax * d, peak)
 
 
-def phase_kernels(torch, dev, *, shape, probes, reps):
-    """Kernel against twin at the given shape; returns per-variant records
-    (max error; at P=3 L2: kernel, plain-version and bound ms)."""
+def phase_kernels(torch, dev, *, shape, probes, reps, dtype=None):
+    """Kernel against twin at the given shape and blocks' dtype (bf16 by
+    default); returns per-variant records (max error; at P=3 L2: kernel,
+    plain-version and bound ms)."""
     from quiver_tpu_torch.ops import ivf_cuda
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     records = {}
     for variant, W, R, pos_bits, metrics in VARIANTS:
         W, pos_bits, sentinel = variant_args(variant, W, R, pos_bits, shape["Cmax"])
@@ -392,7 +449,7 @@ def phase_kernels(torch, dev, *, shape, probes, reps):
             for metric in metrics:
                 args, kw = kernel_inputs(
                     torch, dev, P=P, metric=metric, variant=variant,
-                    seed=1000 * P + len(metric), **shape,
+                    seed=1000 * P + len(metric), dtype=dtype, **shape,
                 )
                 wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
                 k_kern = ivf_cuda.block_topw(*args, **wkw)
@@ -407,7 +464,8 @@ def phase_kernels(torch, dev, *, shape, probes, reps):
                     extra = (f" bound_ms={rec['bound_ms']!r} ({rec['bound_by']}) "
                              f"bound_share={rec['bound_ms'] / ms!r}")
                 log(
-                    f"kernel {variant} W={W} R={R} {metric} B={shape['B']} P={P} d={shape['d']} "
+                    f"kernel {variant} {str(dtype).split('.')[-1]} blocks W={W} R={R} "
+                    f"{metric} B={shape['B']} P={P} d={shape['d']} "
                     f"BP={shape['B'] * P}: max_abs_err={err!r} pos_diffs={n_diff} "
                     f"kernel_ms={ms!r} twin_ms={plain_ms!r}{extra}"
                 )
@@ -416,16 +474,18 @@ def phase_kernels(torch, dev, *, shape, probes, reps):
     return records
 
 
-def phase_sums(torch, dev, *, d, seed=11):
-    """The error of the card's dot products against f64 on the same bf16
-    operands, in units of 2^-24 * sum_scale: row mode at Cmax=8 keeps all 8
-    keys of each pair (3 position bits, one quantum 2^-20 of the score,
-    taken off). Fails above SUM_ERR, the unit count compare_keys allows."""
+def phase_sums(torch, dev, *, d, dtype=None, seed=11):
+    """The error of the card's dot products against f64 on the same
+    operands (bf16 blocks and query by default; f32 blocks and the f32
+    query of the pairs formulation with ``dtype=torch.float32``), in units
+    of 2^-24 * sum_scale: row mode at Cmax=8 keeps all 8 keys of each pair
+    (3 position bits, one quantum 2^-20 of the score, taken off). Fails
+    above SUM_ERR, the unit count compare_keys allows."""
     from quiver_tpu_torch.ops import ivf_cuda
 
     B, K, Cmax = 65536, 1024, 8
     args, kw = kernel_inputs(torch, dev, B=B, P=1, K=K, Cmax=Cmax, d=d, metric="euclidean",
-                             variant="row", seed=seed)
+                             variant="row", seed=seed, dtype=dtype)
     q, cents, starts, order, blocks = args
     keys = ivf_cuda.block_topw(*args, **kw, W=Cmax, R=Cmax, pos_bits=3, sentinel=ivf_cuda.KEY_MIN)
     sk = torch.empty(B, Cmax, device=dev)
@@ -433,7 +493,8 @@ def phase_sums(torch, dev, *, d, seed=11):
     s32 = pair_scores_orig(torch, args, kw)
     sorted_c = torch.repeat_interleave(torch.arange(K, device=dev), (starts[1:] - starts[:-1]).long())
     o = order.long()
-    a = (q[o] - cents[sorted_c]).to(torch.bfloat16).double()
+    a = q[o] - cents[sorted_c]
+    a = (a.to(torch.bfloat16) if kw.get("round_query", True) else a).double()
     s64 = torch.empty(B, Cmax, dtype=torch.float64, device=dev)
     s64[o] = kw["scale"] * torch.einsum("pd,pdc->pc", a, blocks.double()[sorted_c]) \
         + kw["col_add"][sorted_c].double()
@@ -443,8 +504,9 @@ def phase_sums(torch, dev, *, d, seed=11):
     for s in (sk, s32):
         e = ((s.double() - s64).abs() - 2.0 ** -20 * s64.abs()).clamp(min=0)
         ratios.append(float((e / unit)[real].max()))
-    log(f"sums d={d}: max |kernel - f64| = {ratios[0]!r}, max |f32 twin - f64| = "
-        f"{ratios[1]!r} units of 2^-24 * sum_scale (B={B}, Cmax={Cmax}; tolerance {SUM_ERR})")
+    log(f"sums {str(blocks.dtype).split('.')[-1]} blocks d={d}: max |kernel - f64| = "
+        f"{ratios[0]!r}, max |f32 twin - f64| = {ratios[1]!r} units of 2^-24 * sum_scale "
+        f"(B={B}, Cmax={Cmax}; tolerance {SUM_ERR})")
     if ratios[0] > SUM_ERR:
         raise AssertionError(f"the card's sums stray {ratios[0]} units from f64 at d={d}")
     return ratios
@@ -452,7 +514,8 @@ def phase_sums(torch, dev, *, d, seed=11):
 
 def phase_slice(torch, dev, vecs, *, b_serve, reps):
     """The headline bench's path on the device, the tuner included.
-    Returns (engine, serving queries on the device)."""
+    Returns (engine, serving queries on the device, the oracle sample and
+    its f64 k-th distances)."""
     n = len(vecs)
     queries, qb = make_queries(vecs, b_serve, min(B_ORACLE, n))
     kth = oracle_kth(dev, queries, vecs, TOP_K)
@@ -507,7 +570,7 @@ def phase_slice(torch, dev, vecs, *, b_serve, reps):
     slice_profile(torch, eng, qdev)
     log(f"slice memory: device_bytes={eng.device_bytes()} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
-    return eng, qdev
+    return eng, qdev, queries, kth
 
 
 def slice_profile(torch, eng, qdev, *, batches=5, top=8):
@@ -610,9 +673,12 @@ def _collection_run(torch, dev, vecs, *, n_req, n_upd, seed):
     n = len(vecs)
 
     def factory(store):
+        # clusters scaled with the rows, so each holds the 1M slice's ~1,000
+        # rows (Cmax 1280): smaller clusters crowd a query's neighbours into
+        # fewer 32-lane windows, whose top-2 then drops some (PERF.md)
         return make_engine(
-            "ivf", store, n_clusters=1024, n_probe=3, q_cap_factor=2, kmeans_iters=8,
-            build_threshold=1024, rescore=False, recall_target=RECALL_TARGET)
+            "ivf", store, n_clusters=max(8, N_CLUSTERS * n // N), n_probe=3, q_cap_factor=2,
+            kmeans_iters=8, build_threshold=1024, rescore=False, recall_target=RECALL_TARGET)
 
     coll = Collection("chip", 128, "euclidean", device=dev, engine_factory=factory)
     rng = np.random.default_rng(seed)  # the recipe of benches/bench_filtered.py:23-26
@@ -719,6 +785,222 @@ def _collection_run(torch, dev, vecs, *, n_req, n_upd, seed):
         raise AssertionError("a deleted id was returned")
 
 
+#: phase 9: the headline engine's IVFConfig as the DB's JSON engine_config
+DB_IVF = dict(n_clusters=N_CLUSTERS, kmeans_iters=8, q_cap_factor=2, build_threshold=1024,
+              rescore=False, recall_target=RECALL_TARGET)
+#: phase 9b: the persistence round trip's rows (cut from 1M: every insert
+#: is journaled as a JSON record; PERF.md section 4) and insert batch
+PERSIST_ROWS, PERSIST_BATCH = 65536, 8192
+
+
+def phase_db(torch, dev, vecs, qdev, oracle_q, oracle_kth_, *, n_req=2048,
+             n_k100=512) -> dict:
+    """Phase 9a: the database at its defaults on the card (module
+    docstring). Returns the f32 slice's records; raises on a failed gate."""
+    from quiver_tpu_torch import DB, DBOptions
+    from quiver_tpu_torch.benches.common import recall_at_k
+    from quiver_tpu_torch.index.exact import ExactIndex
+    from quiver_tpu_torch.observability.collector import Collector
+    from quiver_tpu_torch.types import SearchRequest
+
+    n = len(vecs)
+    db = DB(DBOptions(enable_persistence=False, device=str(dev)))
+    log(f"db options: default_engine={db.options.default_engine} "
+        f"compute_dtype={db.options.compute_dtype} device={db.device}")
+    coll = db.create_collection("docs", vecs.shape[1], "euclidean", engine_config={"ivf": DB_IVF})
+    t0 = time.perf_counter()
+    db.batch_insert("docs", [f"v{i}" for i in range(n)], vecs)
+    torch.cuda.synchronize()
+    hybrid = coll.engine
+    ivf = hybrid.ann
+    log(f"db batch_insert: n={coll.size} wall_s={time.perf_counter() - t0!r} "
+        f"engine={hybrid.name}/{ivf.name} blocks={ivf._blocks_t.dtype} "
+        f"build_s={ivf._last_rebuild_s!r} n_probe={ivf.config.n_probe} "
+        f"tuned_recall={ivf._tuned_recall!r} K'={ivf.n_clusters}")
+    if hybrid.name != "hybrid" or ivf.name != "ivf" or ivf._blocks_t.dtype != torch.float32:
+        raise AssertionError("the DB's default collection is not hybrid over f32 IVF")
+
+    queries, _ = make_queries(vecs, n_req, n_req)
+    exact = ExactIndex(coll.store)
+    for k, b in ((TOP_K, n_req), (100, n_k100)):
+        reqs = [SearchRequest(vector=q, top_k=k) for q in queries[:b]]
+        db.batch_search("docs", reqs[:8])  # first use
+        before = dict(hybrid.stats()["per_strategy_queries"])
+        t0 = time.perf_counter()
+        resps = db.batch_search("docs", reqs)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = hybrid.stats()["per_strategy_queries"]
+        split = {s: after.get(s, 0) - before.get(s, 0) for s in after}
+        got = np.full((b, k), -1, np.int64)
+        for i, r in enumerate(resps):
+            for j, it in enumerate(r.results):
+                got[i, j] = coll.store.slot_of(it.id)
+        _, truth = exact.search_slots(queries[:b], k)
+        r = recall_at_k(got, truth, k)
+        log(f"db batch_search k={k}: B={b} ms_per_call={ms!r} recall@{k}={r!r} "
+            f"(exact f32 oracle) strategies={split} filled={int((got >= 0).sum())}/{b * k}")
+        if k == TOP_K and r < RECALL_GATE:
+            raise AssertionError(f"db recall@10 {r} < {RECALL_GATE}")
+        if (got < 0).any():
+            raise AssertionError(f"db k={k}: empty result slots on a full corpus")
+    r = Collector().measure_recall(coll, k=TOP_K, sample=256)
+    log(f"db collector measure_recall: recall@{TOP_K}={r!r} (256 stored rows, exact oracle)")
+    if r < RECALL_GATE:
+        raise AssertionError(f"collector recall {r} < {RECALL_GATE}")
+
+    # the f32 slice at full width: the hybrid's IVF side at its tuned n_probe
+    tuned, recs = ivf.config.n_probe, {}
+    for form in ("pairs", "fused"):
+        ivf.config.formulation = form
+        _, slots = ivf.search_slots(oracle_q, TOP_K)
+        r = recall_with_ties(slots, oracle_q, vecs, oracle_kth_, TOP_K)
+        ivf.search_slots_device(qdev, TOP_K)  # a held call (LiveCheck)
+        recs[form] = {"recall": r}
+        log(f"db f32 slice {form} n_probe={tuned}: recall@{TOP_K} {r!r} (f64 oracle)")
+        if r < RECALL_GATE:
+            raise AssertionError(f"f32 slice {form} recall@10 {r} < {RECALL_GATE}")
+    ivf.config.formulation = "pairs"
+    recs["device_bytes"] = ivf.device_bytes()
+    return {"db": db, "ivf": ivf, "records": recs}
+
+
+def time_f32_slice(torch, ivf, qdev, recs, *, reps=10):
+    """ms per B=65536 batch of the f32 slice, both formulations (outside
+    LiveCheck: these calls repeat the held ones' operands)."""
+    for form in ("pairs", "fused"):
+        ivf.config.formulation = form
+        ms = cuda_ms(lambda: ivf.search_slots_device(qdev, TOP_K), reps)
+        recs[form]["ms"] = ms
+        log(f"db f32 slice search_slots_device {form} n_probe={ivf.config.n_probe} "
+            f"B={qdev.shape[0]}: ms_per_batch={ms!r} qps={qdev.shape[0] / (ms / 1e3)!r}")
+    ivf.config.formulation = "pairs"
+    log(f"db f32 slice memory: device_bytes={recs['device_bytes']}")
+
+
+def phase_persistence(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH,
+                      n_q=256, n_crash=1024):
+    """Phase 9b: the DB's persistence round trip at ``n`` rows of the
+    corpus (module docstring); gates raise."""
+    import gc
+    import importlib
+    import importlib.util
+    import os
+    import shutil
+    from pathlib import Path
+
+    from quiver_tpu_torch import DB, DBOptions
+    from quiver_tpu_torch.benches.common import recall_at_k
+    from quiver_tpu_torch.benches.streaming import stream_rows
+    from quiver_tpu_torch.index.exact import ExactIndex
+    from quiver_tpu_torch.types import SearchRequest
+
+    root = Path(__file__).resolve().parent / "quiver_tpu_torch" / "_build" / "chip_smoke_db"
+    shutil.rmtree(root, ignore_errors=True)
+    opts = dict(storage_path=str(root), flush_interval_s=0, device=str(dev))
+    rows = vecs[:n]
+    ids = [f"v{i}" for i in range(n)]
+    queries, _ = make_queries(rows, n_q, n_q)
+    cdir = root / "docs"
+
+    def reopen(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        db = DB(DBOptions(**opts))
+        coll = db.get_collection("docs")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"persist {what}: load_s={secs!r} size={coll.size} "
+            f"ivf_built={coll.engine.ann._built} blocks={coll.engine.ann._blocks_t.dtype}")
+        return db, coll, secs
+
+    def answers(db, coll, qs, k=TOP_K):
+        resps = db.batch_search("docs", [SearchRequest(vector=q, top_k=k) for q in qs])
+        return [[it.id for it in r.results] for r in resps]
+
+    def recall(coll, got_ids):
+        got = np.asarray([[coll.store.slot_of(i) for i in row] for row in got_ids])
+        _, truth = ExactIndex(coll.store).search_slots(queries, TOP_K)
+        return recall_at_k(got, truth, TOP_K)
+
+    # the snapshot is Parquet where pyarrow is installed and JSON where it is
+    # not (the reference's fallback); its first import is timed apart
+    has_pyarrow = importlib.util.find_spec("pyarrow") is not None
+    if has_pyarrow:
+        t0 = time.perf_counter()
+        importlib.import_module("pyarrow.parquet")
+        log(f"persist: pyarrow imported in {time.perf_counter() - t0!r} s")
+    else:
+        log("persist: pyarrow is not installed; the snapshot will be JSON")
+    db = DB(DBOptions(**opts))
+    coll = db.create_collection("docs", rows.shape[1], "euclidean", engine_config={"ivf": DB_IVF})
+    t0 = time.perf_counter()
+    for at in range(0, n, batch):
+        db.batch_insert("docs", ids[at:at + batch], rows[at:at + batch])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    wal = db.persistence.wal("docs")
+    log(f"persist ingest: {n} rows in {n // batch} batch_insert calls of {batch}: "
+        f"wall_s={secs!r} rows_per_s={n / secs!r} wal={type(wal).__name__}")
+    # the WAL record's host cost: one JSON record per row, encoded at insert
+    # and parsed at replay (the reference's format)
+    t0 = time.perf_counter()
+    recs = [wal._entry_bytes("add", i, v, None) for i, v in zip(ids[:batch], rows[:batch])]
+    enc_us = (time.perf_counter() - t0) / batch * 1e6
+    t0 = time.perf_counter()
+    for r in recs:
+        json.loads(r)
+    log(f"persist wal record: {len(recs[0])} bytes per {rows.shape[1]}-d row, encode_us="
+        f"{enc_us!r} parse_us={(time.perf_counter() - t0) / batch * 1e6!r} per row "
+        f"({batch} rows; the ingest's {n} rows encode in ~{enc_us * n / 1e6!r} s)")
+    coll.engine.ann.wait_maintenance(timeout=300)
+    before = answers(db, coll, queries)
+    t0 = time.perf_counter()
+    db.close()
+    flush_s = time.perf_counter() - t0
+    fmt = "parquet" if (cdir / "vectors.parquet").exists() else "json"
+    log(f"persist close: flush_s={flush_s!r} snapshot={fmt} files={sorted(os.listdir(cdir))}")
+    if fmt != ("parquet" if has_pyarrow else "json"):
+        raise AssertionError(f"snapshot {fmt} with pyarrow {'present' if has_pyarrow else 'absent'}")
+    del db, coll
+
+    db, coll, sidecar_s = reopen("reopen through topology.npz")
+    after = answers(db, coll, queries)
+    r = recall(coll, after)
+    same = float(np.mean([a == b for a, b in zip(after, before)]))
+    log(f"persist reload: recall@{TOP_K}={r!r} identical_top10_share={same!r} (n={n_q})")
+    if r < RECALL_GATE:
+        raise AssertionError(f"recall@10 after reload {r} < {RECALL_GATE}")
+
+    # crash path: flush, then WAL-only deletes and adds, dropped unclosed
+    db.persistence.flush_collection(coll)
+    gone = ids[:n_crash]
+    added = stream_rows(n_crash, seed=17)
+    add_ids = [f"w{i}" for i in range(n_crash)]
+    if db.batch_delete("docs", gone) != n_crash:
+        raise AssertionError("batch_delete did not remove every row")
+    db.batch_insert("docs", add_ids, added)
+    del db, coll  # no close(): the WAL carries the delta
+    db, coll, _ = reopen("reopen after a crash")
+    seen = {i for row in answers(db, coll, rows[:n_crash]) for i in row}
+    top1 = [row[:1] == [vid] for row, vid in zip(answers(db, coll, added, k=1), add_ids)]
+    log(f"persist crash path: size={coll.size} deleted ids returned={len(seen & set(gone))} "
+        f"added rows found as their own top-1={int(sum(top1))}/{n_crash}")
+    if coll.size != n or seen & set(gone) or not all(top1):
+        raise AssertionError("the crash path lost a write or resurrected a delete")
+    db.close()
+    del db, coll
+
+    os.remove(cdir / "topology.npz")
+    db, coll, cold_s = reopen("reopen without topology.npz (cold build)")
+    r = recall(coll, answers(db, coll, queries))
+    log(f"persist cold load: load_s={cold_s!r} against sidecar load_s={sidecar_s!r}; "
+        f"recall@{TOP_K}={r!r}")
+    db.close()
+    del db, coll
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -753,8 +1035,16 @@ def main() -> int:
     wide = phase_kernels(torch, dev, shape=WIDE_SHAPE, probes=(3,), reps=10)
     for variant, rec in wide.items():
         records[variant]["max_abs_err"] = max(records[variant]["max_abs_err"], rec["max_abs_err"])
-    for d in (KERNEL_SHAPE["d"], WIDE_SHAPE["d"]):
-        phase_sums(torch, dev, d=d)
+    # f32 blocks at the DB's tuned n_probe (2) and the kernels line's (3)
+    records_f32 = phase_kernels(torch, dev, shape=KERNEL_SHAPE, probes=(2, 3), reps=10,
+                                dtype=torch.float32)
+    wide = phase_kernels(torch, dev, shape=WIDE_SHAPE, probes=(3,), reps=3, dtype=torch.float32)
+    for variant, rec in wide.items():
+        records_f32[variant]["max_abs_err"] = max(records_f32[variant]["max_abs_err"],
+                                                  rec["max_abs_err"])
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (KERNEL_SHAPE["d"], WIDE_SHAPE["d"]):
+            phase_sums(torch, dev, d=d, dtype=dtype)
 
     # phase 4: the main path; launch counts cover exactly this phase
     t0 = time.perf_counter()
@@ -762,7 +1052,7 @@ def main() -> int:
     log(f"corpus: {vecs.shape} in {time.perf_counter() - t0!r} s")
     torch.cuda.empty_cache()
     ivf_cuda.reset_launch_counts()
-    eng, qdev = phase_slice(torch, dev, vecs, b_serve=B_SERVE, reps=10)
+    eng, qdev, oracle_q, oracle_kth_ = phase_slice(torch, dev, vecs, b_serve=B_SERVE, reps=10)
     k100_err = phase_k100(torch, dev, eng, qdev.cpu().numpy(), vecs)
     records["row100"]["max_abs_err"] = max(records["row100"]["max_abs_err"], k100_err)
     counts = dict(ivf_cuda.launch_counts)
@@ -794,8 +1084,31 @@ def main() -> int:
     # block_topw calls join the pairs entry's error.
     live_err = phase_writes(torch, dev, vecs, cache=cache)
     torch.cuda.empty_cache()
-    live_err = max(live_err, phase_collection(torch, dev, vecs))
+    live_err = max(live_err, phase_collection(torch, dev, vecs[:COLLECTION_ROWS]))
     records["pairs"]["max_abs_err"] = max(records["pairs"]["max_abs_err"], live_err)
+    torch.cuda.empty_cache()
+
+    # phase 9: the database at its defaults (hybrid over an IVF engine with
+    # f32 blocks): 9a at 1M with the f32 slice, 9b the persistence round
+    # trip. Launch counts cover the two parts and not the f32 slice's timing
+    # after them; every block_topw call of the parts is held against its
+    # plain version.
+    ivf_cuda.reset_launch_counts()
+    qdev = torch.from_numpy(make_queries(vecs, B_SERVE, B_ORACLE)[1]).to(dev)
+    with LiveCheck() as live:
+        db9 = phase_db(torch, dev, vecs, qdev, oracle_q, oracle_kth_)
+    live.verify(torch, "db")
+    db_worst = dict(live.worst_by)
+    with LiveCheck() as live:
+        phase_persistence(torch, dev, vecs)
+    live.verify(torch, "persist")
+    for key, err in live.worst_by.items():
+        db_worst[key] = max(db_worst.get(key, 0.0), err)
+    counts_db = dict(ivf_cuda.launch_counts)
+    log(f"db launches: {counts_db}")
+    time_f32_slice(torch, db9["ivf"], qdev, db9["records"])
+    del db9, qdev
+    torch.cuda.empty_cache()
 
     # bounds: block_topw's from phase 3's operands (topw_bound); the probes'
     # from their main-path operands: scatter_rows reads and writes its rows,
@@ -810,26 +1123,33 @@ def main() -> int:
                 "fused": "quiver_tpu/ops/ivf_pallas.py:145",
                 "row100": "quiver_tpu/ops/ivf_kernels.py:716"}
     kernels = []
-    for variant, rec in records.items():
-        if variant not in replaces:  # row mode at R=16: not on the 1M slice's path
-            continue
-        key = ivf_cuda.ROW_MODE if rec["W"] == KERNEL_SHAPE["Cmax"] else (rec["W"], rec["R"])
-        if counts[key] <= 0:
-            raise AssertionError(f"block_topw {variant} was not launched by the main path")
-        kernels.append({
-            "name": f"block_topw[W={rec['W']},R={rec['R']}] ({variant})",
-            "route": "cuda",
-            "source": "quiver_tpu_torch/csrc/ivf_block_topw.cu",
-            "replaces": replaces[variant],
-            "launches": counts[key],
-            "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"],
-            "bound_share": rec["bound_ms"] / rec["ms"],
-            "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
-        })
+    for tag, recs, launches, source in (
+            ("", records, counts, "quiver_tpu_torch/csrc/ivf_block_topw.cu"),
+            ("_f32", records_f32, counts_db, "quiver_tpu_torch/csrc/ivf_block_topw_f32.cu")):
+        for variant, rec in recs.items():
+            if variant not in replaces:  # row mode at R=16: not on the main path
+                continue
+            key = ivf_cuda.ROW_MODE if rec["W"] == KERNEL_SHAPE["Cmax"] else (rec["W"], rec["R"])
+            if tag:
+                key = (ivf_cuda.F32, key)
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         db_worst.get(("float32", rec["W"], rec["R"]), 0.0))
+            if launches[key] <= 0:
+                raise AssertionError(f"block_topw{tag} {variant} was not launched by the main path")
+            kernels.append({
+                "name": f"block_topw{tag}[W={rec['W']},R={rec['R']}] ({variant})",
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces[variant],
+                "launches": launches[key],
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "bound_share": rec["bound_ms"] / rec["ms"],
+                "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
+            })
     for name, replaces in (("scatter_rows", "benches/probe_pallas.py:42"),
                            ("index_read", "benches/probe_pallas.py:101")):
         if probe_counts[name] <= 0:

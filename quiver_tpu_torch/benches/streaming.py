@@ -20,7 +20,7 @@ with ``card`` (name and power limit) added to each. Write walls are host
 clock around the call and a ``torch.cuda.synchronize()``; the first
 batch's sample is left out of the steady rates, as in the reference.
 Without CUDA it exits non-zero before printing a result. Not ported: the
-HNSW leg, which waits for the HNSW engine (ROADMAP.md queue 1, item 10),
+HNSW leg, which waits for the HNSW engine (ROADMAP.md queue 1, item 4),
 and the ``QUIVER_BENCH_*`` environment overrides (``run`` takes the sizes
 as arguments).
 """

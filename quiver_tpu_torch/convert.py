@@ -34,23 +34,22 @@ def bf16_to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
     return bits.view(torch.bfloat16).to(device)
 
 
-def _blocks_to_torch(blocks_t: np.ndarray, device) -> torch.Tensor:
-    if blocks_t.dtype.name == "bfloat16":
+def _blocks_to_torch(blocks_t: np.ndarray, device, dtype) -> torch.Tensor:
+    if dtype == torch.bfloat16 and blocks_t.dtype.name == "bfloat16":
         return bf16_to_torch(blocks_t, device)
-    return torch.tensor(np.asarray(blocks_t, np.float32), device=device).to(
-        torch.bfloat16
-    )
+    return torch.tensor(np.asarray(blocks_t, np.float32), device=device).to(dtype)
 
 
 def ivf_arrays_from_numpy(
     centroids, cent_norms_sq, blocks_t, block_slot, block_rns, block_inv,
-    block_keep, store_vectors, *, device,
+    block_keep, store_vectors, *, device, blocks_dtype=torch.bfloat16,
 ):
     """The ``ivf_query`` operands after ``q``, as tensors on ``device`` in
     ``ivf_query``'s positional order: (centroids f32, cent_norms_sq f32,
-    blocks_t bf16, block_slot i32, block_rns f32, block_inv f32,
-    block_keep bool, store_vectors f32). ``blocks_t`` may be bf16 (carried
-    bit-exact) or f32 (rounded to nearest even, as JAX's astype does)."""
+    blocks_t, block_slot i32, block_rns f32, block_inv f32, block_keep
+    bool, store_vectors f32). ``blocks_t`` becomes ``blocks_dtype``: bf16
+    from a bf16 array is carried bit-exact and from an f32 one rounded to
+    nearest even, as JAX's astype does; f32 is carried exactly."""
 
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
@@ -58,7 +57,7 @@ def ivf_arrays_from_numpy(
     return (
         f32(centroids),
         f32(cent_norms_sq),
-        _blocks_to_torch(np.asarray(blocks_t), device),
+        _blocks_to_torch(np.asarray(blocks_t), device, blocks_dtype),
         torch.tensor(np.asarray(block_slot, np.int32), device=device),
         f32(block_rns),
         f32(block_inv),

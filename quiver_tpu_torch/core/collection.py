@@ -15,17 +15,17 @@ and fused-mask kernels:
 * batched search vectorizes same-shaped requests into one kernel launch,
   replacing goroutine-per-query fan-out (pkg/hnsw/adapter.go:238-290).
 
-PyTorch port of ``quiver_tpu/core/collection.py``, with three changes:
+PyTorch port of ``quiver_tpu/core/collection.py``, with two changes:
 
 * the device is explicit: ``Collection(..., device=...)`` passes it to its
-  ``VectorStore``; nothing picks the CPU or the card by default;
+  ``VectorStore``; nothing picks the CPU or the card by default (the
+  database, ``core/db.py``, passes its ``DBOptions.device``);
 * compiled filter masks stay numpy ``bool[cap]``; the engine moves them to
-  its device;
-* ``compute_dtype`` accepts ``torch.float32`` only, the exact engine's one
-  mode (the bf16 scan: ROADMAP.md queue 1, item 8).
+  its device.
 
-``wal`` stays None: persistence is a later slice (ROADMAP.md queue 1,
-item 9); the attribute and its calls stay, so that slice only sets it.
+``compute_dtype`` (``torch.float32`` or ``torch.bfloat16``) goes to the
+default exact engine, as in the reference. ``wal`` is set by the database
+when persistence is on (``persistence/manager.py``'s per-collection handle).
 """
 
 from __future__ import annotations
@@ -94,11 +94,6 @@ class Collection:
     ):
         if not name:
             raise ValueError("collection name must not be empty")
-        if compute_dtype != torch.float32:
-            raise NotImplementedError(
-                f"Collection compute_dtype={compute_dtype}: the port scans in "
-                "f32 only (the bf16 scan mode: ROADMAP.md queue 1, item 8)"
-            )
         self.name = name
         self.dim = int(dim)
         self.metric = DistanceType.parse(metric)
@@ -107,7 +102,9 @@ class Collection:
         self.facets = FacetColumns(self.store.capacity, facet_fields)
         self.auto_facet_fields = auto_facet_fields
         if engine_factory is None:
-            engine_factory = ExactIndex
+            engine_factory = lambda store: ExactIndex(
+                store, compute_dtype=compute_dtype
+            )
         self.engine = engine_factory(self.store)
         #: engine kind name (exact | hnsw | hybrid | ...), set by the DB
         #: layer; persisted in CollectionConfig so reloads reconstruct the

@@ -1,15 +1,23 @@
 """Exact (brute-force) index over a columnar store (PyTorch port of
 ``quiver_tpu/index/exact.py``).
 
-Search is one f32 matmul scan with fused masking and top-k
-(ops/scan.py); recall is 1.0 by construction. ``IVFIndex`` uses it for
-small corpora, Manhattan, per-query masks and the under-fill supplement.
+Search is one matmul scan with fused masking and top-k (ops/scan.py);
+recall is 1.0 by construction. ``IVFIndex`` uses it for small corpora,
+Manhattan, per-query masks and the under-fill supplement, the hybrid engine
+for its exact side, and the collector as its oracle.
+
+The reference's constructor keywords carry over: ``tile`` (corpus rows per
+tile of the tiled scan), ``compute_dtype`` (``torch.bfloat16`` scans a
+cached bf16 copy of the corpus, the reference's ``_corpus``,
+``exact.py:70-76``), ``approx_recall`` and ``precision``. Two of them mean
+less here: every f32 product runs with TF32 off, so ``precision`` "auto",
+"highest" and None all give true f32; and ``approx_recall`` is met by exact
+top-k (the reference's ``lax.approx_max_k`` has no counterpart the port
+needs), so recall is 1.0 whatever the target.
 
 Not ported: the pow2 batch padding (``exact.py:110-125``), which exists only
-to bound XLA's compiled shapes; the host fetch helper
-(``utils/transfer.py``); and the approximate/bf16 scan modes
-(``approx_recall``, ``compute_dtype``: ROADMAP.md queue 1, item 8) —
-products here are always f32 with TF32 off.
+to bound XLA's compiled shapes, and the host fetch helper
+(``utils/transfer.py``).
 """
 
 from __future__ import annotations
@@ -24,12 +32,58 @@ from quiver_tpu_torch.ops.scan import flat_scan_topk, negative_rerank
 
 
 class ExactIndex:
-    """Flat-scan index; shares the collection's VectorStore (no extra copy)."""
+    """Flat-scan index; shares the collection's VectorStore (no extra copy
+    in f32; a bf16 ``compute_dtype`` keeps one bf16 copy)."""
 
     name = "exact"
 
-    def __init__(self, store: VectorStore):
+    def __init__(
+        self,
+        store: VectorStore,
+        *,
+        tile: int = 8192,
+        compute_dtype=torch.float32,
+        approx_recall: float | None = None,
+        precision: str | None = "auto",
+    ):
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"ExactIndex compute_dtype={compute_dtype}: torch.float32 or torch.bfloat16"
+            )
+        if tile < 1:
+            raise ValueError(f"tile must be positive, got {tile}")
+        if approx_recall is not None and not 0.0 < approx_recall <= 1.0:
+            raise ValueError(f"approx_recall must be in (0, 1], got {approx_recall}")
+        if precision not in ("auto", "highest", None):
+            raise ValueError(
+                f"precision={precision!r}: the port runs f32 products with TF32 "
+                'off; use "auto", "highest" or None'
+            )
         self.store = store
+        self.tile = int(tile)
+        self.compute_dtype = compute_dtype
+        self.approx_recall = approx_recall
+        # the reference's resolution, kept for inspection: "highest" on the
+        # oracle path, None (DEFAULT) once the caller opted into bf16 or
+        # approximation; either way the port's f32 products are true f32
+        if precision == "auto":
+            precision = (
+                "highest"
+                if compute_dtype == torch.float32 and approx_recall is None
+                else None
+            )
+        self.precision = precision
+        # bf16 corpus cache for the bf16 mode, keyed by the view's generation
+        self._v16 = None
+        self._v16_gen = -1
+
+    def _corpus(self, view):
+        if self.compute_dtype != torch.bfloat16:
+            return view.vectors
+        if self._v16 is None or self._v16_gen != view.generation:
+            self._v16 = view.vectors.to(torch.bfloat16)
+            self._v16_gen = view.generation
+        return self._v16
 
     @property
     def size(self) -> int:
@@ -70,8 +124,9 @@ class ExactIndex:
         retrieve_k = k if negative is None else max(2 * k, 30)
         retrieve_k = min(retrieve_k, view.capacity)
         dist, idx = flat_scan_topk(
-            q, view.vectors, view.valid, mask, view.norms_sq, view.inv_norms,
-            metric=self.store.metric, k=retrieve_k,
+            q, self._corpus(view), view.valid, mask, view.norms_sq, view.inv_norms,
+            metric=self.store.metric, k=retrieve_k, tile=min(self.tile, view.capacity),
+            compute_dtype=self.compute_dtype,
         )
         if negative is not None:
             neg = torch.as_tensor(np.asarray(negative, np.float32), device=dev)
@@ -82,3 +137,16 @@ class ExactIndex:
                 k=min(k, retrieve_k), weight=negative_weight,
             )
         return dist.cpu().numpy(), idx.cpu().numpy()
+
+    def search(self, query, k: int, **kw):
+        """Single-query convenience -> list[(id, distance)]
+        (``exact.py:165-175``)."""
+        dist, idx = self.search_slots(np.asarray(query, np.float32)[None, :], k, **kw)
+        out = []
+        for d, s in zip(dist[0], idx[0]):
+            if s < 0:
+                continue
+            vid = self.store.id_of(int(s))
+            if vid is not None:
+                out.append((vid, float(d)))
+        return out

@@ -7,7 +7,9 @@ rescore the winners exactly in f32 or derive their distances from the
 scores. Recall is a direct function of ``n_probe``.
 
 Index state is plain tensors on the store's device, as in the reference
-engine: centroids, the bf16 residual blocks ``[K, d, Cmax]``, the slot map,
+engine: centroids, the residual blocks ``[K, d, Cmax]`` in the engine's
+``compute_dtype`` (bf16 by default; f32 where the database and the hybrid
+engine build it, ``quiver_tpu/index/ivf.py:1963-1967``), the slot map,
 residual norms, inverse norms and the keep mask. Deletes of the layout are
 keep-bit tombstones (:meth:`_vacate_slots`); rows outside the blocks sit in
 an exactly scanned overflow set that is merged into every answer.
@@ -42,8 +44,8 @@ The port has the build, the query, the n_probe tuner (``recall_target``,
   measured and not kept: the job's host steps, not its kernels, hold
   queries back (``PERF.md``, PR 3).
 
-``formulation="einsum"`` still raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+``formulation="einsum"`` raises ``NotImplementedError``: it is a TPU
+lowering fallback the port does not carry (ROADMAP.md).
 
 Reference workarounds not ported, because their cause is absent here:
 
@@ -66,7 +68,6 @@ Reference workarounds not ported, because their cause is absent here:
   (``ivf.py:1684-1692``) and of the overflow scan (``ivf.py:1769-1776``):
   they exist for XLA's static shapes; the port scatters and scores exactly
   the batch's rows;
-* ``compute_dtype``: blocks are bf16, the only dtype the kernel takes;
 * ``fused_kg`` (``IVFConfig``): the CUDA kernel has no counterpart to the
   Pallas grid's cluster grouping and ignores it.
 """
@@ -122,12 +123,6 @@ def _cmax_shape(want: float) -> int:
     return _pow2(w, lo=8)
 
 
-def _not_yet(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to quiver_tpu_torch yet (ROADMAP.md {item})"
-    )
-
-
 def _merge_rows(d1, i1, d2, i2, k):
     """Merge two sorted candidate rows, dedup by id, keep k smallest
     (copied from ``quiver_tpu/index/hnsw.py:933-947``)."""
@@ -145,10 +140,10 @@ def _merge_rows(d1, i1, d2, i2, k):
     return out_d, out_i
 
 
-def _layout_dev(block_slot, vectors, norms_sq, cents):
+def _layout_dev(block_slot, vectors, norms_sq, cents, dtype):
     """Block layout in one pass on the device: gather every placed row
     from the store's device copy and form the block arrays. Returns
-    (blocks_t bf16[K, d, Cmax], rns f32[K, Cmax], inv f32[K, Cmax],
+    (blocks_t ``dtype``[K, d, Cmax], rns f32[K, Cmax], inv f32[K, Cmax],
     keep bool[K, Cmax], rsum f32[]): ``rsum`` is the sum of the placed
     rows' squared residuals (unoccupied positions add zero), the drift
     baseline's numerator."""
@@ -158,7 +153,7 @@ def _layout_dev(block_slot, vectors, norms_sq, cents):
     rns = torch.sum(resid * resid, dim=2)
     ns = torch.where(keep, norms_sq[safe], 0.0)
     inv = torch.where(ns > 0, torch.rsqrt(torch.clamp(ns, min=1e-30)), 0.0)
-    blocks_t = resid.transpose(1, 2).to(torch.bfloat16).contiguous()
+    blocks_t = resid.transpose(1, 2).to(dtype).contiguous()
     return blocks_t, rns, inv, keep, torch.sum(rns)
 
 
@@ -199,7 +194,7 @@ def _scatter_blocks_dev(
     ``blocks_t[rows, :, pos]`` is mixed advanced indexing on [K, d, Cmax]:
     the two index tensors are separated by a slice, so the indexed view is
     laid out [m, d] with the advanced dimension first (numpy's rule), and
-    each row writes d bf16 values at stride Cmax."""
+    each row writes d values of the blocks' dtype at stride Cmax."""
     v = vectors[slots]
     resid = v - cent[rows]
     rns = torch.sum(resid * resid, dim=1)
@@ -295,25 +290,29 @@ class IVFIndex:
         store: VectorStore,
         *,
         config: Optional[IVFConfig] = None,
-        compute_dtype=None,
+        compute_dtype=torch.bfloat16,
         **cfg_overrides,
     ):
-        if compute_dtype not in (None, torch.bfloat16):
-            raise NotImplementedError(
-                f"IVFIndex compute_dtype={compute_dtype}: blocks are bf16 only "
-                "(other dtypes: ROADMAP.md queue 1, item 8)"
+        """``compute_dtype``: the residual blocks' dtype, ``torch.bfloat16``
+        (the reference's default, ``ivf.py:420``) or ``torch.float32`` (what
+        the database and the hybrid engine pass by default). bf16 blocks run
+        the tensor-core kernel; f32 blocks the CUDA-core one, with the
+        reference's f32 products."""
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(
+                f"IVFIndex compute_dtype={compute_dtype}: torch.bfloat16 or torch.float32"
             )
         self.store = store
         self.device = store.device
         self.config = config or IVFConfig(**cfg_overrides)
-        self.compute_dtype = torch.bfloat16
+        self.compute_dtype = compute_dtype
         self._exact = ExactIndex(store)
         #: bool[K] — False rows are reserved cluster ids (None = all live)
         self._cluster_live = None
         self._built = False
         self._centroids = None  # np f32[K, d]
         self._cent_dev = None  # (centroids, cent_norms_sq) on the device
-        self._blocks_t = None  # bf16[K, d, Cmax] residuals
+        self._blocks_t = None  # compute_dtype[K, d, Cmax] residuals
         self._block_slot = None  # i32[K, Cmax]
         self._block_ns = None  # f32[K, Cmax] residual norms
         self._block_inv = None  # f32[K, Cmax] 1/|v| full-vector
@@ -978,7 +977,10 @@ class IVFIndex:
         tuner inside a staging build assigns ``config.n_probe``, and the
         tuned value installs at :meth:`_adopt`, atomically with the layout
         it was measured on."""
-        return type(self)(self.store, config=dataclasses.replace(self.config))
+        return type(self)(
+            self.store, config=dataclasses.replace(self.config),
+            compute_dtype=self.compute_dtype,
+        )
 
     def _make_staging(self, kind: str) -> "IVFIndex":
         eng = self._clone_for_maintenance()
@@ -1266,7 +1268,10 @@ class IVFIndex:
         """"pairs" | "fused"; "auto" resolves to "pairs"."""
         form = self.config.formulation
         if form == "einsum":
-            raise _not_yet('formulation="einsum"', "queue 1, item 2")
+            raise NotImplementedError(
+                'formulation="einsum" is a TPU lowering fallback that '
+                "quiver_tpu_torch does not port (ROADMAP.md queue 2, C)"
+            )
         if form in ("auto", "pairs"):
             return "pairs"
         if form != "fused":
@@ -1471,7 +1476,9 @@ class IVFIndex:
         slot_dev = torch.from_numpy(block_slot).to(self.device)
         (
             self._blocks_t, self._block_ns, self._block_inv, self._block_keep, rsum,
-        ) = _layout_dev(slot_dev, view.vectors, view.norms_sq, self._cent_dev[0])
+        ) = _layout_dev(
+            slot_dev, view.vectors, view.norms_sq, self._cent_dev[0], self.compute_dtype
+        )
         # drift baseline: mean squared residual over the placed rows
         self._built_resid = float(rsum) / max(n_live, 1)
         self._block_slot = slot_dev

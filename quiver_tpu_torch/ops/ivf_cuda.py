@@ -1,6 +1,8 @@
 """IVF candidate-stage kernel ``block_topw``: grouped block scoring plus a
-windowed top-R, in one CUDA kernel (``csrc/ivf_block_topw.cu``: tensor
-cores through ``wgmma``, both operands through a TMA ring; see its header).
+windowed top-R, in one CUDA kernel per block dtype: bf16 blocks run
+``csrc/ivf_block_topw.cu`` (tensor cores through ``wgmma``, both operands
+through a TMA ring), f32 blocks run ``csrc/ivf_block_topw_f32.cu`` (f32
+FMAs on the CUDA cores); see their headers.
 
 It replaces both candidate formulations of the JAX package:
 
@@ -20,7 +22,8 @@ It replaces both candidate formulations of the JAX package:
 
 For every (query, probe) pair, grouped by cluster through the CSR ``starts``
 over the stably sorted pairs, it scores the pair's query (minus the
-centroid, for L2) against the cluster's bf16 block with f32 sums, applies
+centroid, for L2; rounded to bf16 when ``round_query``) against the
+cluster's block (bf16 or f32) with f32 products and sums, applies
 the epilogue ``s = (scale*dot + row_add[pair]) * col_mul[c, j] +
 col_add[c, j]``, packs (score | position) into a monotone int32 key, keeps
 the top R keys of every W-lane window and writes them to the pair's
@@ -28,9 +31,15 @@ ORIGINAL row in lane ``r*S + w`` (S = Cmax // W windows; the reference's
 ``concat([m1 over windows, m2 over windows])``), so no regroup by inverse
 permutation and no transpose is needed.
 
+The query's rounding follows the reference's formulations: its f32-block
+``ragged_dot`` takes the f32 query as it is (``ivf_kernels.py:633-636``:
+``round_query=False``), the Pallas kernel rounds it to bf16 whatever the
+blocks (``ivf_pallas.py:93-96``), and bf16 blocks always pair with a bf16
+query.
+
 ``block_topw`` dispatches on the device of its inputs: CPU tensors take the
-plain PyTorch version ``block_topw_reference`` (bf16-rounded operands, f32
-products and sums, the same packing); CUDA tensors launch the kernel or
+plain PyTorch version ``block_topw_reference`` (the same operand rounding,
+f32 products and sums, the same packing); CUDA tensors launch the kernel or
 raise. There is no fallback from one to the other.
 """
 
@@ -52,11 +61,14 @@ _INT_MASK = 0x7FFFFFFF
 #: window, any R <= Cmax).
 CUDA_VARIANTS = ((32, 2), (64, 2), (128, 2), (128, 4))
 ROW_MODE = "row"
+#: launch-count key prefix of the f32-block kernel
+F32 = "f32"
 
 #: Launches of block_topw in this process by (W, R), or ROW_MODE for the
-#: row mode, counted where the kernel is launched and nowhere else (the CPU
-#: twin does not count).
-launch_counts = {v: 0 for v in (*CUDA_VARIANTS, ROW_MODE)}
+#: row mode, of the bf16-block kernel, and by (F32, (W, R)) or (F32,
+#: ROW_MODE) of the f32-block kernel; counted where a kernel is launched and
+#: nowhere else (the CPU twin does not count).
+launch_counts = {k: 0 for v in (*CUDA_VARIANTS, ROW_MODE) for k in (v, (F32, v))}
 
 
 def reset_launch_counts() -> None:
@@ -110,11 +122,12 @@ def unpack_keys(acc: torch.Tensor, pos_bits: int = 11):
 
 def pair_scores_reference(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add,
-    row_add=None, col_mul=None, sub_cent,
+    row_add=None, col_mul=None, sub_cent, round_query=True,
 ):
     """f32[BP, Cmax] epilogue scores of every pair, in SORTED pair order
-    (row i is pair ``order[i]``): bf16-rounded operands, f32 products and
-    sums. Plain PyTorch; loops over the clusters on the host."""
+    (row i is pair ``order[i]``): the block as stored (bf16 or f32), the
+    query rounded to bf16 when ``round_query``, f32 products and sums.
+    Plain PyTorch; loops over the clusters on the host."""
     K, d, Cmax = blocks_t.shape
     BP = order.shape[0]
     counts = starts[1:] - starts[:-1]
@@ -125,7 +138,8 @@ def pair_scores_reference(
     qp = q[orig // P]
     if sub_cent:
         qp = qp - centroids[sorted_c]
-    qp = qp.to(torch.bfloat16).float()
+    if round_query:
+        qp = qp.to(torch.bfloat16).float()
     dots = torch.zeros(BP, Cmax, dtype=torch.float32, device=q.device)
     bounds = starts.tolist()
     for c in range(K):
@@ -142,8 +156,8 @@ def pair_scores_reference(
 
 def block_topw_reference(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add,
-    row_add=None, col_mul=None, win_add=None, sub_cent, W, R, pos_bits,
-    sentinel,
+    row_add=None, col_mul=None, win_add=None, sub_cent, round_query=True, W, R,
+    pos_bits, sentinel,
 ):
     """Plain PyTorch version of the kernel: i32[BP, R*S] winner keys
     (S = Cmax // W) in original pair order, lane ``r*S + w`` holding the
@@ -156,6 +170,7 @@ def block_topw_reference(
     s = pair_scores_reference(
         q, centroids, starts, order, blocks_t, P=P, scale=scale,
         col_add=col_add, row_add=row_add, col_mul=col_mul, sub_cent=sub_cent,
+        round_query=round_query,
     )
     keys = _pack_lane(s, pm).reshape(BP, S, W)
     sent = torch.tensor(int(sentinel), dtype=torch.int32, device=q.device)
@@ -202,8 +217,8 @@ def _raise_on(err: int, fn: str, lib) -> None:
 
 def block_topw(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add,
-    row_add=None, col_mul=None, win_add=None, sub_cent, W, R, pos_bits,
-    sentinel,
+    row_add=None, col_mul=None, win_add=None, sub_cent, round_query=True, W, R,
+    pos_bits, sentinel,
 ):
     """Winner keys i32[BP, R*(Cmax//W)] of every (query, probe) pair, lane
     ``r*S + w`` (S = Cmax // W) in each pair's original row.
@@ -213,15 +228,18 @@ def block_topw(
       starts: i32[K+1] CSR offsets of each cluster's run in the stably
         sorted pair list; order: i32[B*P] original pair index (query-major,
         ``b*P + j``) of each sorted pair.
-      blocks_t: bf16[K, d, Cmax] residual blocks.
+      blocks_t: bf16 or f32 [K, d, Cmax] residual blocks.
       col_add: f32[K, Cmax]; row_add: optional f32[B*P] per original pair;
         col_mul: optional f32[K, Cmax] (the epilogue in the module doc).
       win_add: optional f32[B*P] per original pair, added in f32 to each
         winner's unpacked score and packed again (its position bits kept):
         the per-pair constant of the affine identity, which cannot change
         the ranking within a pair. Windowed variants only on CUDA.
-      sub_cent: subtract the pair's centroid from the query (f32) before
-        rounding it to bf16.
+      sub_cent: subtract the pair's centroid from the query (f32), before
+        any rounding.
+      round_query: round the (centred) query to bf16 before the products.
+        bf16 blocks require it; with f32 blocks it is the fused
+        formulation's product, and False the pairs formulation's.
       W, R: window width (a power of two dividing Cmax, or Cmax itself:
         one window per row) and winners kept per window; pos_bits: low key
         bits replaced by the block column (W <= 2**pos_bits); sentinel:
@@ -241,7 +259,12 @@ def block_topw(
     _check("centroids", centroids, torch.float32, (K, d), dev)
     _check("starts", starts, torch.int32, (K + 1,), dev)
     _check("order", order, torch.int32, (BP,), dev)
-    _check("blocks_t", blocks_t, torch.bfloat16, (K, d, Cmax), dev)
+    bdt = getattr(blocks_t, "dtype", None)
+    if bdt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"block_topw: blocks_t must be bf16 or f32, got {bdt}")
+    _check("blocks_t", blocks_t, bdt, (K, d, Cmax), dev)
+    if blocks_t.dtype == torch.bfloat16 and not round_query:
+        raise ValueError("block_topw: bf16 blocks take a bf16 query (round_query=True)")
     _check("col_add", col_add, torch.float32, (K, Cmax), dev)
     if row_add is not None:
         _check("row_add", row_add, torch.float32, (BP,), dev)
@@ -259,10 +282,39 @@ def block_topw(
         sentinel=sentinel,
     )
     if dev.type == "cpu":
-        return block_topw_reference(q, centroids, starts, order, blocks_t, **kw)
+        return block_topw_reference(
+            q, centroids, starts, order, blocks_t, round_query=round_query, **kw)
     if dev.type != "cuda":
         raise ValueError(f"block_topw: unsupported device {dev}")
+    if blocks_t.dtype == torch.float32:
+        return _launch_cuda_f32(
+            q, centroids, starts, order, blocks_t, round_query=round_query, **kw)
     return _launch_cuda(q, centroids, starts, order, blocks_t, **kw)
+
+
+def _variant(lib_row_max, W, R, Cmax, win_add):
+    """(launch-count variant, W argument of the C entry, whether row mode
+    writes every key of the row) of one CUDA launch."""
+    if (W, R) in CUDA_VARIANTS:
+        return (W, R), W, False
+    if W == Cmax and win_add is None:
+        # row mode: the running top-R, or every key of the row above the max
+        return ROW_MODE, 0, R > lib_row_max
+    raise ValueError(
+        f"block_topw: no CUDA variant for W={W}, R={R}"
+        f"{'' if win_add is None else ' with win_add'} (built: {CUDA_VARIANTS}, "
+        f"and W=Cmax without win_add)"
+    )
+
+
+def _tile_start(starts, K, BP, tq):
+    """(tile_start i32[K+1], grid): cluster c owns tiles [tile_start[c],
+    tile_start[c+1]) of ``tq`` sorted pairs, made without a host sync; the
+    grid is an upper bound on the tile count and surplus blocks exit."""
+    counts = starts[1:] - starts[:-1]
+    tile_start = torch.zeros(K + 1, dtype=torch.int32, device=starts.device)
+    tile_start[1:] = torch.cumsum((counts + (tq - 1)) // tq, 0)
+    return tile_start, (BP + tq - 1) // tq + K
 
 
 def _launch_cuda(
@@ -281,32 +333,13 @@ def _launch_cuda(
             # TMA and bulk copies read from 16-byte aligned addresses
             raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
     lib = load_library()
-    whole = False
-    if (W, R) in CUDA_VARIANTS:
-        variant, w_arg = (W, R), W
-    elif W == Cmax and win_add is None:
-        # row mode: the running top-R, or every key of the row above 32
-        variant, w_arg = ROW_MODE, 0
-        whole = R > lib.ivf_block_topw_row_max()
-    else:
-        raise ValueError(
-            f"block_topw: no CUDA variant for W={W}, R={R}"
-            f"{'' if win_add is None else ' with win_add'} (built: {CUDA_VARIANTS}, "
-            f"and W=Cmax without win_add)"
-        )
+    variant, w_arg, whole = _variant(lib.ivf_block_topw_row_max(), W, R, Cmax, win_add)
     BP = B * P
     out = torch.empty(BP, Cmax if whole else (Cmax // W) * R, dtype=torch.int32,
                       device=q.device)
     if BP == 0:
         return out[:, :R] if whole else out
-    tq = lib.ivf_block_topw_tile_rows()
-    # tile map without a host sync: cluster c owns tiles
-    # [tile_start[c], tile_start[c+1]); the grid is an upper bound on the
-    # tile count and surplus blocks exit
-    counts = starts[1:] - starts[:-1]
-    tile_start = torch.zeros(K + 1, dtype=torch.int32, device=q.device)
-    tile_start[1:] = torch.cumsum((counts + (tq - 1)) // tq, 0)
-    n_tiles_max = (BP + tq - 1) // tq + K
+    tile_start, n_tiles_max = _tile_start(starts, K, BP, lib.ivf_block_topw_tile_rows())
     # the prologue's output: each sorted pair's bf16 query row, d padded to
     # the kernel's 64-deep chunks
     qa = torch.empty(BP, (d + 63) // 64 * 64, dtype=torch.bfloat16, device=q.device)
@@ -330,6 +363,46 @@ def _launch_cuda(
     return out
 
 
+def _launch_cuda_f32(
+    q, centroids, starts, order, blocks_t, *, P, scale, col_add, row_add,
+    col_mul, win_add, sub_cent, round_query, W, R, pos_bits, sentinel,
+):
+    from quiver_tpu_torch._build import load_library
+
+    B, d = q.shape
+    K, _, Cmax = blocks_t.shape
+    if Cmax % 4 or blocks_t.data_ptr() % 16:
+        # the slab copy reads whole float4s of each block row
+        raise ValueError(
+            f"block_topw: f32 blocks need Cmax % 4 == 0 (Cmax={Cmax}) and a "
+            "16-byte aligned start on CUDA")
+    lib = load_library()
+    variant, w_arg, whole = _variant(lib.ivf_block_topw_f32_row_max(), W, R, Cmax, win_add)
+    BP = B * P
+    out = torch.empty(BP, Cmax if whole else (Cmax // W) * R, dtype=torch.int32,
+                      device=q.device)
+    if BP == 0:
+        return out[:, :R] if whole else out
+    tile_start, n_tiles_max = _tile_start(starts, K, BP, lib.ivf_block_topw_f32_tile_rows())
+    err = lib.ivf_block_topw_f32(
+        q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
+        tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
+        0 if row_add is None else row_add.data_ptr(),
+        0 if col_mul is None else col_mul.data_ptr(),
+        col_add.data_ptr(),
+        0 if win_add is None else win_add.data_ptr(),
+        out.data_ptr(),
+        K, d, Cmax, P, BP, n_tiles_max, float(scale), int(bool(sub_cent)),
+        int(bool(round_query)), w_arg, R, pos_bits, int(sentinel), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "block_topw", lib)
+    launch_counts[(F32, variant)] += 1
+    if whole:
+        out = torch.topk(out, R, dim=1).values  # keys are distinct in a row
+    return out
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of the kernel library (pointers and the
     stream as c_void_p, so ctypes passes 64-bit values)."""
@@ -339,7 +412,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, ci, ci, vp,
     ]
     lib.ivf_block_topw.restype = ci
-    for fn in (lib.ivf_block_topw_tile_rows, lib.ivf_block_topw_row_max):
+    lib.ivf_block_topw_f32.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, ci, ci, ci, vp,
+    ]
+    lib.ivf_block_topw_f32.restype = ci
+    for fn in (lib.ivf_block_topw_tile_rows, lib.ivf_block_topw_row_max,
+               lib.ivf_block_topw_f32_tile_rows, lib.ivf_block_topw_f32_row_max):
         fn.argtypes = []
         fn.restype = ci
     lib.ivf_cuda_error_string.argtypes = [ci]

@@ -2,7 +2,8 @@
 (PyTorch port of ``quiver_tpu/ops/ivf_kernels.py``).
 
 The corpus is partitioned by k-means into K clusters laid out as one dense
-padded block tensor of residuals ``[K, d, Cmax]`` (bf16). A query batch
+padded block tensor of residuals ``[K, d, Cmax]`` (bf16, or f32 for an
+engine built at ``compute_dtype=float32``). A query batch
 probes its top-P clusters; the (query, probe) pairs are sorted by cluster,
 so each cluster block is read once per tile of pairs probing it, and the
 candidate stage runs as ONE hand-written kernel (``ops/ivf_cuda.py::
@@ -12,7 +13,10 @@ derive their distances from the scores.
 
 Both candidate formulations of the reference go through ``block_topw``:
 ``"pairs"`` (W=32, top 2 per window; its per-pair top-R branch as one
-window spanning the row) and ``"fused"`` (W=128, top 4). The
+window spanning the row) and ``"fused"`` (W=128, top 4). With f32 blocks
+the two round the query as the reference does: pairs keeps it f32 (its
+``ragged_dot`` casts both operands to the compute dtype), fused rounds it
+to bf16 (the Pallas kernel's ``qtile.astype(bf16)``). The
 probe GEMM, the pair sort, the Lloyd GEMM and every top-k stay torch ops,
 as the reference leaves them to XLA.
 
@@ -230,7 +234,7 @@ def ivf_query(
     q: torch.Tensor,  # f32[B, d]
     centroids: torch.Tensor,  # f32[K, d]
     cent_norms_sq: torch.Tensor,  # f32[K]
-    blocks_t: torch.Tensor,  # bf16[K, d, Cmax] residuals v - c_k
+    blocks_t: torch.Tensor,  # bf16 or f32 [K, d, Cmax] residuals v - c_k
     block_slot: torch.Tensor,  # i32[K, Cmax] global store slot (-1 pad)
     block_rns: torch.Tensor,  # f32[K, Cmax] residual norms |v - c_k|^2
     block_inv_norms: torch.Tensor,  # f32[K, Cmax] 1/|v| (full vector)
@@ -454,6 +458,8 @@ def _pairs_candidates(
     kw = dict(
         P=P, scale=scale, col_add=col_add, row_add=row_add, col_mul=col_mul,
         sub_cent=sub_cent,
+        # the reference's ragged_dot casts the query to the blocks' dtype
+        round_query=blocks_t.dtype == torch.bfloat16,
     )
     W = seg_width or 0
     if W >= 2 and (W & (W - 1)) == 0 and Cmax % W == 0 and Cmax // W >= k:

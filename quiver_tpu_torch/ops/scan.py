@@ -1,17 +1,25 @@
 """Flat-scan top-k — the exact-search engine (PyTorch port of
 ``quiver_tpu/ops/scan.py``).
 
-Each tile of the corpus is scored with one f32 matmul, validity/facet masks
+Each tile of the corpus is scored with one matmul, validity/facet masks
 are fused in as masked scores, and a running top-k is merged per tile; the
 [B, N] score matrix is materialized only while it fits the single-shot
 budget. Winners are rescored exactly in f32.
 
+``compute_dtype=torch.bfloat16`` is the reference's fast mode
+(``scan.py:76-95``): the caller passes a bf16 copy of the corpus, the query
+is rounded to bf16, and the product is taken with f32 sums
+(``preferred_element_type=f32``): here a ``torch.matmul`` of the bf16
+values held in f32, whose products are exact. The winners' rescore reads
+the corpus it was given, as the reference's does (``scan.py:98-104``).
+Every f32 product runs with TF32 off: the reference's ``precision``
+("highest" on its oracle path) is what the port always does.
+
 Also hosts the negative-example rerank pass.
 
 Not ported: ``lax.approx_max_k`` (``scan.py:53-70``) — the port always takes
-the exact ``torch.topk``, so ``approx_recall`` is gone; and the bf16 corpus
-mode (``compute_dtype``/``precision``), which is the exact engine's own
-later item in ROADMAP.md.
+the exact ``torch.topk``, so a caller's ``approx_recall`` target is met by
+exact top-k (recall 1.0 >= the target).
 """
 
 from __future__ import annotations
@@ -55,10 +63,14 @@ def _merge_topk(best_dist, best_idx, tile_dist, tile_idx, k: int):
     return top, torch.gather(all_idx, 1, pos)
 
 
-def _affine_scores(q, v, metric, v_norms_sq, v_inv_norms):
+def _affine_scores(q, v, metric, v_norms_sq, v_inv_norms, compute_dtype=torch.float32):
     """Monotonic larger-is-better scores: one matmul + one affine. Per-row
     constants and monotone transforms are dropped; true distances are
-    reconstructed for the winners only."""
+    reconstructed for the winners only. With a bf16 ``compute_dtype`` the
+    query is rounded to bf16 (``v`` is then the bf16 corpus copy) and the
+    products of the bf16 values are summed in f32."""
+    if compute_dtype != torch.float32:
+        q = q.to(compute_dtype).float()
     dots = q @ v.float().T
     if metric == DistanceType.COSINE:
         return dots * v_inv_norms[None, :]
@@ -96,16 +108,20 @@ def flat_scan_topk(
     metric: DistanceType | str,
     k: int,
     tile: int = 8192,
+    compute_dtype=torch.float32,
 ):
     """Exact top-k scan.
 
     Args:
       q: f32[B, d] query block.
-      vectors: f32[cap, d] corpus (invalid rows are masked).
+      vectors: [cap, d] corpus, f32 or its bf16 copy (invalid rows are
+        masked).
       valid: bool[cap] slot-occupancy mask.
       mask: optional bool[cap] or bool[B, cap] additional (facet) mask.
       v_norms_sq / v_inv_norms: f32[cap] precomputed row stats.
       k: result count; tile: corpus rows per tile of the tiled path.
+      compute_dtype: torch.float32 or torch.bfloat16, the product's input
+        dtype (see the module doc).
 
     Returns:
       (dist f32[B, k], idx i64[B, k]); empty entries have idx == -1 and
@@ -128,7 +144,7 @@ def flat_scan_topk(
 
     if B * cap * 4 <= SINGLE_SHOT_BUDGET_BYTES:
         if use_affine:
-            score = _affine_scores(q, vectors, metric, v_norms_sq, v_inv_norms)
+            score = _affine_scores(q, vectors, metric, v_norms_sq, v_inv_norms, compute_dtype)
             score = torch.where(keep_of(0, cap), score, NEG_BIG)
             best_score, best_idx = torch.topk(score, k, dim=1)
             best_dist = _rescore_winners(q, vectors, best_idx, metric)
@@ -145,7 +161,8 @@ def flat_scan_topk(
         if use_affine:
             # larger-is-better score; the carry merges on the NEGATED score
             key = -_affine_scores(
-                q, vectors[lo:hi], metric, v_norms_sq[lo:hi], v_inv_norms[lo:hi]
+                q, vectors[lo:hi], metric, v_norms_sq[lo:hi], v_inv_norms[lo:hi],
+                compute_dtype,
             )
         else:
             key = pairwise_distance(q, vectors[lo:hi], metric)

@@ -10,7 +10,7 @@ size. Whole-card figures (allocator caches, scratch inside a call) come
 from ``torch.cuda.max_memory_allocated()`` instead.
 
 Not ported yet: the per-chip share of a sharded array (``memory.py:48-63``).
-It waits for the sharding slice (ROADMAP.md queue 1, item 11); until then
+It waits for the sharding slice (ROADMAP.md queue 1, item 5); until then
 every tensor lives whole on one device.
 """
 

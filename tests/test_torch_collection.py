@@ -309,8 +309,9 @@ def test_stats():
 def test_port_collection_options():
     with pytest.raises(TypeError, match="device"):
         Collection("c", D)  # the device is explicit
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        Collection("c", D, device="cpu", compute_dtype=torch.bfloat16)
+    # compute_dtype reaches the default exact engine, as in the reference
+    bf = Collection("c", D, device="cpu", compute_dtype=torch.bfloat16)
+    assert bf.engine.name == "exact" and bf.engine.compute_dtype == torch.bfloat16
     c = Collection("c", D, device="cpu", engine_factory=lambda s: make_engine("exact", s))
     assert c.wal is None and c.engine.name == "exact"
     with pytest.raises(ValueError, match="unknown index engine"):

@@ -7,7 +7,8 @@ this file imports no JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The hand-written kernels are held against their plain PyTorch versions on
-the card: ``block_topw`` within the tolerance of ``chip_smoke.compare_keys``
+the card: ``block_topw`` (bf16 and f32 blocks) within the tolerance of
+``chip_smoke.compare_keys``
 (two packing quanta plus the bound of the dot products' rounding on
 unpacked scores, positions equal where scores are separated), ``scatter_rows`` and ``index_read`` exactly (they
 copy and double floats, or add one int to a float); the slice on the card
@@ -63,6 +64,33 @@ def test_block_topw_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric, P
     chip_smoke.check_call(torch, args, wkw, got)
 
 
+@pytest.mark.parametrize("d", [33, 100, 128, 768])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize(
+    "variant,W,R,pos_bits,metric",
+    [(v, w, r, pb, m) for v, w, r, pb, ms in chip_smoke.VARIANTS for m in ms],
+)
+def test_block_topw_f32_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric, P, d):
+    """The f32-block kernel (csrc/ivf_block_topw_f32.cu): pairs and row mode
+    on the f32 query, fused on the bf16-rounded one, at the shapes of
+    test_block_topw_kernel_matches_twin plus d=128 (one whole d chunk)."""
+    args, kw = chip_smoke.kernel_inputs(
+        torch, cuda, B=300, P=P, K=37, Cmax=384, d=d, metric=metric,
+        variant=variant, seed=7, dtype=torch.float32,
+    )
+    assert args[4].dtype == torch.float32
+    assert kw.get("round_query", True) == (variant == "fused")
+    count_key = (ivf_cuda.F32, ivf_cuda.ROW_MODE if W == 0 else (W, R))
+    W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, 384)
+    wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
+    before = dict(ivf_cuda.launch_counts)
+    got = ivf_cuda.block_topw(*args, **wkw)
+    assert ivf_cuda.launch_counts[count_key] == before[count_key] + 1
+    assert sum(ivf_cuda.launch_counts.values()) == sum(before.values()) + 1
+    torch.cuda.synchronize()
+    chip_smoke.check_call(torch, args, wkw, got)
+
+
 @pytest.mark.parametrize("k", [10, 24, 48, 100])
 def test_per_pair_row_mode_on_cuda_matches_cpu(cuda, k):
     """Cmax=64 leaves 2 windows < k: ivf_query takes the per-pair top-R
@@ -85,6 +113,32 @@ def test_per_pair_row_mode_on_cuda_matches_cpu(cuda, k):
         out.append(ivf_query(torch.from_numpy(q).to(dev), *tops, metric="euclidean",
                              k=k, n_probe=4, rescore=True))
     assert ivf_cuda.launch_counts[ivf_cuda.ROW_MODE] > 0
+    np.testing.assert_allclose(out[1][0].cpu().numpy(), out[0][0].numpy(), rtol=1e-4, atol=1e-4)
+    assert np.mean(out[1][1].cpu().numpy() == out[0][1].numpy()) >= 0.98
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_per_pair_row_mode_f32_on_cuda_matches_cpu(cuda, k):
+    """The per-pair branch over f32 blocks (row mode of the f32 kernel on the
+    card: the running top-R at k=10, every key of the row at k=100)."""
+    from quiver_tpu_torch.convert import ivf_arrays_from_numpy
+    from quiver_tpu_torch.ops.ivf_kernels import ivf_query
+
+    rng = np.random.default_rng(2)
+    K, Cmax, d = 32, 64, 16
+    ops = (rng.normal(size=(K, d)), rng.random(K), 0.3 * rng.normal(size=(K, d, Cmax)),
+           rng.permutation(K * Cmax).reshape(K, Cmax), rng.random((K, Cmax)),
+           rng.random((K, Cmax)), rng.random((K, Cmax)) > 0.05,
+           rng.normal(size=(K * Cmax, d)))
+    q = rng.normal(size=(16, d)).astype(np.float32)
+    out = []
+    key = (ivf_cuda.F32, ivf_cuda.ROW_MODE)
+    before = ivf_cuda.launch_counts[key]
+    for dev in ("cpu", cuda):
+        tops = ivf_arrays_from_numpy(*ops, device=dev, blocks_dtype=torch.float32)
+        out.append(ivf_query(torch.from_numpy(q).to(dev), *tops, metric="euclidean",
+                             k=k, n_probe=4, rescore=True))
+    assert ivf_cuda.launch_counts[key] == before + 1
     np.testing.assert_allclose(out[1][0].cpu().numpy(), out[0][0].numpy(), rtol=1e-4, atol=1e-4)
     assert np.mean(out[1][1].cpu().numpy() == out[0][1].numpy()) >= 0.98
 
@@ -115,6 +169,45 @@ def test_ivf_index_on_cuda_matches_cpu(cuda, formulation, d):
     dc, ic = engines[0].search_slots(queries, 10)
     np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-4)
     assert np.mean(ig == ic) >= 0.99
+
+
+@pytest.mark.parametrize("formulation", ["pairs", "fused"])
+def test_ivf_index_f32_on_cuda_matches_cpu(cuda, formulation):
+    """An engine built at compute_dtype=float32 (f32 blocks, the DB's
+    default) on the card against its CPU twin."""
+    rng = np.random.default_rng(4)
+    n, d = 20000, 64
+    centers = rng.normal(size=(100, d)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 100, n)] + 0.25 * rng.normal(size=(n, d))).astype(np.float32)
+    queries = (vecs[:256] + 0.1 * rng.normal(size=(256, d))).astype(np.float32)
+    cfg = dict(n_clusters=64, n_probe=4, build_threshold=256, formulation=formulation)
+    engines = []
+    for dev in ("cpu", cuda):
+        store = VectorStore(dim=d, metric="euclidean", capacity=n, device=dev)
+        store.add_batch([f"v{i}" for i in range(n)], vecs)
+        engines.append(IVFIndex(store, config=IVFConfig(**cfg), compute_dtype=torch.float32))
+    engines[0].build()
+    engines[1].import_topology(engines[0].export_topology(), np.arange(n))
+    assert engines[1]._blocks_t.dtype == torch.float32
+    ivf_cuda.reset_launch_counts()
+    dg, ig = engines[1].search_slots(queries, 10)
+    assert sum(v for k, v in ivf_cuda.launch_counts.items() if k[0] == ivf_cuda.F32) == 1
+    dc, ic = engines[0].search_slots(queries, 10)
+    np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-4)
+    assert np.mean(ig == ic) >= 0.99
+
+
+def test_block_topw_f32_rejects_unaligned_cmax(cuda):
+    """The f32 kernel copies whole float4s of each block row: Cmax % 4 != 0
+    is refused before any launch."""
+    args, kw = chip_smoke.kernel_inputs(
+        torch, cuda, B=8, P=1, K=4, Cmax=34, d=16, metric="euclidean",
+        variant="row", seed=3, dtype=torch.float32,
+    )
+    before = dict(ivf_cuda.launch_counts)
+    with pytest.raises(ValueError, match="Cmax % 4"):
+        ivf_cuda.block_topw(*args, **kw, W=34, R=16, pos_bits=6, sentinel=ivf_cuda.KEY_MIN)
+    assert ivf_cuda.launch_counts == before
 
 
 def test_block_topw_rejects_unaligned_cmax(cuda):

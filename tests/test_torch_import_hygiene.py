@@ -38,6 +38,14 @@ MODULES = [
     "quiver_tpu_torch.observability.metrics",
     "quiver_tpu_torch.observability.logging",
     "quiver_tpu_torch.utils.profiling",
+    "quiver_tpu_torch.ops.vector_utils",
+    "quiver_tpu_torch.index.hybrid",
+    "quiver_tpu_torch.native",
+    "quiver_tpu_torch.persistence.parquet_io",
+    "quiver_tpu_torch.persistence.arrow_io",
+    "quiver_tpu_torch.persistence.manager",
+    "quiver_tpu_torch.observability.collector",
+    "quiver_tpu_torch.core.db",
 ]
 
 
@@ -56,3 +64,31 @@ def test_port_modules_import_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_db_imports_and_runs_without_pyarrow(tmp_path):
+    """pyarrow may be missing where the port runs: the database and its
+    persistence import without it (it is imported inside the Parquet
+    functions), and a flush writes the reference's JSON fallback."""
+    code = (
+        "import sys\n"
+        "sys.modules['pyarrow'] = None\n"
+        "sys.modules['pyarrow.parquet'] = None\n"
+        "import numpy as np\n"
+        "import quiver_tpu_torch.core.db as db_mod\n"
+        "assert 'pyarrow' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+        f"db = db_mod.DB(db_mod.DBOptions(storage_path={str(tmp_path / 'd')!r}, "
+        "flush_interval_s=0, default_engine='exact', device='cpu'))\n"
+        "c = db.create_collection('c', 4, 'euclidean')\n"
+        "c.add_batch(['a', 'b'], np.eye(2, 4, dtype=np.float32))\n"
+        "db.close()\n"
+        "import os\n"
+        f"print(sorted(os.listdir({str(tmp_path / 'd' / 'c')!r})))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "vectors.json" in proc.stdout and "vectors.parquet" not in proc.stdout

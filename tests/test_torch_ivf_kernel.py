@@ -40,12 +40,13 @@ D, K, CMAX, B, P = 32, 8, 256, 16, 2
 NEG_BIG = -3.0e38
 
 
-def _case(seed, d=D):
-    """Operands shared by both packages (numpy; blocks rounded to bf16)."""
+def _case(seed, d=D, dtype=jnp.bfloat16):
+    """Operands shared by both packages (numpy; blocks rounded to bf16, or
+    kept f32 with ``dtype=jnp.float32``)."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, d)).astype(np.float32)
     cents = (0.5 * rng.normal(size=(K, d))).astype(np.float32)
-    blocks = jnp.asarray(0.5 * rng.normal(size=(K, d, CMAX)), jnp.bfloat16)
+    blocks = jnp.asarray(0.5 * rng.normal(size=(K, d, CMAX)), dtype)
     keep = rng.random((K, CMAX)) > 0.1
     keep[3, 128:] = False  # one fully masked window pair
     rns = np.sum(np.asarray(blocks, np.float32) ** 2, axis=1)
@@ -74,9 +75,12 @@ def _score_tol(s, pos_bits, scale):
     return 2.0 ** (pos_bits - 22) * np.abs(s) + 1e-4 * scale
 
 
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
 @pytest.mark.parametrize("metric", ["euclidean", "dot_product"])
-def test_fused_variant_matches_pallas_kernel(metric):
-    q, cents, blocks, keep, rns, inv, probe = _case(1)
+def test_fused_variant_matches_pallas_kernel(metric, dtype):
+    """bf16 blocks, or f32 ones (the Pallas kernel fed f32 blocks rounds
+    only its query to bf16: block_topw's round_query, the default)."""
+    q, cents, blocks, keep, rns, inv, probe = _case(1, dtype=dtype)
     order, starts = _csr(probe)
     l2 = metric == "euclidean"
     bias = np.where(keep, -rns if l2 else 0.0, NEG_BIG).astype(np.float32)
@@ -117,7 +121,9 @@ def test_fused_variant_matches_pallas_kernel(metric):
 
 def _both_pairs_candidates(q, cents, blocks, keep, rns, inv, metric):
     """(JAX, port) survivors of the pairs stage on the same operands, every
-    window winner kept (k=8, oversample to 2*P*S)."""
+    window winner kept (k=8, oversample to 2*P*S); the blocks' dtype is the
+    compute dtype (f32 blocks: the reference's f32 ragged_dot, the f32 query
+    unrounded)."""
     jm = JDT.parse(metric)
     cns = np.sum(cents * cents, axis=1)
     c_dots, c_aff, probe, caff = jk.probe_stage(
@@ -131,7 +137,7 @@ def _both_pairs_candidates(q, cents, blocks, keep, rns, inv, metric):
         jnp.asarray(q), jnp.asarray(cents), c_dots, caff, probe, order,
         flat[order], (order // P).astype(jnp.int32), blocks, jnp.asarray(rns),
         jnp.asarray(inv), jnp.asarray(keep), metric=jm, k=k,
-        compute_dtype=jnp.bfloat16, oversample=oversample, probe_approx=None,
+        compute_dtype=blocks.dtype, oversample=oversample, probe_approx=None,
         seg_width=32,
     )
     _, starts = _csr(np.asarray(probe))
@@ -147,8 +153,8 @@ def _both_pairs_candidates(q, cents, blocks, keep, rns, inv, metric):
     return want_s, want_f, got_s, got_f
 
 
-def _check_pairs_against_jax(metric, d):
-    q, cents, blocks, keep, rns, inv, _ = _case(2, d)
+def _check_pairs_against_jax(metric, d, dtype=jnp.bfloat16):
+    q, cents, blocks, keep, rns, inv, _ = _case(2, d, dtype)
     want_s, want_f, got_s, got_f = _both_pairs_candidates(q, cents, blocks, keep, rns, inv, metric)
     scale = float(np.abs(want_s[want_s > NEG_BIG / 2]).max())
     n_moved = 0
@@ -176,6 +182,40 @@ def test_pairs_variant_matches_pairs_candidates_wide_d(metric, d):
     """d=100 (not a multiple of the kernel's 64-deep chunks) and d=768 (12
     of them)."""
     _check_pairs_against_jax(metric, d)
+
+
+@pytest.mark.parametrize("d", [32, 100])
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_pairs_variant_f32_blocks_matches_ragged_dot(metric, d):
+    """f32 blocks against the reference's f32 ragged_dot (``_pairs_candidates``
+    at compute_dtype=float32), whose query is not rounded."""
+    _check_pairs_against_jax(metric, d, jnp.float32)
+
+
+def test_round_query_rounds_only_the_query():
+    """pair_scores_reference over f32 blocks: round_query=False is the f32
+    product of the centred query, True that of its bf16 rounding (the
+    blocks stay f32 either way); bf16 blocks refuse an unrounded query."""
+    q, cents, blocks, keep, rns, inv, probe = _case(9, dtype=jnp.float32)
+    order, starts = _csr(probe)
+    bias = np.where(keep, -rns, NEG_BIG).astype(np.float32)
+    args = (_t(q), _t(cents), _t(starts), _t(order), _t(blocks))
+    kw = dict(P=P, scale=2.0, col_add=_t(bias), sub_cent=True)
+    flat = probe.reshape(-1)[order]
+    a = (q[order // P] - cents[flat]).astype(np.float32)
+    b = np.asarray(blocks, np.float32)[flat]
+    for rq in (False, True):
+        aa = np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32) if rq else a
+        want = 2.0 * np.einsum("pd,pdc->pc", aa.astype(np.float64), b.astype(np.float64)) + bias[flat]
+        got = tc.pair_scores_reference(*args, round_query=rq, **kw).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    assert not np.allclose(tc.pair_scores_reference(*args, round_query=True, **kw).numpy(),
+                           tc.pair_scores_reference(*args, round_query=False, **kw).numpy(),
+                           rtol=1e-6, atol=1e-6)
+    q16 = _case(9)[2]
+    with pytest.raises(ValueError, match="bf16 blocks take a bf16 query"):
+        tc.block_topw(*args[:4], _t(q16), **kw, round_query=False, W=32, R=2, pos_bits=5,
+                      sentinel=tc._mask_key(32))
 
 
 def test_pairs_variant_keys_against_packing_by_hand():

@@ -3,9 +3,10 @@
 
 The arrays follow the recipe of ``__graft_entry__.py:30-58`` at a small size
 (K=16 clusters of Cmax=512, d=32, B=16, n_probe=4), built once in numpy,
-rounded to bf16 by JAX and carried into torch by ``convert.py``. The JAX
-side runs with exact top-k (``probe_approx=None``) and its fused stage in
-Pallas interpret mode.
+rounded to bf16 by JAX and carried into torch by ``convert.py``; or, at
+``compute_dtype=float32`` (the database's default), kept as f32 blocks in
+both packages. The JAX side runs with exact top-k (``probe_approx=None``)
+and its fused stage in Pallas interpret mode.
 
 Tolerances:
 * ``rescore=True``: exact f32 distances, rtol/atol 1e-4 (summation order);
@@ -57,16 +58,20 @@ def graft_arrays(K=16, Cmax=512, d=32, B=16, seed=0, keep_frac=0.95):
 
 
 def run_both(queries, ops, *, metric, formulation, rescore, n_probe=4, seg_width=32,
-             probe_sel_approx=None, k=KTOP):
+             probe_sel_approx=None, k=KTOP, f32=False):
+    """Both packages' ivf_query on the same operands; ``f32``: f32 blocks
+    and ``compute_dtype=float32`` (else bf16 blocks, the JAX default)."""
     jops = [jnp.asarray(o) for o in ops]
-    jops[2] = jops[2].astype(jnp.bfloat16)
+    jops[2] = jops[2].astype(jnp.float32 if f32 else jnp.bfloat16)
     dj, ij = jax_ivf_query(
         jnp.asarray(queries), *jops, metric=metric, k=k, n_probe=n_probe,
         q_cap=64, probe_approx=None, probe_sel_approx=probe_sel_approx,
         formulation=formulation, seg_width=seg_width, rescore=rescore,
-        fused_interpret=True,
+        fused_interpret=True, compute_dtype=jnp.float32 if f32 else jnp.bfloat16,
     )
-    tops = ivf_arrays_from_numpy(*[np.asarray(o) for o in jops], device="cpu")
+    tops = ivf_arrays_from_numpy(*[np.asarray(o) for o in jops], device="cpu",
+                                 blocks_dtype=torch.float32 if f32 else torch.bfloat16)
+    assert tops[2].dtype == (torch.float32 if f32 else torch.bfloat16)
     dt, it = ivf_query(
         torch.from_numpy(queries), *tops, metric=metric, k=k, n_probe=n_probe,
         probe_sel_approx=probe_sel_approx, formulation=formulation,
@@ -164,6 +169,29 @@ def test_ivf_query_matches_jax(metric, formulation, rescore):
         queries, ops, metric=metric, formulation=formulation, rescore=rescore)
     check(queries, ops, dj, ij, dt, it, metric=metric, rescore=rescore,
           pos_bits=5 if formulation == "pairs" else 11)
+
+
+@pytest.mark.parametrize("metric,formulation,rescore", CASES)
+def test_ivf_query_f32_blocks_matches_jax(metric, formulation, rescore):
+    """compute_dtype=float32: f32 blocks in both packages. Pairs takes the
+    f32 query (the reference's f32 ragged_dot), fused the bf16-rounded one
+    (its Pallas kernel's qtile.astype(bf16)); the same tolerances."""
+    queries, ops = graft_arrays(seed=6)
+    dj, ij, dt, it = run_both(
+        queries, ops, metric=metric, formulation=formulation, rescore=rescore, f32=True)
+    check(queries, ops, dj, ij, dt, it, metric=metric, rescore=rescore,
+          pos_bits=5 if formulation == "pairs" else 11)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_ivf_query_f32_blocks_per_pair_branch_matches_jax(k):
+    """The per-pair branch over f32 blocks (row mode; k=100 is the DB's
+    k=100 request path), against the reference's f32 per-pair top-R."""
+    queries, ops = graft_arrays(K=32, Cmax=64, seed=7)
+    dj, ij, dt, it = run_both(
+        queries, ops, metric="euclidean", formulation="pairs", rescore=False, k=k, f32=True)
+    check(queries, ops, dj, ij, dt, it, metric="euclidean", rescore=False, pos_bits=6,
+          caff=caff_of(queries, ops, ij, "euclidean"))
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])

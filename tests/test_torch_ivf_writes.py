@@ -156,8 +156,11 @@ def test_constructor_takes_config_overrides():
     eng = IVFIndex(ts, n_probe=8, rebuild_growth=0.5, compute_dtype=torch.bfloat16)
     assert eng.config.n_probe == 8 and eng.config.rebuild_growth == 0.5
     assert make_engine("ivf", ts, n_probe=5).config.n_probe == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        IVFIndex(ts, compute_dtype=torch.float32)
+    # f32 blocks (the database's default dtype) are taken; other dtypes raise
+    assert IVFIndex(ts, compute_dtype=torch.float32).compute_dtype == torch.float32
+    assert make_engine("ivf", ts, compute_dtype=torch.float32).compute_dtype == torch.float32
+    with pytest.raises(ValueError, match="compute_dtype"):
+        IVFIndex(ts, compute_dtype=torch.float16)
 
 
 def test_engines_have_name_and_size(jax_topology):

@@ -229,3 +229,110 @@ def test_row_stats_and_tf32_guard():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     tscan.require_ieee_f32()
+
+
+# ------------------------------------------- the exact engine's keywords (F3)
+
+
+def test_exact_index_constructor_keywords_match_jax():
+    """The reference's constructions (tests/test_store_exact.py:93,175) and
+    the registry's: tile, compute_dtype, approx_recall, precision; the
+    precision resolves as the reference's does."""
+    from quiver_tpu.index import make_engine as j_make_engine
+    from quiver_tpu_torch.index import make_engine, resolve_engine_config
+
+    js, ts, _ = _stores("euclidean")
+    for jkw, tkw in (({}, {}), ({"tile": 1024}, {"tile": 1024}),
+                     ({"compute_dtype": jnp.float32}, {"compute_dtype": torch.float32}),
+                     ({"compute_dtype": jnp.bfloat16}, {"compute_dtype": torch.bfloat16}),
+                     ({"approx_recall": 0.95}, {"approx_recall": 0.95}),
+                     ({"precision": "highest"}, {"precision": "highest"}),
+                     ({"precision": None}, {"precision": None})):
+        j, t = JExactIndex(js, **jkw), ExactIndex(ts, **tkw)
+        assert (t.tile, t.approx_recall, t.precision) == (j.tile, j.approx_recall, j.precision)
+        assert t.compute_dtype == tkw.get("compute_dtype", torch.float32)
+        assert make_engine("exact", ts, **tkw).precision == j_make_engine("exact", js, **jkw).precision
+    assert make_engine("exact", ts, **resolve_engine_config("exact", {"tile": 1024})).tile == 1024
+    for bad in ({"compute_dtype": torch.float16}, {"tile": 0}, {"approx_recall": 1.5},
+                {"precision": "high"}):
+        with pytest.raises(ValueError):
+            make_engine("exact", ts, **bad)
+
+
+def test_capacity_growth_with_a_small_tile_matches_jax():
+    """tile=1024 over a store grown past it (test_capacity_growth_preserves_data):
+    the tiled scan finds each row, as the reference's does."""
+    rng = np.random.default_rng(3)
+    vecs = rng.normal(size=(3000, 8)).astype(np.float32)
+    js = jstore.VectorStore(dim=8, metric="euclidean", capacity=1024)
+    ts = tstore.VectorStore(dim=8, metric="euclidean", capacity=1024, device="cpu")
+    for s in (js, ts):
+        s.add_batch([f"a{i}" for i in range(3000)], vecs)
+    assert ts.capacity == js.capacity >= 3000
+    q = vecs[:4] + 0.01
+    dj, ij = JExactIndex(js, tile=1024).search_slots(q, 5)
+    dt, it = ExactIndex(ts, tile=1024).search_slots(q, 5)
+    assert_topk_agree(dt, it, dj, ij)
+    assert [ts.id_of(int(s)) for s in it[:, 0]] == [f"a{i}" for i in range(4)]
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "manhattan"])
+def test_bf16_corpus_scan_matches_jax(metric):
+    """compute_dtype=bf16 scans a cached bf16 copy of the corpus (bf16
+    query, f32 sums) and rescores the winners against it, as the
+    reference's _corpus mode does: the same answers within the tolerance;
+    recall@10 >= 0.9 against the f32 oracle (test_bfloat16_fast_path_recall);
+    the copy follows the store's writes."""
+    js, ts, _ = _stores(metric, n=500, d=64, seed=7, deleted=())
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(8, 64)).astype(np.float32)
+    dj, ij = JExactIndex(js, compute_dtype=jnp.bfloat16).search_slots(q, 10)
+    t16 = ExactIndex(ts, compute_dtype=torch.bfloat16)
+    dt, it = t16.search_slots(q, 10)
+    assert_topk_agree(dt, it, dj, ij)
+    _, s32 = ExactIndex(ts).search_slots(q, 10)
+    assert np.mean([len(set(s32[b]) & set(it[b])) / 10 for b in range(8)]) >= 0.9
+    assert t16._v16.dtype == torch.bfloat16
+    target = np.full(64, 3.0, np.float32)
+    ts.update_batch(["v9"], [target])
+    assert t16.search(target, 1)[0][0] == "v9"  # the cache was rebuilt
+
+
+def test_approx_recall_is_served_by_exact_topk():
+    js, ts, _ = _stores("euclidean")
+    q = np.random.default_rng(4).normal(size=(5, 16)).astype(np.float32)
+    da, ia = ExactIndex(ts, approx_recall=0.9).search_slots(q, 10)
+    de, ie = ExactIndex(ts).search_slots(q, 10)
+    np.testing.assert_array_equal(ia, ie)
+    np.testing.assert_array_equal(da, de)
+
+
+# ------------------------------------------------- ExactIndex.search (F4)
+
+
+def test_single_query_search_matches_jax():
+    """search(query, k) -> [(id, distance)], the reference's cases
+    (tests/test_store_exact.py:58-124): sorted, k capped at the size,
+    deletes and updates honored, an empty store."""
+    js, ts, vecs = _stores("euclidean", n=20, deleted=())
+    j, t = JExactIndex(js), ExactIndex(ts)
+
+    def agree(vec, k):
+        rj, rt = j.search(vec, k), t.search(vec, k)
+        assert [i for i, _ in rt] == [i for i, _ in rj]
+        np.testing.assert_allclose([d for _, d in rt], [d for _, d in rj], rtol=RTOL, atol=ATOL)
+        return rt
+
+    res = agree(np.ones(16, np.float32), 30)
+    assert len(res) == 20 and [d for _, d in res] == sorted(d for _, d in res)
+    for s in (js, ts):
+        assert s.delete("v3") and not s.delete("v3")
+    res = agree(vecs[3], 20)
+    assert "v3" not in [i for i, _ in res] and len(res) == 19
+    target = np.full(16, 9.0, np.float32)
+    for s in (js, ts):
+        s.update_batch(["v2"], [target])
+    res = agree(target, 1)
+    assert res[0][0] == "v2" and res[0][1] == pytest.approx(0.0, abs=1e-4)
+    empty = tstore.VectorStore(dim=4, device="cpu")
+    assert ExactIndex(empty).search(np.ones(4, np.float32), k=5) == []
