@@ -22,8 +22,8 @@ printing any result. Phases, one line each (any failure raises):
    f32 query, fused on the bf16-rounded one) at P in {2, 3} and at the
    768-d shape; times of kernel and plain version with CUDA events and the
    least time the card could take (:func:`topw_bound`: bytes at 3.35 TB/s,
-   products at the bf16 tensor-core peak or, for f32 blocks, the f32
-   CUDA-core peak); then the error of the card's dot products against f64
+   products at the bf16 tensor-core peak or, for f32 blocks, three TF32
+   products each, two on a bf16-rounded query, at the TF32 peak); then the error of the card's dot products against f64
    at d=128 and 768, for bf16 and for f32 blocks (:func:`phase_sums`);
 4. slice: the headline bench's path (``quiver_tpu_torch/bench.py``): the
    1M x 128-d clustered L2 corpus through ``VectorStore(device="cuda")`` ->
@@ -406,9 +406,9 @@ class LiveCheck:
 
 
 #: published peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
-#: device memory bytes/s, bf16 dense tensor FLOP/s, f32 FLOP/s outside the
-#: tensor cores
-HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+#: device memory bytes/s, bf16 and TF32 dense tensor-core FLOP/s (f32
+#: blocks run on the tensor cores in 3xTF32: csrc/ivf_block_topw_f32.cu)
+HBM_BPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 989e12, 495e12
 
 
 def bound(nbytes, flops, peak=BF16_FLOPS):
@@ -422,7 +422,10 @@ def topw_bound(args, kw, out):
     """bound() of one block_topw call: each input read once (the blocks,
     col_add and col_mul rows of the clusters some pair probes), the keys
     written once; the products 2 * BP * Cmax * d, at the bf16 tensor-core
-    peak for bf16 blocks and the f32 CUDA-core peak for f32 ones."""
+    peak for bf16 blocks; for f32 blocks three TF32 products each (3xTF32:
+    the f32 query and the block split into high and low parts), two where
+    the query is rounded to bf16 (``round_query``: exact in TF32), at the
+    TF32 tensor-core peak."""
     q, cents, starts, order, blocks = args
     K, d, Cmax = blocks.shape
     probed = int(((starts[1:] - starts[:-1]) > 0).sum())
@@ -430,8 +433,10 @@ def topw_bound(args, kw, out):
     per_pair = 4 * (1 + (kw.get("row_add") is not None) + (kw.get("win_add") is not None))
     nbytes = (q.numel() * 4 + cents.numel() * 4 + starts.numel() * 4 + probed * per_cluster
               + order.shape[0] * per_pair + out.numel() * out.element_size())
-    peak = F32_FLOPS if blocks.element_size() == 4 else BF16_FLOPS
-    return bound(nbytes, 2.0 * order.shape[0] * Cmax * d, peak)
+    flops = 2.0 * order.shape[0] * Cmax * d
+    if blocks.element_size() == 2:
+        return bound(nbytes, flops)
+    return bound(nbytes, flops * (2 if kw.get("round_query", True) else 3), TF32_FLOPS)
 
 
 def phase_kernels(torch, dev, *, shape, probes, reps, dtype=None):

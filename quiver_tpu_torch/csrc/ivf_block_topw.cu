@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int TQ = 64;              // pair rows per tile (block): the wgmma M
@@ -82,78 +84,6 @@ struct Stage {
   static constexpr int AUX = B + 2 * CHUNK;
   static constexpr int BYTES = AUX + 2 * SLAB * 4;  // a multiple of 1024
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// wait for the completion of the barrier's phase of the given parity; a
-// wait of more than ~2^36 cycles (tens of seconds) traps, so a broken
-// pipeline fails the launch instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  long long t0 = 0;
-  while (!done) {
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 36)) {
-      __trap();
-    }
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// plain bulk copy global -> shared (16-byte multiples), completion on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -198,42 +128,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ int to_key(float s) {
-  const int b = __float_as_int(s);
-  return b ^ ((b >> 31) & 0x7FFFFFFF);
-}
-
-__device__ __forceinline__ float from_key(int k) {
-  return __int_as_float(k ^ ((k >> 31) & 0x7FFFFFFF));
-}
-
-// a consumer warp is done with a stage
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
-// insert a key into a descending top-R list
-template <int R>
-__device__ __forceinline__ void insert(int (&t)[R], int key) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int hi = max(t[r], key);
-    key = min(t[r], key);
-    t[r] = hi;
-  }
-}
-
-// the cluster of tile g (tile_start[c] <= g < tile_start[c + 1])
-__device__ __forceinline__ int find_cluster(const int* tile_start, int K, int g) {
-  int lo = 0, hi = K;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (tile_start[mid] <= g) lo = mid; else hi = mid;
-  }
-  return lo;
 }
 
 // one row of the prologue: dst = bf16(qr - cr) (or of qr alone), zero past d
@@ -556,45 +450,6 @@ __global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_ke
 
 // ---------------------------------------------------------------- host
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the CUDA runtime, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// bf16 tensor map with 64 x 64 (x 1) boxes and the 128-byte swizzle; the
-// out-of-bounds fill is zero
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t box[3] = {64, 64, 1}, ones[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-                        dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int W, int R, bool AR>
 cudaError_t launch_ar(const CUtensorMap& map_a, const CUtensorMap& map_b, const int* starts,
                       const int* tile_start, const int* order, const float* row_add,
@@ -672,8 +527,11 @@ int ivf_block_topw(const float* q, const float* cents, const int* starts,
   const cuuint64_t strides_a[1] = {(cuuint64_t)d_pad * 2};
   const cuuint64_t dims_b[3] = {(cuuint64_t)Cmax, (cuuint64_t)d, (cuuint64_t)K};
   const cuuint64_t strides_b[2] = {(cuuint64_t)Cmax * 2, (cuuint64_t)d * Cmax * 2};
-  err = make_map(&map_a, qa, 2, dims_a, strides_a);
-  if (err == cudaSuccess) err = make_map(&map_b, blocks, 3, dims_b, strides_b);
+  // 64 x 64 (x 1) boxes: a 128-byte row of 64 bf16, 64 rows
+  const cuuint32_t box[3] = {64, 64, 1};
+  err = make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qa, 2, dims_a, strides_a, box);
+  if (err == cudaSuccess)
+    err = make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, blocks, 3, dims_b, strides_b, box);
   if (err != cudaSuccess) return (int)err;
   const int n_kc = d_pad / DK;
 #define QV_CASE(WW, RR)                                                                     \

@@ -296,8 +296,8 @@ class IVFIndex:
         """``compute_dtype``: the residual blocks' dtype, ``torch.bfloat16``
         (the reference's default, ``ivf.py:420``) or ``torch.float32`` (what
         the database and the hybrid engine pass by default). bf16 blocks run
-        the tensor-core kernel; f32 blocks the CUDA-core one, with the
-        reference's f32 products."""
+        the bf16 tensor-core kernel; f32 blocks the 3xTF32 one, which keeps
+        the reference's f32 products to within f32 rounding."""
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
                 f"IVFIndex compute_dtype={compute_dtype}: torch.bfloat16 or torch.float32"

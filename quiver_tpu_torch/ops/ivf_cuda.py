@@ -1,8 +1,9 @@
 """IVF candidate-stage kernel ``block_topw``: grouped block scoring plus a
 windowed top-R, in one CUDA kernel per block dtype: bf16 blocks run
 ``csrc/ivf_block_topw.cu`` (tensor cores through ``wgmma``, both operands
-through a TMA ring), f32 blocks run ``csrc/ivf_block_topw_f32.cu`` (f32
-FMAs on the CUDA cores); see their headers.
+through a TMA ring), f32 blocks run ``csrc/ivf_block_topw_f32.cu`` (tensor
+cores in 3xTF32 through ``mma.sync``, the slab read as its TMA ring lands
+it); see their headers.
 
 It replaces both candidate formulations of the JAX package:
 
@@ -372,21 +373,33 @@ def _launch_cuda_f32(
     B, d = q.shape
     K, _, Cmax = blocks_t.shape
     if Cmax % 4 or blocks_t.data_ptr() % 16:
-        # the slab copy reads whole float4s of each block row
+        # the tensor map's row stride (Cmax f32) and start are multiples of 16 bytes
         raise ValueError(
             f"block_topw: f32 blocks need Cmax % 4 == 0 (Cmax={Cmax}) and a "
             "16-byte aligned start on CUDA")
+    for name, t in (("col_add", col_add), ("col_mul", col_mul)):
+        if t is not None and t.data_ptr() % 16:
+            # bulk copies read from 16-byte aligned addresses
+            raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
     lib = load_library()
     variant, w_arg, whole = _variant(lib.ivf_block_topw_f32_row_max(), W, R, Cmax, win_add)
+    if variant == ROW_MODE and int(sentinel) != KEY_MIN:
+        # the running top-R admits only keys above its R-th best, which
+        # equals the reference's passes when the sentinel is below every key
+        raise ValueError("block_topw: f32 row mode takes the KEY_MIN sentinel on CUDA")
     BP = B * P
     out = torch.empty(BP, Cmax if whole else (Cmax // W) * R, dtype=torch.int32,
                       device=q.device)
     if BP == 0:
         return out[:, :R] if whole else out
     tile_start, n_tiles_max = _tile_start(starts, K, BP, lib.ivf_block_topw_f32_tile_rows())
+    # the prologue's output: each sorted pair's f32 query row (bf16-rounded
+    # when round_query), d padded to the kernel's 32-deep chunks
+    qa = torch.empty(BP, (d + 31) // 32 * 32, dtype=torch.float32, device=q.device)
     err = lib.ivf_block_topw_f32(
         q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
         tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
+        qa.data_ptr(),
         0 if row_add is None else row_add.data_ptr(),
         0 if col_mul is None else col_mul.data_ptr(),
         col_add.data_ptr(),
@@ -413,7 +426,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.ivf_block_topw.restype = ci
     lib.ivf_block_topw_f32.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, ci, ci, ci, vp,
     ]
     lib.ivf_block_topw_f32.restype = ci

@@ -120,6 +120,7 @@ def test_churn_runs_small_on_cpu():
     "quiver_tpu_torch.benches.probe",
     "quiver_tpu_torch.benches.streaming",
     "quiver_tpu_torch.benches.churn",
+    "quiver_tpu_torch.benches.topw_f32_ab",
 ])
 def test_entry_points_refuse_without_cuda(module):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)

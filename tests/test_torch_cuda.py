@@ -64,24 +64,54 @@ def test_block_topw_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric, P
     chip_smoke.check_call(torch, args, wkw, got)
 
 
-@pytest.mark.parametrize("d", [33, 100, 128, 768])
-@pytest.mark.parametrize("P", [1, 3])
-@pytest.mark.parametrize(
-    "variant,W,R,pos_bits,metric",
-    [(v, w, r, pb, m) for v, w, r, pb, ms in chip_smoke.VARIANTS for m in ms],
-)
-def test_block_topw_f32_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric, P, d):
+#: pairs per cluster of the tiling-edge cases: one pair, counts that are
+#: not multiples of a warp's 16 rows or a tile's 64, an empty cluster
+EDGE_COUNTS = (1, 15, 17, 63, 65, 130, 0, 2)
+
+
+def _f32_cases():
+    """(variant, W, R, pos_bits, metric, P, d, Cmax, edges) of the f32-block
+    kernel's card test: kernel_inputs' own layout (B=300, K=37, Cmax=384:
+    some clusters empty, others several tiles) at P in {1, 3} and d in
+    {33, 100, 128, 768}; then the edges of its tiling (``edges``: clusters
+    of EDGE_COUNTS pairs, P=1) at d in {8, 100, 129} (not a multiple of the
+    32-deep stage) and 768, with the windowed variants at Cmax=1280 (ten
+    slabs) and row mode at Cmax=132 (a slab and a partial 32-column box)
+    and Cmax=8 (less than one box; R=8 keeps the row)."""
+    cases = []
+    for v, w, r, pb, ms in chip_smoke.VARIANTS:
+        for m in ms:
+            cases += [(v, w, r, pb, m, P, d, 384, False) for P in (1, 3) for d in (33, 100, 128, 768)]
+            for d in (8, 100, 129, 768):
+                cases.append((v, w, r, pb, m, 1, d, 1280, True))
+                if w == 0:
+                    cases.append((v, w, r, pb, m, 1, d, 132, True))
+                    if r == 16:
+                        cases.append((v, w, 8, pb, m, 1, d, 8, True))
+    return cases
+
+
+@pytest.mark.parametrize("variant,W,R,pos_bits,metric,P,d,Cmax,edges", _f32_cases())
+def test_block_topw_f32_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric, P, d,
+                                            Cmax, edges):
     """The f32-block kernel (csrc/ivf_block_topw_f32.cu): pairs and row mode
     on the f32 query, fused on the bf16-rounded one, at the shapes of
-    test_block_topw_kernel_matches_twin plus d=128 (one whole d chunk)."""
+    test_block_topw_kernel_matches_twin plus d=128 (one query tile of four
+    32-deep chunks), and at the edges of its tiling (:func:`_f32_cases`)."""
+    B, K = (sum(EDGE_COUNTS), len(EDGE_COUNTS)) if edges else (300, 37)
     args, kw = chip_smoke.kernel_inputs(
-        torch, cuda, B=300, P=P, K=37, Cmax=384, d=d, metric=metric,
-        variant=variant, seed=7, dtype=torch.float32,
+        torch, cuda, B=B, P=P, K=K, Cmax=Cmax, d=d, metric=metric,
+        variant=variant, seed=11 if edges else 7, dtype=torch.float32,
     )
+    if edges:
+        starts = torch.zeros(K + 1, dtype=torch.int32, device=cuda)
+        starts[1:] = torch.cumsum(torch.tensor(EDGE_COUNTS, device=cuda), 0)
+        order = torch.randperm(B, generator=torch.Generator().manual_seed(11))
+        args = (*args[:2], starts, order.to(cuda, torch.int32), args[4])
     assert args[4].dtype == torch.float32
     assert kw.get("round_query", True) == (variant == "fused")
     count_key = (ivf_cuda.F32, ivf_cuda.ROW_MODE if W == 0 else (W, R))
-    W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, 384)
+    W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, Cmax)
     wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
     before = dict(ivf_cuda.launch_counts)
     got = ivf_cuda.block_topw(*args, **wkw)
@@ -207,6 +237,20 @@ def test_block_topw_f32_rejects_unaligned_cmax(cuda):
     before = dict(ivf_cuda.launch_counts)
     with pytest.raises(ValueError, match="Cmax % 4"):
         ivf_cuda.block_topw(*args, **kw, W=34, R=16, pos_bits=6, sentinel=ivf_cuda.KEY_MIN)
+    assert ivf_cuda.launch_counts == before
+
+
+def test_block_topw_f32_row_mode_rejects_other_sentinels(cuda):
+    """The f32 kernel's running top-R admits only keys above its R-th best,
+    which is the reference's passes only under the KEY_MIN sentinel."""
+    args, kw = chip_smoke.kernel_inputs(
+        torch, cuda, B=8, P=1, K=4, Cmax=64, d=16, metric="euclidean",
+        variant="row", seed=3, dtype=torch.float32,
+    )
+    before = dict(ivf_cuda.launch_counts)
+    with pytest.raises(ValueError, match="KEY_MIN"):
+        ivf_cuda.block_topw(*args, **kw, W=64, R=16, pos_bits=6,
+                            sentinel=int(ivf_cuda._mask_key(64)))
     assert ivf_cuda.launch_counts == before
 
 

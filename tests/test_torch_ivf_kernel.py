@@ -14,6 +14,10 @@ inputs feed both packages:
   the winners in the reference's lane order with ``caff`` re-keyed onto
   them inside ``block_topw``.
 
+The f32-block kernel's 3xTF32 products, which no CPU can run, are emulated
+in numpy and held against f64 in ``chip_smoke.py``'s units
+(``test_f32_block_products_3xtf32_within_sum_err``).
+
 Lanes: ``block_topw`` writes window w's r-th winner to lane ``r*S + w`` for
 every variant; the Pallas kernel writes it to ``w*R + r``.
 
@@ -216,6 +220,69 @@ def test_round_query_rounds_only_the_query():
     with pytest.raises(ValueError, match="bf16 blocks take a bf16 query"):
         tc.block_topw(*args[:4], _t(q16), **kw, round_query=False, W=32, R=2, pos_bits=5,
                       sentinel=tc._mask_key(32))
+
+
+#: chip_smoke.SUM_ERR, copied: the units of 2^-24 x |a| x max_j |b_j| by
+#: which compare_keys lets the card's sums stray from f64
+SUM_ERR = 16.0
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on the f32 bit pattern (the f32 kernel's tf32_rna):
+    the low 13 mantissa bits rounded off, ties away from zero."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x):
+    """(hi, lo), both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+@pytest.mark.parametrize("d", [128, 768])
+@pytest.mark.parametrize("form,products", [("pairs", 3), ("fused", 2), ("plain_tf32", 1)])
+def test_f32_block_products_3xtf32_within_sum_err(form, products, d):
+    """The products of csrc/ivf_block_topw_f32.cu emulated in numpy: the
+    centred query (f32 for pairs, bf16-rounded for fused) and the f32 block
+    split into TF32 high and low parts; lo_a*hi_b, hi_a*lo_b, hi_a*hi_b,
+    each exact in f32, summed in f32 from zero over each 32-deep chunk of d
+    (8-deep step by step, the small terms first) and the chunk's sum added
+    to the running f32 sum, as the kernel takes them from its
+    mma.sync.m16n8k8 (the bf16 query is exact in TF32, so its lo_a*hi_b is
+    zero and dropped).
+    The stray from f64 stays within SUM_ERR units of 2^-24 |a| max_j |b_j|,
+    chip_smoke.compare_keys' tolerance on the card; plain 1xTF32 (hi_a*hi_b
+    alone, on the f32 query) strays past it, which is why the kernel
+    splits."""
+    rng = np.random.default_rng(d + products)
+    n, C = 256, 64
+    q = rng.normal(size=(n, d)).astype(np.float32)
+    cent = (0.5 * rng.normal(size=d)).astype(np.float32)
+    a = q - cent  # f32, as the kernel's prologue subtracts it
+    if form == "fused":
+        a = np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+    b = (0.5 * rng.normal(size=(d, C))).astype(np.float32)
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    if form == "fused":
+        assert not al.any()
+    terms = {3: [(al, bh), (ah, bl), (ah, bh)], 2: [(ah, bl), (ah, bh)], 1: [(ah, bh)]}[products]
+    acc = np.zeros((n, C), np.float32)
+    for k32 in range(0, d, 32):
+        chunk = np.zeros((n, C), np.float32)
+        for k8 in range(k32, min(k32 + 32, d), 8):
+            for x, y in terms:
+                for k in range(k8, k8 + 8):
+                    chunk += x[:, k, None] * y[None, k, :]  # a TF32 product is exact in f32
+        acc += chunk
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    unit = 2.0 ** -24 * np.linalg.norm(a64, axis=1)[:, None] * np.linalg.norm(b64, axis=0).max()
+    stray = float((np.abs(acc - a64 @ b64) / unit).max())
+    if products == 1:
+        assert stray > SUM_ERR
+    else:
+        assert stray <= SUM_ERR
 
 
 def test_pairs_variant_keys_against_packing_by_hand():
