@@ -99,13 +99,36 @@ printing any result. Phases, one line each (any failure raises):
    Every ``block_topw`` call of (a) and (b) is held against its plain
    version (:class:`LiveCheck`); their launch counts are the f32 kernel's
    entries in the kernels line. The f32 slice is timed after them, on the
-   engine of (a).
+   engine of (a);
+10. the server: (a) ``quiver_tpu_torch.api.server.Server`` on its own
+   event-loop thread over phase 9a's DB (the 1M collection, kept alive),
+   driven by stdlib ``http.client`` clients in a thread pool: 2,048 single
+   searches from 64 clients (phase 9's queries; gate recall@10 >= 0.95
+   against its exact f32 scan; QPS, p50/p95/p99 and the coalescer's mean
+   dispatched batch recorded), one ``search/batch`` of 256 (same gate),
+   ``vectors/batch`` of 8,192 new rows (each of 256 probed is its own
+   top-1 at >= 0.95), 256 PUT updates (GET returns each new vector), a
+   batch delete of 256 (no deleted id returned by searches at their
+   vectors), both metrics endpoints (200); then a second server on the same
+   DB with ``search_backlog=64`` and a burst of 512 concurrent searches
+   (gates: at least one 429 with an integer ``Retry-After`` >= 1, every
+   other answer 200). Its own launch counts (``block_topw_f32`` pairs must
+   be launched; ``server_launches`` in the kernels line) and every
+   ``block_topw`` call of the phase held against the plain version; (b)
+   ``python -m quiver_tpu_torch.cli`` as its own processes over phase 9b's
+   directory (65,536 rows): ``info`` counts them; ``serve`` answers
+   ``/health`` and holds card memory (``nvidia-smi``'s compute processes:
+   its pid, or their memory grown by >= 256 MiB where a container's PID
+   namespace hides the pid); 8 searches and a ``vectors/batch`` of 1,024
+   rows; SIGTERM: exit 0 within the shutdown timeout plus the flush (its
+   seconds logged); ``info`` then counts 65,536 + 1,024; ``backup``, then
+   ``restore`` into a fresh directory, whose ``info`` matches.
 
-The 1M corpus is generated once and shared by phases 4-9; phase 4's engine
+The 1M corpus is generated once and shared by phases 4-10; phase 4's engine
 is dropped before phase 7. Then a JSON line of kernels (the bf16 kernel's
 launches are the main path's, phase 4, and the f32 kernel's the
 database's, phase 9; the pairs entry's error covers phases 3, 7 and 8,
-the row mode's phases 3 and 4, the f32 entries' phases 3 and 9;
+the row mode's phases 3 and 4, the f32 entries' phases 3, 9 and 10;
 ``bound_ms`` is computed from this run's operands and ``bound_share`` is
 it over ``ms``), the card line, and last the result line.
 """
@@ -841,6 +864,8 @@ def phase_db(torch, dev, vecs, qdev, oracle_q, oracle_kth_, *, n_req=2048,
             for j, it in enumerate(r.results):
                 got[i, j] = coll.store.slot_of(it.id)
         _, truth = exact.search_slots(queries[:b], k)
+        if k == TOP_K:
+            truth10 = truth
         r = recall_at_k(got, truth, k)
         log(f"db batch_search k={k}: B={b} ms_per_call={ms!r} recall@{k}={r!r} "
             f"(exact f32 oracle) strategies={split} filled={int((got >= 0).sum())}/{b * k}")
@@ -866,7 +891,9 @@ def phase_db(torch, dev, vecs, qdev, oracle_q, oracle_kth_, *, n_req=2048,
             raise AssertionError(f"f32 slice {form} recall@10 {r} < {RECALL_GATE}")
     ivf.config.formulation = "pairs"
     recs["device_bytes"] = ivf.device_bytes()
-    return {"db": db, "ivf": ivf, "records": recs}
+    truth_ids = [[coll.store.id_of(int(s)) for s in row] for row in truth10]
+    return {"db": db, "ivf": ivf, "records": recs, "queries": queries[:n_req],
+            "truth_ids": truth_ids}
 
 
 def time_f32_slice(torch, ivf, qdev, recs, *, reps=10):
@@ -885,7 +912,8 @@ def time_f32_slice(torch, ivf, qdev, recs, *, reps=10):
 def phase_persistence(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH,
                       n_q=256, n_crash=1024):
     """Phase 9b: the DB's persistence round trip at ``n`` rows of the
-    corpus (module docstring); gates raise."""
+    corpus (module docstring); gates raise. Returns the storage directory,
+    closed and holding ``n`` rows."""
     import gc
     import importlib
     import importlib.util
@@ -1003,7 +1031,322 @@ def phase_persistence(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH,
         f"recall@{TOP_K}={r!r}")
     db.close()
     del db, coll
-    shutil.rmtree(root, ignore_errors=True)
+    return root  # phase 10b serves this directory, then removes it
+
+
+#: phase 10a: the server's load (module docstring)
+SERVER_SEARCHES, SERVER_CLIENTS, SERVER_ADDS, SERVER_EDITS, SHED_BURST = 2048, 64, 8192, 256, 512
+
+
+def http(port, method, path, body=None, timeout=300):
+    """(status, headers, body: decoded JSON, else its text) of one request
+    on a fresh loopback connection (stdlib ``http.client``)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        raw = r.read()
+        ctype = r.getheader("Content-Type", "")
+        return (r.status, dict(r.getheaders()),
+                json.loads(raw) if ctype.startswith("application/json") else raw.decode())
+    finally:
+        conn.close()
+
+
+class ServerThread:
+    """A port ``Server`` on its own event-loop thread (as tests/test_api.py
+    runs one); ``stop`` closes its listeners, or the DB too."""
+
+    def __init__(self, db, **cfg):
+        import asyncio
+        import threading
+
+        from quiver_tpu_torch.api.server import Server, ServerConfig
+        from quiver_tpu_torch.benches.bench_api import free_port
+
+        self.server = Server(db, ServerConfig(host="127.0.0.1", port=free_port(), **cfg))
+        self.port = self.server.config.port
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self._call(self.server.start_async())
+
+    def _call(self, coro):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout=600)
+
+    def stop(self, *, close_db=False):
+        self._call(self.server.stop_async() if close_db else self.server.stop_listeners())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=60)
+        self.loop.close()
+
+
+def _fan_out(fn, items, workers):
+    """[fn(item)] over a pool of ``workers`` client threads, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def phase_server(torch, db, queries, truth_ids, *, n_search=SERVER_SEARCHES,
+                 clients=SERVER_CLIENTS, n_add=SERVER_ADDS, n_edit=SERVER_EDITS,
+                 burst=SHED_BURST, seed=23):
+    """Phase 10a: the port's REST server over phase 9a's database (module
+    docstring); gates raise."""
+    import threading
+
+    from quiver_tpu_torch.benches.bench_api import free_port
+    from quiver_tpu_torch.benches.streaming import stream_rows
+
+    coll = db.get_collection("docs")
+    path = "/api/v1/collections/docs"
+    st = ServerThread(db, coalesce_window_ms=2.0, coalesce_max_batch=256, search_backlog=1024,
+                      enable_metrics_server=True, metrics_port=free_port())
+    try:
+        def search(q, k=TOP_K):
+            t0 = time.perf_counter()
+            status, _, body = http(st.port, "POST", f"{path}/search",
+                                   {"vector": q.tolist(), "top_k": k})
+            ms = (time.perf_counter() - t0) * 1e3
+            if status != 200:
+                raise AssertionError(f"search answered {status}: {body}")
+            return [it["id"] for it in body["results"]], ms
+
+        def recall(got_ids, want_ids):
+            return float(np.mean([len(set(g) & set(w)) / TOP_K
+                                  for g, w in zip(got_ids, want_ids, strict=True)]))
+
+        qs = [queries[i % len(queries)] for i in range(n_search)]
+        want = [truth_ids[i % len(queries)] for i in range(n_search)]
+        _fan_out(search, qs[:clients], clients)  # first use of the batch shapes
+        co = st.server._coalescer
+        d0, r0 = co.dispatches, co.dispatched
+        t0 = time.perf_counter()
+        out = _fan_out(search, qs, clients)
+        wall = time.perf_counter() - t0
+        p50, p95, p99 = np.percentile([ms for _, ms in out], (50, 95, 99)).tolist()
+        r = recall([ids for ids, _ in out], want)
+        log(f"server search: {n_search} single POSTs from {clients} clients: "
+            f"qps={n_search / wall!r} p50_ms={p50!r} p95_ms={p95!r} p99_ms={p99!r} "
+            f"dispatches={co.dispatches - d0} "
+            f"mean_batch={(co.dispatched - r0) / max(1, co.dispatches - d0)!r} "
+            f"recall@{TOP_K}={r!r} (exact f32 oracle)")
+        if r < RECALL_GATE:
+            raise AssertionError(f"server recall@10 {r} < {RECALL_GATE}")
+
+        b = min(256, len(queries))
+        t0 = time.perf_counter()
+        status, _, body = http(st.port, "POST", f"{path}/search/batch", {
+            "requests": [{"vector": q.tolist(), "top_k": TOP_K} for q in queries[:b]]})
+        ms = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise AssertionError(f"search/batch answered {status}")
+        r = recall([[it["id"] for it in x["results"]] for x in body["responses"]],
+                   truth_ids[:b])
+        log(f"server search/batch: {b} requests in one POST: ms={ms!r} recall@{TOP_K}={r!r}")
+        if r < RECALL_GATE:
+            raise AssertionError(f"server batch recall@10 {r} < {RECALL_GATE}")
+
+        # writes through REST: add, then update and delete rows of the corpus
+        added = stream_rows(n_add, seed=seed)
+        add_ids = [f"s{i}" for i in range(n_add)]
+        t0 = time.perf_counter()
+        status, _, body = http(st.port, "POST", f"{path}/vectors/batch", {"vectors": [
+            {"id": vid, "vector": v.tolist()} for vid, v in zip(add_ids, added)]})
+        add_s = time.perf_counter() - t0
+        if status != 201 or body["inserted"] != n_add:
+            raise AssertionError(f"vectors/batch answered {status}: {body}")
+        probe = np.random.default_rng(seed).choice(n_add, min(n_edit, n_add), replace=False)
+        top1 = _fan_out(lambda i: search(added[i])[0][:1] == [add_ids[i]], probe, clients)
+        log(f"server vectors/batch: {n_add} rows acknowledged in {add_s!r} s; "
+            f"own top-1 {int(sum(top1))}/{len(probe)}; size={coll.size}")
+        if np.mean(top1) < 0.95:
+            raise AssertionError("added rows not found as their own top-1")
+
+        rng = np.random.default_rng(seed + 1)
+        picked = rng.choice(coll.size - n_add, 2 * n_edit, replace=False)
+        upd_ids = [f"v{i}" for i in picked[:n_edit]]
+        del_ids = [f"v{i}" for i in picked[n_edit:]]
+        del_vecs = np.stack([coll.store.get(v).values for v in del_ids])
+        new = stream_rows(n_edit, seed=seed + 2)
+        codes = _fan_out(lambda a: http(st.port, "PUT", f"{path}/vectors/{a[0]}",
+                                        {"vector": a[1].tolist()})[0],
+                         list(zip(upd_ids, new)), clients)
+        got = _fan_out(lambda v: http(st.port, "GET", f"{path}/vectors/{v}")[2]["vector"],
+                       upd_ids, clients)
+        same = np.asarray(got, np.float32) == new
+        log(f"server PUT: {n_edit} updates answered {sorted(set(codes))}; GET returns the "
+            f"new vector for {int(same.all(1).sum())}/{n_edit}")
+        if set(codes) != {200} or not same.all():
+            raise AssertionError("an updated vector was not read back")
+        status, _, body = http(st.port, "POST", f"{path}/vectors/batch/delete", {"ids": del_ids})
+        if status != 200 or body["deleted"] != n_edit:
+            raise AssertionError(f"batch delete answered {status}: {body}")
+        seen = {v for ids, _ in _fan_out(search, list(del_vecs), clients) for v in ids}
+        log(f"server batch delete: {n_edit} rows; deleted ids returned by searches at their "
+            f"vectors: {len(seen & set(del_ids))}")
+        if seen & set(del_ids):
+            raise AssertionError("a deleted id was returned")
+
+        status, _, body = http(st.port, "GET", "/api/v1/metrics")
+        prom = http(st.server.config.metrics_port, "GET", "/metrics")
+        log(f"server metrics: /api/v1/metrics {status} (qps={body.get('qps')!r}), "
+            f"/metrics {prom[0]}")
+        if status != 200 or prom[0] != 200:
+            raise AssertionError("a metrics endpoint did not answer 200")
+    finally:
+        st.stop()
+
+    # load shed: a second server on the same DB with a small backlog, a burst
+    shed_st = ServerThread(db, coalesce_window_ms=2.0, search_backlog=64,
+                           enable_metrics_server=False)
+    try:
+        gate = threading.Barrier(burst)
+
+        def burst_one(q):
+            gate.wait(timeout=300)
+            return http(shed_st.port, "POST", f"{path}/search",
+                        {"vector": q.tolist(), "top_k": TOP_K})
+
+        res = _fan_out(burst_one, [queries[i % len(queries)] for i in range(burst)], burst)
+    finally:
+        shed_st.stop()
+    codes = [c for c, _, _ in res]
+    retry = [h.get("Retry-After") for c, h, _ in res if c == 429]
+    log(f"server load shed (backlog 64): {burst} concurrent searches: {codes.count(200)} x 200, "
+        f"{codes.count(429)} x 429 (shed rate {codes.count(429) / burst!r}), "
+        f"Retry-After {sorted(set(retry))}")
+    if not retry or not all(r is not None and r.isdigit() and int(r) >= 1 for r in retry):
+        raise AssertionError("no 429 with an integer Retry-After >= 1 in the burst")
+    if set(codes) - {200, 429}:
+        raise AssertionError(f"an admitted search failed: {sorted(set(codes))}")
+
+
+def compute_apps():
+    """[(pid, MiB)] of the card's compute processes, as ``nvidia-smi`` lists
+    them."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return [tuple(int(x) for x in line.split(",")) for line in out.splitlines() if line.strip()]
+
+
+def phase_cli(root, *, n_rows=PERSIST_ROWS, n_add=1024, env=None, shutdown_s=10.0):
+    """Phase 10b: ``python -m quiver_tpu_torch.cli`` as its own processes
+    over phase 9b's directory ``root`` (module docstring); gates raise."""
+    import os
+    import shutil
+    import signal
+    import subprocess
+    from pathlib import Path
+
+    from quiver_tpu_torch.benches.bench_api import free_port
+    from quiver_tpu_torch.benches.streaming import stream_rows
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ if env is None else env, PYTHONPATH=str(repo))
+
+    def cli(data, *args, timeout=600):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "quiver_tpu_torch.cli", "--log-level", "error",
+                            "--data-dir", str(data), *args], cwd=repo, env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        if p.returncode != 0:
+            raise AssertionError(f"cli {args} exited {p.returncode}: {p.stderr[-2000:]}")
+        return p.stdout, time.perf_counter() - t0
+
+    def rows(data):
+        out, secs = cli(data, "info")
+        colls = json.loads(out)["collections"]
+        return {k: v["vectors"] for k, v in colls.items()}, secs
+
+    before, secs = rows(root)
+    log(f"cli info: {before} in {secs!r} s")
+    if before != {"docs": n_rows}:
+        raise AssertionError(f"cli info counted {before}, want {n_rows}")
+
+    port, mport = free_port(), free_port()
+    apps_before = compute_apps()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "quiver_tpu_torch.cli", "--data-dir", str(root),
+                             "serve", "--host", "127.0.0.1", "--port", str(port),
+                             "--metrics-port", str(mport)], cwd=repo, env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited {proc.returncode}: {proc.stderr.read()[-2000:]}")
+            try:
+                if http(port, "GET", "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("serve did not answer /health in 300 s")
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        apps = compute_apps()
+        grew = sum(m for _, m in apps) - sum(m for _, m in apps_before)
+        log(f"cli serve: /health after {up_s!r} s; compute apps before {apps_before}, "
+            f"serving {apps} (serve pid {proc.pid}; +{grew} MiB)")
+        # a container's PID namespace can hide the pid: then the card's
+        # memory held by compute processes must have grown by the child's
+        if proc.pid not in [p for p, _ in apps] and grew < 256:
+            raise AssertionError("the serve process holds no card memory")
+
+        path = "/api/v1/collections/docs"
+        qs = stream_rows(8, seed=31)
+        for q in qs:
+            status, _, body = http(port, "POST", f"{path}/search",
+                                   {"vector": q.tolist(), "top_k": TOP_K})
+            if status != 200 or len(body["results"]) != TOP_K:
+                raise AssertionError(f"serve search answered {status}")
+        new = stream_rows(n_add, seed=37)
+        status, _, body = http(port, "POST", f"{path}/vectors/batch", {"vectors": [
+            {"id": f"c{i}", "vector": v.tolist()} for i, v in enumerate(new)]})
+        if status != 201 or body["inserted"] != n_add:
+            raise AssertionError(f"serve vectors/batch answered {status}: {body}")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=shutdown_s + 300)
+        stop_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    stopped = [json.loads(line) for line in err.splitlines()
+               if line.startswith("{") and '"server stopped"' in line]
+    close_s = stopped[-1].get("close_s") if stopped else None
+    log(f"cli serve: SIGTERM -> exit {proc.returncode} in {stop_s!r} s "
+        f"(the flush: close_s={close_s!r})")
+    if proc.returncode != 0 or not stopped:
+        raise AssertionError(f"serve exited {proc.returncode} after SIGTERM: {err[-2000:]}")
+    if stop_s > shutdown_s + 120:
+        raise AssertionError(f"serve took {stop_s} s to stop")
+
+    after, _ = rows(root)
+    log(f"cli info after the restart: {after}")
+    if after != {"docs": n_rows + n_add}:
+        raise AssertionError(f"acknowledged rows lost: {after}, want {n_rows + n_add}")
+    bak, fresh = root.parent / "chip_smoke_bak", root.parent / "chip_smoke_restored"
+    shutil.rmtree(bak, ignore_errors=True)
+    shutil.rmtree(fresh, ignore_errors=True)
+    _, b_s = cli(root, "backup", str(bak))
+    _, r_s = cli(fresh, "restore", str(bak))
+    restored, _ = rows(fresh)
+    log(f"cli backup {b_s!r} s, restore into a fresh directory {r_s!r} s: info {restored}")
+    if restored != after:
+        raise AssertionError(f"restore gave {restored}, want {after}")
+    for d in (root, bak, fresh):
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def main() -> int:
@@ -1105,15 +1448,33 @@ def main() -> int:
     live.verify(torch, "db")
     db_worst = dict(live.worst_by)
     with LiveCheck() as live:
-        phase_persistence(torch, dev, vecs)
+        persist_root = phase_persistence(torch, dev, vecs)
     live.verify(torch, "persist")
     for key, err in live.worst_by.items():
         db_worst[key] = max(db_worst.get(key, 0.0), err)
     counts_db = dict(ivf_cuda.launch_counts)
     log(f"db launches: {counts_db}")
     time_f32_slice(torch, db9["ivf"], qdev, db9["records"])
-    del db9, qdev
+    del qdev
     torch.cuda.empty_cache()
+
+    # phase 10: the server. (a) in process over phase 9a's DB; its own
+    # launch counts, and every block_topw call held against the plain
+    # version; (b) the CLI's processes over phase 9b's directory
+    ivf_cuda.reset_launch_counts()
+    with LiveCheck() as live:
+        phase_server(torch, db9["db"], db9["queries"], db9["truth_ids"])
+    live.verify(torch, "server")
+    for key, err in live.worst_by.items():
+        db_worst[key] = max(db_worst.get(key, 0.0), err)
+    counts_server = dict(ivf_cuda.launch_counts)
+    log(f"server launches: {counts_server}")
+    if counts_server[(ivf_cuda.F32, (32, 2))] <= 0:
+        raise AssertionError("block_topw_f32 was not launched by the server phase")
+    db9["db"].close()
+    del db9
+    torch.cuda.empty_cache()
+    phase_cli(persist_root)
 
     # bounds: block_topw's from phase 3's operands (topw_bound); the probes'
     # from their main-path operands: scatter_rows reads and writes its rows,
@@ -1154,6 +1515,7 @@ def main() -> int:
                 "bound_by": rec["bound_by"],
                 "bound_share": rec["bound_ms"] / rec["ms"],
                 "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
+                **({"server_launches": counts_server[key]} if tag else {}),
             })
     for name, replaces in (("scatter_rows", "benches/probe_pallas.py:42"),
                            ("index_read", "benches/probe_pallas.py:101")):

@@ -5,7 +5,8 @@ Its top is the database: ``DB(DBOptions(...))`` creates collections on the
 card (``DBOptions.device``, "cuda" by default), journals their writes to a
 native WAL and flushes and reloads them (``persistence/``), with the
 reference's defaults: the ``hybrid`` engine over an IVF engine with f32
-blocks. Below it, the IVF-Flat batched query end to end: ``VectorStore`` ->
+blocks; in front of it the REST server (``api.server``) and the CLI
+(``python -m quiver_tpu_torch.cli serve``). Below it, the IVF-Flat batched query end to end: ``VectorStore`` ->
 ``IVFIndex.build()`` (with the n_probe tuner when ``recall_target`` is set)
 -> ``IVFIndex.search_slots`` / ``search_slots_device`` ->
 ``ops.ivf_kernels.ivf_query``, whose candidate stage is the hand-written

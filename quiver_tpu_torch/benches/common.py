@@ -42,6 +42,13 @@ def clustered(n, seed=0):
     return out.astype(np.float32)
 
 
+def make_corpus(n: int, d: int, seed: int = 0):
+    """(f32[n, d] i.i.d. normal rows, the generator after them): the
+    corpus of ``benches/common.py:46-48`` (same generator, same seed)."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(n, d)).astype(np.float32), rng
+
+
 def recall_at_k(got_idx, truth_idx, k: int) -> float:
     """Mean overlap of each query's returned ids with its true top-k ids
     (``benches/common.py:65-69``)."""
@@ -76,6 +83,21 @@ def device_ms(device: torch.device, fn, reps: int) -> float:
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def wall_ms(device: torch.device, fn, reps: int) -> float:
+    """Host-clock ms per call of ``reps`` back-to-back calls after a
+    warm-up call, closed by a synchronize on a CUDA device: the time of a
+    request that ends on the host (a search returning host values)."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0) / reps
 
 

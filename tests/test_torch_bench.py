@@ -121,6 +121,10 @@ def test_churn_runs_small_on_cpu():
     "quiver_tpu_torch.benches.streaming",
     "quiver_tpu_torch.benches.churn",
     "quiver_tpu_torch.benches.topw_f32_ab",
+    "quiver_tpu_torch.benches.bench_api",
+    "quiver_tpu_torch.benches.bench_filtered",
+    "quiver_tpu_torch.benches.bench_persistence",
+    "quiver_tpu_torch.benches.profile_api",
 ])
 def test_entry_points_refuse_without_cuda(module):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)

@@ -495,3 +495,54 @@ def test_queries_served_while_a_job_runs_on_the_maint_stream(cuda):
     assert np.mean(got[:, 0] == s_during) >= 0.99
     _, got = eng.search_slots(vecs[:4000:2] + 0.01, 10)
     assert not np.isin(got, dead).any()
+
+
+def test_server_on_cuda_serves_through_block_topw_f32(cuda):
+    """The port's REST server over a DB on the card at its defaults (the
+    hybrid over f32 IVF blocks): single searches over HTTP coalesce into
+    batches that run ``block_topw_f32`` on the device's default stream,
+    with recall@10 >= 0.9 against the exact scan."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from quiver_tpu_torch import DB, DBOptions, ExactIndex
+
+    rng = np.random.default_rng(21)
+    centers = rng.normal(size=(64, 32)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 64, 20_000)]
+            + 0.2 * rng.normal(size=(20_000, 32))).astype(np.float32)
+    db = DB(DBOptions(enable_persistence=False, device="cuda"))
+    coll = db.create_collection("docs", 32, "euclidean", engine_config={
+        "ivf": {"n_clusters": 64, "n_probe": 4, "build_threshold": 1024},
+        "adaptive": {"exploration_factor": 0.0}})
+    db.batch_insert("docs", [f"v{i}" for i in range(len(vecs))], vecs)
+    assert coll.engine.ann._blocks_t.dtype == torch.float32 and coll.engine.ann._built
+    streams = []
+    search_batch = coll.search_batch
+
+    def recorded(reqs):
+        streams.append(torch.cuda.current_stream() == torch.cuda.default_stream())
+        return search_batch(reqs)
+
+    coll.search_batch = recorded
+    queries = (vecs[rng.integers(0, len(vecs), 64)]
+               + 0.05 * rng.normal(size=(64, 32))).astype(np.float32)
+    f32 = [k for k in ivf_cuda.launch_counts if k[0] == ivf_cuda.F32]
+    before = sum(ivf_cuda.launch_counts[k] for k in f32)
+    st = chip_smoke.ServerThread(db, enable_metrics_server=False, coalesce_window_ms=20.0)
+
+    def one(q):
+        status, _, body = chip_smoke.http(st.port, "POST", "/api/v1/collections/docs/search",
+                                          {"vector": q.tolist(), "top_k": 10})
+        assert status == 200, body
+        return [coll.store.slot_of(x["id"]) for x in body["results"]]
+
+    try:
+        with ThreadPoolExecutor(max_workers=16) as ex:
+            got = np.asarray(list(ex.map(one, queries)))
+    finally:
+        st.stop(close_db=True)
+    assert sum(ivf_cuda.launch_counts[k] for k in f32) > before
+    assert streams and all(streams)
+    _, truth = ExactIndex(coll.store).search_slots(queries, 10)
+    recall = np.mean([len(set(g) & set(t)) / 10 for g, t in zip(got, truth)])
+    assert recall >= 0.9, recall

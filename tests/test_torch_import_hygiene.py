@@ -47,6 +47,14 @@ MODULES = [
     "quiver_tpu_torch.persistence.manager",
     "quiver_tpu_torch.observability.collector",
     "quiver_tpu_torch.core.db",
+    "quiver_tpu_torch.api",
+    "quiver_tpu_torch.api.auth",
+    "quiver_tpu_torch.api.server",
+    "quiver_tpu_torch.cli",
+    "quiver_tpu_torch.benches.bench_api",
+    "quiver_tpu_torch.benches.bench_filtered",
+    "quiver_tpu_torch.benches.bench_persistence",
+    "quiver_tpu_torch.benches.profile_api",
 ]
 
 
