@@ -122,9 +122,34 @@ printing any result. Phases, one line each (any failure raises):
    namespace hides the pid); 8 searches and a ``vectors/batch`` of 1,024
    rows; SIGTERM: exit 0 within the shutdown timeout plus the flush (its
    seconds logged); ``info`` then counts 65,536 + 1,024; ``backup``, then
-   ``restore`` into a fresh directory, whose ``info`` matches.
+   ``restore`` into a fresh directory, whose ``info`` matches;
+11. HNSW (torch ops, no hand-written kernel, so the kernels line does not
+   change): (a) ``HNSWIndex`` built over the 1M corpus as
+   ``benches/bench_hnsw.py`` builds it (M=16, m0=32, efC=200, bf16
+   construction products, ``build_batch`` 8192): wall seconds, inserts/s,
+   the spill count, each layer's graph checked on the card
+   (:func:`hnsw_invariants`: a row's fill is its count of ids, no self
+   edge, no id twice in a row, every id a live slot); (b) the ef sweep
+   {50, 100, 200, 400} over 2,048 jittered corpus queries (ring visited;
+   bitmap at ef=100): recall@10 plain and tie-aware against the f64
+   oracle (gate: tie-aware >= 0.90 at ef=400; the first ef reaching 0.95
+   is logged as a finding), ms per batch of ``search_device`` at B in
+   {128, 2048, 65536} at ef=100, the beam's iterations (mean and max per
+   query, the loop's count), one B=2048 search's kernel launches and the
+   card's busy share from a profiler trace, each HNSW program's card ms
+   and launches at the phase's shapes (:func:`hnsw_programs`); gate: 256
+   queries at ef=100 return the same ids on the card as on a CPU index
+   holding the same graph, up to swaps of entries tied within 1e-5
+   (:func:`ids_agree`); (c) through the stack (:func:`phase_hnsw_stack`):
+   a ``DB`` collection with engine "hnsw" over the persist cell's 65,536
+   rows, flushed and reopened from its sidecar (gates: no row inserted by
+   the load, the same top-10 lists), against a cold reload without the
+   sidecar (a rebuild); a hybrid with an ``hnsw`` block at
+   ``benches/bench_hybrid.py``'s shape (20,000 x 64-d; gate: a 128-query
+   batch routes mostly to the graph); a REST create, insert and search of
+   an ``engine: "hnsw"`` collection (201, 201, 200).
 
-The 1M corpus is generated once and shared by phases 4-10; phase 4's engine
+The 1M corpus is generated once and shared by phases 4-11; phase 4's engine
 is dropped before phase 7. Then a JSON line of kernels (the bf16 kernel's
 launches are the main path's, phase 4, and the f32 kernel's the
 database's, phase 9; the pairs entry's error covers phases 3, 7 and 8,
@@ -1349,6 +1374,320 @@ def phase_cli(root, *, n_rows=PERSIST_ROWS, n_add=1024, env=None, shutdown_s=10.
         shutil.rmtree(d, ignore_errors=True)
 
 
+#: phase 11: the HNSW engine at bench_hnsw's build (M=16, m0=32, efC=200,
+#: bf16 construction products, build_batch 8192) over the shared corpus
+HNSW_ROWS = N
+HNSW_EFS = (50, 100, 200, 400)
+HNSW_BATCHES = (128, 2048, 65536)
+HNSW_PARITY_QUERIES = 256
+#: the gates: tie-aware recall@10 at ef=400, and the relative distance
+#: within which two ids at one rank count as a tie swap
+HNSW_RECALL_FLOOR, HNSW_TIE_REL = 0.90, 1e-5
+
+
+def ids_agree(got_ids, got_dist, ref_ids, ref_dist, rel=HNSW_TIE_REL) -> int:
+    """Positions where two sorted answers hold different ids at distances
+    more than ``rel`` apart (relative to the reference's): 0 means equal
+    up to swaps of tied entries."""
+    got_ids, ref_ids = np.asarray(got_ids), np.asarray(ref_ids)
+    got_dist = np.asarray(got_dist, np.float64)
+    ref_dist = np.asarray(ref_dist, np.float64)
+    tie = np.abs(got_dist - ref_dist) <= rel * np.abs(ref_dist) + 1e-30
+    return int(((got_ids != ref_ids) & ~tie).sum())
+
+
+def hnsw_invariants(torch, idx) -> list:
+    """Each layer's graph checked on the device: a row's fill is its count
+    of non-negative ids; no self edge; no id twice in a row; every id a
+    live slot. Returns [(level, rows, edges)]; raises on a violation."""
+    view = idx.store.device_view()
+    out = []
+    for level, layer in enumerate([idx.layer0] + idx.layers):
+        n = len(layer.nodes)
+        adj, _ = layer.device(idx.store.capacity)
+        adj = adj[:n].long()
+        fill = layer.device_fill()[:n].long()
+        nodes = torch.from_numpy(layer.nodes.astype(np.int64)).to(adj.device)
+        live = adj >= 0
+        srt = torch.sort(torch.where(live, adj, -1 - torch.arange(
+            adj.shape[1], device=adj.device)), dim=1).values
+        bad = {
+            "fill": int((fill != live.sum(1)).sum()),
+            "self": int((adj == nodes[:, None]).sum()),
+            "repeat": int((srt[:, 1:] == srt[:, :-1]).sum()),
+            "dead": int((live & ~view.valid[adj.clamp_min(0)]).sum()),
+        }
+        if any(bad.values()):
+            raise AssertionError(f"hnsw layer {level}: graph invariants broken {bad}")
+        out.append((level, n, int(live.sum())))
+    return out
+
+
+def hnsw_programs(torch, idx, qd, *, ef=100, reps=3) -> dict:
+    """Card ms (CUDA events) and kernel launches of one call of each HNSW
+    program at phase 11's shapes: the layer-0 beam at ef=100 and the
+    greedy descent of level 1 (the largest upper layer) at ``qd``'s batch; the selection
+    and the level-0 connect at the build's (the last ``build_batch``
+    inserted rows as a batch that selects its current rows again; the
+    connect returns new tensors and leaves the graph as it is)."""
+    from quiver_tpu_torch.benches.common import launch_trace
+    from quiver_tpu_torch.index.hnsw import _pow2
+    from quiver_tpu_torch.ops import hnsw_kernels as hk
+    from quiver_tpu_torch.ops.scan import flat_scan_topk
+
+    view = idx.store.device_view()
+    layers, adj0, pos0 = idx._device_graph()
+    metric = idx._metric()
+    entries = torch.full((qd.shape[0],), idx.entry_point, dtype=torch.int64, device=qd.device)
+    bb = idx.config.build_batch
+    slots = torch.from_numpy(idx.layer0.nodes[-bb:].astype(np.int64)).to(qd.device)
+    rows = pos0[slots]
+    q_b = view.vectors[slots]
+    deg = adj0.shape[1]
+    kc = min(max(idx.config.ef_construction, deg), _pow2(3 * deg, lo=32))
+    cand_d, cand_i = flat_scan_topk(q_b, view.vectors, view.valid, None, view.norms_sq,
+                                    view.inv_norms, metric=metric, k=kc + 1,
+                                    compute_dtype=idx.compute_dtype)
+    calls = {
+        "beam_search": lambda: hk.beam_search(
+            qd, entries, view.vectors, view.valid, adj0, pos0, metric=metric, ef=ef,
+            max_iters=int(1.5 * ef) + 8),
+        "greedy_descent": lambda: hk.greedy_descent(
+            qd, entries, view.vectors, view.valid, *layers[-1], metric=metric),
+        "select_neighbors": lambda: hk.select_neighbors(
+            q_b, cand_i, cand_d, view.vectors, metric=metric, m=deg,
+            compute_dtype=idx.compute_dtype),
+        "connect_level": lambda: hk.connect_level(
+            adj0, idx.layer0.device_fill(), pos0, view.vectors, slots,
+            torch.ones_like(slots, dtype=torch.bool), adj0[rows].long(), metric=metric,
+            u_budget=bb, e_budget=max(16, _pow2(idx.config.m0 // 2, lo=16)),
+            compute_dtype=idx.compute_dtype),
+    }
+    out = {}
+    for name, fn in calls.items():
+        tr = launch_trace(fn)
+        ms = cuda_ms(fn, reps)
+        out[name] = {"ms": ms, "launches": tr["launches"], "kernel_ms": tr["kernel_ms"]}
+        log(f"hnsw program {name}: ms_per_call={ms!r} launches={tr['launches']} "
+            f"kernel_ms={tr['kernel_ms']!r} busy_share={tr['kernel_ms'] / ms!r}")
+    return out
+
+
+def phase_hnsw(torch, dev, vecs, *, n=HNSW_ROWS, n_q=2048, efs=HNSW_EFS,
+               batches=HNSW_BATCHES, n_parity=HNSW_PARITY_QUERIES, reps=3) -> dict:
+    """Phase 11a-b: the HNSW engine's build and search on ``dev`` (module
+    docstring); gates raise. Returns the measured numbers."""
+    from quiver_tpu_torch.benches import bench_hnsw
+    from quiver_tpu_torch.benches.common import launch_trace, oracle_topk
+    from quiver_tpu_torch.convert import hnsw_from_topology
+    from quiver_tpu_torch.core.store import VectorStore
+
+    cuda = dev.type == "cuda"
+    rows = vecs[:n]
+    if n < len(vecs):
+        log(f"hnsw cut: N={n} of the {len(vecs)}-row corpus (PERF.md section 4)")
+    store, idx, build_s = bench_hnsw.build(dev, rows)
+    m = idx.get_detailed_metrics()
+    log(f"hnsw build: N={n} d={rows.shape[1]} M={idx.config.m} m0={idx.config.m0} "
+        f"efC={idx.config.ef_construction} compute_dtype={idx.compute_dtype} "
+        f"build_batch={idx.config.build_batch}: wall_s={build_s!r} inserts_per_s="
+        f"{n / build_s!r} max_level={m['max_level']} layer_nodes={m['layer_nodes']} "
+        f"reverse_edges_spilled={m['reverse_edges_spilled']} device_bytes={m['device_bytes']}")
+    log(f"hnsw graph invariants hold: (level, rows, edges) {hnsw_invariants(torch, idx)}")
+    queries, _ = make_queries(rows, n_q, n_q)
+    truth, kth = oracle_topk(dev, queries, rows, TOP_K)
+    out = {"build_s": build_s, "n": n, "spilled": m["reverse_edges_spilled"]}
+    qd = torch.from_numpy(queries).to(dev)
+    sweep = bench_hnsw.recall_rows(idx, rows, queries, truth, kth, efs=efs, reps=reps)
+    sweep += bench_hnsw.recall_rows(idx, rows, queries, truth, kth, efs=(100,), reps=reps,
+                                    visited="bitmap")
+    for r in sweep:
+        log(f"hnsw search ef={r['ef']} visited={r['visited']} B={n_q}: recall@10 "
+            f"{r['recall_at_10']!r} tie-aware {r['recall_at_10_ties']!r} (f64 oracle) "
+            f"ms_per_call={r['ms']!r} qps={r['qps']!r}")
+    out["sweep"] = sweep
+    first = [r["ef"] for r in sweep if r["visited"] == "ring" and r["recall_at_10_ties"] >= 0.95]
+    log(f"hnsw finding: the first ef reaching tie-aware recall@10 0.95: "
+        f"{first[0] if first else 'none of ' + str(efs)}")
+    at400 = [r for r in sweep if r["ef"] == max(efs) and r["visited"] == "ring"][0]
+    if at400["recall_at_10_ties"] < HNSW_RECALL_FLOOR:
+        raise AssertionError(f"hnsw tie-aware recall@10 at ef={max(efs)} "
+                             f"{at400['recall_at_10_ties']} < {HNSW_RECALL_FLOOR}")
+    idx.set_optimization_parameters(ef_search=100, visited="ring")
+    out["batches"] = bench_hnsw.batch_rows(idx, rows, batches=batches, ef=100, reps=reps)
+    for r in out["batches"]:
+        log(f"hnsw search_device ef=100 B={r['B']}: ms_per_batch={r['ms']!r} qps={r['qps']!r}")
+    stats = {}
+    idx.search_device(qd, 100, stats=stats)
+    it = stats["iters"].cpu().numpy()
+    out["iters"] = {"mean": float(it.mean()), "max": int(it.max()), "loops": stats["loops"],
+                    "max_iters": int(1.5 * 100) + 8}
+    log(f"hnsw beam iterations ef=100 B={n_q}: per query mean={float(it.mean())!r} max={int(it.max())} "
+        f"loop={stats['loops']} of max_iters={out['iters']['max_iters']}")
+    if cuda:
+        tr = launch_trace(lambda: idx.search_device(qd, 100))
+        wall = cuda_ms(lambda: idx.search_device(qd, 100), reps)
+        tr.update(wall_ms=wall, busy_share=tr["kernel_ms"] / wall)
+        out["trace"] = tr
+        log(f"hnsw trace ef=100 B={n_q}: launches_per_search={tr['launches']} "
+            f"kernel_ms={tr['kernel_ms']!r} wall_ms={wall!r} (traced {tr['traced_wall_ms']!r}) "
+            f"busy_share={tr['busy_share']!r}")
+
+        out["programs"] = hnsw_programs(torch, idx, qd, reps=reps)
+
+    # the same graph on the CPU: the card's answer held to it
+    t0 = time.perf_counter()
+    cpu_store = VectorStore(dim=rows.shape[1], metric="euclidean", capacity=store.capacity,
+                            device="cpu")
+    cpu_store.add_batch([f"v{i}" for i in range(n)], rows)
+    cpu = hnsw_from_topology(cpu_store, idx.export_topology(), build_batch=idx.config.build_batch)
+    pq = queries[:n_parity]
+    d_card, i_card = idx.search_slots(pq, TOP_K)
+    d_cpu, i_cpu = cpu.search_slots(pq, TOP_K)
+    bad = ids_agree(i_card, d_card, i_cpu, d_cpu)
+    log(f"hnsw card vs cpu, same graph, ef=100, {n_parity} queries: ids equal "
+        f"{float((i_card == i_cpu).mean())!r}, differing beyond a tie swap: {bad} "
+        f"(cpu side {time.perf_counter() - t0!r} s)")
+    if bad:
+        raise AssertionError(f"hnsw: {bad} result slots differ between the card and the CPU")
+    del cpu, cpu_store
+    return out
+
+
+def phase_hnsw_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH, n_q=256,
+                     n_rest=4096, n_hybrid=None) -> dict:
+    """Phase 11c: the HNSW engine through the database, the hybrid and the
+    REST server (module docstring); gates raise."""
+    import gc
+    import os
+    import shutil
+    from pathlib import Path
+
+    from quiver_tpu_torch import DB, DBOptions
+    from quiver_tpu_torch.benches.bench_hybrid import D as HY_D
+    from quiver_tpu_torch.benches.bench_hybrid import N_HYBRID
+    from quiver_tpu_torch.benches.common import make_clustered_corpus, recall_at_k
+    from quiver_tpu_torch.index.exact import ExactIndex
+    from quiver_tpu_torch.index.hnsw import HNSWIndex
+    from quiver_tpu_torch.types import SearchRequest
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    root = Path(__file__).resolve().parent / "quiver_tpu_torch" / "_build" / "chip_smoke_hnsw"
+    shutil.rmtree(root, ignore_errors=True)
+    opts = dict(storage_path=str(root), flush_interval_s=0, device=str(dev))
+    cfg = {"hnsw": {"build_batch": batch}}
+    rows, ids = vecs[:n], [f"v{i}" for i in range(n)]
+    queries, _ = make_queries(rows, n_q, n_q)
+    out = {}
+
+    def answers(db, qs, k=TOP_K):
+        resps = db.batch_search("graph", [SearchRequest(vector=q, top_k=k) for q in qs])
+        return [[it.id for it in r.results] for r in resps]
+
+    inserted = []
+    on_insert = HNSWIndex.on_insert
+
+    def counted(self, slots, vectors):
+        inserted.append(len(slots))
+        return on_insert(self, slots, vectors)
+
+    def reopen(what):
+        gc.collect()
+        inserted.clear()
+        HNSWIndex.on_insert = counted
+        try:
+            t0 = time.perf_counter()
+            db = DB(DBOptions(**opts))
+            coll = db.get_collection("graph")
+            sync()
+            secs = time.perf_counter() - t0
+        finally:
+            HNSWIndex.on_insert = on_insert
+        log(f"hnsw db {what}: load_s={secs!r} size={coll.size} engine={coll.engine.name} "
+            f"rows inserted by the load={sum(inserted)}")
+        return db, coll, secs
+
+    db = DB(DBOptions(**opts))
+    coll = db.create_collection("graph", rows.shape[1], "euclidean", engine="hnsw",
+                                engine_config=cfg)
+    t0 = time.perf_counter()
+    for at in range(0, n, batch):
+        db.batch_insert("graph", ids[at:at + batch], rows[at:at + batch])
+    sync()
+    out["ingest_s"] = time.perf_counter() - t0
+    _, truth = ExactIndex(coll.store).search_slots(queries, TOP_K)
+    before = answers(db, queries)
+    got = np.asarray([[coll.store.slot_of(i) for i in row] for row in before])
+    r = recall_at_k(got, truth, TOP_K)
+    log(f"hnsw db: engine={coll.engine.name} compute_dtype={coll.engine.compute_dtype} "
+        f"{n} rows in {out['ingest_s']!r} s; recall@10 {r!r} (exact f32, {n_q} queries)")
+    t0 = time.perf_counter()
+    db.close()
+    log(f"hnsw db close: flush_s={time.perf_counter() - t0!r} "
+        f"files={sorted(os.listdir(root / 'graph'))}")
+    if not (root / "graph" / "topology.npz").exists():
+        raise AssertionError("hnsw db: the flush wrote no topology sidecar")
+    del db, coll
+    db, coll, out["sidecar_load_s"] = reopen("reopen through topology.npz")
+    if sum(inserted) or coll.engine.entry_point < 0:
+        raise AssertionError("hnsw db: the reload rebuilt the graph instead of importing it")
+    after = answers(db, queries)
+    same = float(np.mean([a == b for a, b in zip(after, before)]))
+    log(f"hnsw db reload: identical top-10 lists {same!r} ({n_q} queries)")
+    if same < 1.0:
+        raise AssertionError(f"hnsw db: searches before and after the reload differ ({same})")
+    db.close()
+    del db, coll
+    os.remove(root / "graph" / "topology.npz")
+    db, coll, out["cold_load_s"] = reopen("reopen without topology.npz (cold build)")
+    if sum(inserted) != n:
+        raise AssertionError("hnsw db: the cold load did not rebuild the graph")
+    log(f"hnsw db: sidecar load_s={out['sidecar_load_s']!r} against cold "
+        f"rebuild load_s={out['cold_load_s']!r}")
+    db.close()
+    del db, coll
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the hybrid with an hnsw block at bench_hybrid's shape: large batches
+    # route to the graph
+    n_hybrid = n_hybrid or N_HYBRID
+    hv, hrng = make_clustered_corpus(n_hybrid, HY_D)
+    hq = (hv[hrng.integers(0, n_hybrid, 128)] + 0.1 * hrng.normal(size=(128, HY_D))).astype(np.float32)
+    db = DB(DBOptions(enable_persistence=False, device=str(dev)))
+    coll = db.create_collection("hy", HY_D, "euclidean", engine="hybrid", engine_config=cfg)
+    db.batch_insert("hy", [f"h{i}" for i in range(n_hybrid)], hv)
+    eng = coll.engine
+    db.batch_search("hy", [SearchRequest(vector=q, top_k=TOP_K) for q in hq])
+    split = eng.stats()["per_strategy_queries"]
+    _, s = eng.ann.search_slots(hq, TOP_K)
+    _, truth = ExactIndex(coll.store).search_slots(hq, TOP_K)
+    r = recall_at_k(s, truth, TOP_K)
+    log(f"hnsw hybrid: N={n_hybrid} d={HY_D} ann={eng.ann_backend} split of {len(hq)} "
+        f"queries={split} graph recall@10 {r!r} (exact f32)")
+    if eng.ann_backend != "hnsw" or split.get("hnsw", 0) <= split.get("exact", 0):
+        raise AssertionError(f"hnsw hybrid: large batches did not route to the graph {split}")
+    out["hybrid"] = {"split": split, "recall": r}
+
+    # one REST create, insert and search of an hnsw collection
+    st = ServerThread(db, enable_metrics_server=False)
+    try:
+        codes = [http(st.port, "POST", "/api/v1/collections", {
+            "name": "g", "dimension": rows.shape[1], "distance_function": "euclidean",
+            "engine": "hnsw", "engine_config": cfg})[0]]
+        codes.append(http(st.port, "POST", "/api/v1/collections/g/vectors/batch", {
+            "vectors": [{"id": ids[i], "vector": rows[i].tolist()} for i in range(n_rest)]})[0])
+        status, _, body = http(st.port, "POST", "/api/v1/collections/g/search",
+                               {"vector": rows[7].tolist(), "top_k": TOP_K})
+        codes.append(status)
+        log(f"hnsw rest: create/insert/search -> {codes}, top hit {body['results'][0]['id']} "
+            f"(engine {db.get_collection('g').engine.name})")
+        if codes != [201, 201, 200] or body["results"][0]["id"] != ids[7]:
+            raise AssertionError(f"hnsw rest: {codes}, {body}")
+    finally:
+        st.stop(close_db=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1475,6 +1814,13 @@ def main() -> int:
     del db9
     torch.cuda.empty_cache()
     phase_cli(persist_root)
+
+    # phase 11: the HNSW engine (torch ops, no hand-written kernel): its
+    # build and search on the shared corpus, then through the stack
+    torch.cuda.empty_cache()
+    phase_hnsw(torch, dev, vecs)
+    torch.cuda.empty_cache()
+    phase_hnsw_stack(torch, dev, vecs)
 
     # bounds: block_topw's from phase 3's operands (topw_bound); the probes'
     # from their main-path operands: scatter_rows reads and writes its rows,

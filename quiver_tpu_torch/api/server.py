@@ -26,9 +26,9 @@ codes are the reference's, with these differences:
   per ``search_batch``, and result vectors come from the store's host
   mirror, so building the JSON reads no CUDA tensor;
 * ``NotImplementedError``, which the port raises for an engine it does not
-  have yet (``index/__init__.py``'s ``_NOT_PORTED``, the hybrid's HNSW
-  backend), maps to 501 with its message, which names the ROADMAP.md item;
-  the reference serves those engines;
+  have yet (``index/__init__.py``'s ``_NOT_PORTED``: the sharded kinds),
+  maps to 501 with its message, which names the ROADMAP.md item; the
+  reference serves those engines;
 * a request body may hold up to :data:`MAX_BODY_BYTES` (the reference
   keeps aiohttp's 1 MiB, so its ``vectors/batch`` refuses a few hundred
   128-d rows with 413);

@@ -42,6 +42,19 @@ def clustered(n, seed=0):
     return out.astype(np.float32)
 
 
+def make_clustered_corpus(n: int, d: int, seed: int = 0, n_centers: int = 0,
+                          spread: float = 0.25):
+    """(f32[n, d] Gaussian blobs, the generator after them): the corpus of
+    ``benches/common.py:51-62`` (same generator, same seed; max(32, n//1000)
+    centers unless given)."""
+    rng = np.random.default_rng(seed)
+    n_centers = n_centers or max(32, n // 1000)
+    centers = rng.normal(size=(n_centers, d)).astype(np.float32)
+    which = rng.integers(0, n_centers, n)
+    out = centers[which] + spread * rng.normal(size=(n, d)).astype(np.float32)
+    return out.astype(np.float32), rng
+
+
 def make_corpus(n: int, d: int, seed: int = 0):
     """(f32[n, d] i.i.d. normal rows, the generator after them): the
     corpus of ``benches/common.py:46-48`` (same generator, same seed)."""
@@ -146,6 +159,29 @@ def kernel_ms(fn, calls: int) -> tuple[dict, float]:
     return dict(by_name), e0.elapsed_time(e1) / calls
 
 
+def launch_trace(fn) -> dict:
+    """One call of ``fn`` after a warm-up call, under ``torch.profiler``
+    with CUDA activity: the kernels it launched (memory copies and sets
+    apart), their summed device ms, and the call's wall ms by CUDA events
+    around it under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+               and not ev.name.startswith(("Memcpy", "Memset"))]
+    return {"launches": len(kernels),
+            "kernel_ms": sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3,
+            "traced_wall_ms": e0.elapsed_time(e1)}
+
+
 def host_us(device: torch.device, fn, reps: int) -> float:
     """Host µs per call over ``reps`` back-to-back calls after a warm-up
     call and a synchronize: the cost of issuing a call, not of running it."""
@@ -158,17 +194,26 @@ def host_us(device: torch.device, fn, reps: int) -> float:
     return 1e6 * (time.perf_counter() - t0) / reps
 
 
-def oracle_kth(device, queries, vecs, k, block=131_072):
-    """True k-th smallest squared L2 distance per query, in float64 on the
-    device (the affine f64 form of ``truth.exact_truth_f64``)."""
+def oracle_topk(device, queries, vecs, k, block=131_072):
+    """(ids i64[B, k], true k-th smallest squared L2 distance f64[B]) per
+    query, in float64 on the device (the affine f64 form of
+    ``truth.exact_truth_f64``)."""
     q = torch.from_numpy(queries).to(device, torch.float64)
     qns = (q * q).sum(1, keepdim=True)
     best = torch.full((q.shape[0], k), float("inf"), dtype=torch.float64, device=device)
+    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=device)
     for s in range(0, vecs.shape[0], block):
         v = torch.from_numpy(vecs[s:s + block]).to(device, torch.float64)
         d = qns - 2.0 * (q @ v.T) + (v * v).sum(1)[None, :]
-        best = torch.topk(torch.cat([best, d], 1), k, dim=1, largest=False).values
-    return best[:, k - 1].cpu().numpy()
+        ids = torch.arange(s, s + v.shape[0], device=device).expand(q.shape[0], -1)
+        best, pos = torch.topk(torch.cat([best, d], 1), k, dim=1, largest=False)
+        best_i = torch.gather(torch.cat([best_i, ids], 1), 1, pos)
+    return best_i.cpu().numpy(), best[:, k - 1].cpu().numpy()
+
+
+def oracle_kth(device, queries, vecs, k, block=131_072):
+    """True k-th smallest squared L2 distance per query (:func:`oracle_topk`)."""
+    return oracle_topk(device, queries, vecs, k, block)[1]
 
 
 def card() -> str:

@@ -19,10 +19,10 @@ Emits the reference's JSON lines (``bench_streaming.py:81-90, 128-145``)
 with ``card`` (name and power limit) added to each. Write walls are host
 clock around the call and a ``torch.cuda.synchronize()``; the first
 batch's sample is left out of the steady rates, as in the reference.
-Without CUDA it exits non-zero before printing a result. Not ported: the
-HNSW leg, which waits for the HNSW engine (ROADMAP.md queue 1, item 4),
-and the ``QUIVER_BENCH_*`` environment overrides (``run`` takes the sizes
-as arguments).
+Without CUDA it exits non-zero before printing a result. Not ported yet:
+the HNSW leg (ROADMAP.md queue 1, item 4's open cells); not ported: the
+``QUIVER_BENCH_*`` environment overrides (``run`` takes the sizes as
+arguments).
 """
 
 from __future__ import annotations

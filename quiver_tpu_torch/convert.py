@@ -7,7 +7,8 @@ of its device arrays, or its ``export_topology()`` dict). Two routes:
   tensors on a device, so both packages' query functions run on identical
   block arrays;
 * an index: ``IVFIndex.import_topology(jax_index.export_topology(), remap)``
-  on a port store holding the same ids lays out the same blocks;
+  on a port store holding the same ids lays out the same blocks; an HNSW
+  graph crosses the same way, or through :func:`hnsw_from_topology`;
 * a collection: :func:`collection_from_snapshot` loads the rows of a JAX
   ``Collection.store.snapshot()`` into a port ``Collection`` and installs
   its engine's topology, the route the JAX DB takes on reload
@@ -64,6 +65,21 @@ def ivf_arrays_from_numpy(
         torch.tensor(np.asarray(block_keep, bool), device=device),
         f32(store_vectors),
     )
+
+
+def hnsw_from_topology(store, topology, *, slot_remap=None, **cfg):
+    """A port ``HNSWIndex`` over ``store`` holding the graph of a JAX
+    ``HNSWIndex.export_topology()``. ``slot_remap[old_slot]`` is the slot
+    of that row in ``store`` (-1: gone); without it the store holds the
+    rows at the JAX store's slots. ``cfg``: the engine's keywords (its
+    ``HNSWConfig`` fields, ``compute_dtype``)."""
+    from quiver_tpu_torch.index.hnsw import HNSWIndex
+
+    index = HNSWIndex(store, **cfg)
+    if slot_remap is None:
+        slot_remap = np.arange(len(np.asarray(topology["node_level"])), dtype=np.int64)
+    index.import_topology(topology, slot_remap)
+    return index
 
 
 def collection_from_snapshot(

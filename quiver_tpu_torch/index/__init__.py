@@ -10,11 +10,10 @@ Engine protocol (duck-typed):
   on_insert(slots, vectors) / on_update(slots, vectors) / on_delete(slots)
       (optional write hooks for engines that maintain derived state)
 
-The port has the ``exact``, ``ivf`` and ``hybrid`` engines (the hybrid with
-its IVF backend). Every other kind of the reference raises
-``NotImplementedError`` naming its ROADMAP.md item, as does the ``hnsw``
-namespace of a hybrid config; unknown kinds and unknown config fields
-raise ``ValueError``.
+The port has the ``exact``, ``ivf``, ``hnsw`` and ``hybrid`` engines (the
+hybrid with its IVF or HNSW backend). The sharded kinds of the reference
+raise ``NotImplementedError`` naming their ROADMAP.md item; unknown kinds
+and unknown config fields raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -25,7 +24,6 @@ _ENGINES = {"exact": ExactIndex}
 
 #: the reference's kinds that the port has not yet, with their ROADMAP.md item
 _NOT_PORTED = {
-    "hnsw": "queue 1, item 4",
     "sharded_exact": "queue 1, item 5",
     "sharded_hnsw": "queue 1, item 5",
     "sharded_ivf": "queue 1, item 5",
@@ -53,14 +51,14 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
     """Translate a JSON-safe per-collection engine config into constructor
     kwargs for :func:`make_engine` (``quiver_tpu/index/__init__.py:30-92``).
 
-    Accepted shape: ``{"ivf": {...IVFConfig fields...}, "adaptive":
-    {...AdaptiveConfig fields...}, <flat knob>: <scalar>, ...}``: a
-    namespaced block configures the matching engine (the hybrid's keys must
-    all be namespaced; its ``ivf`` and ``adaptive`` blocks become
-    ``ivf_config`` and ``adaptive_config``); flat keys pass to the engine
-    constructor. Unknown fields raise ValueError (a REST layer maps it to
-    400). Kinds the port lacks, and a hybrid's ``hnsw`` block, raise
-    NotImplementedError."""
+    Accepted shape: ``{"ivf": {...IVFConfig fields...}, "hnsw":
+    {...HNSWConfig fields...}, "adaptive": {...AdaptiveConfig fields...},
+    <flat knob>: <scalar>, ...}``: a namespaced block configures the
+    matching engine (the hybrid's keys must all be namespaced; its ``ivf``,
+    ``hnsw`` and ``adaptive`` blocks become ``ivf_config``, ``hnsw_config``
+    with ``ann_backend="hnsw"``, and ``adaptive_config``); flat keys pass to
+    the engine constructor. Unknown fields raise ValueError (a REST layer
+    maps it to 400). Kinds the port lacks raise NotImplementedError."""
     if kind in _NOT_PORTED:
         raise _not_ported(kind)
     jcfg = dict(jcfg or {})
@@ -73,15 +71,15 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
                     f"hybrid engine_config keys must be namespaced "
                     f"({'/'.join(_CONFIG_NAMESPACES)}); got {sorted(jcfg)}"
                 )
-            if "hnsw" in ns:
-                raise NotImplementedError(
-                    "the hybrid engine's HNSW backend is not ported to "
-                    "quiver_tpu_torch yet (ROADMAP.md queue 1, item 4)"
-                )
             if "ivf" in ns:
                 from quiver_tpu_torch.index.ivf import IVFConfig
 
                 out["ivf_config"] = IVFConfig(**ns["ivf"])
+            if "hnsw" in ns:
+                from quiver_tpu_torch.index.hnsw import HNSWConfig
+
+                out["hnsw_config"] = HNSWConfig(**ns["hnsw"])
+                out["ann_backend"] = "hnsw"
             if "adaptive" in ns:
                 from quiver_tpu_torch.index.hybrid import AdaptiveConfig
 
@@ -96,20 +94,28 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
             from quiver_tpu_torch.index.ivf import IVFConfig
 
             out = {"config": IVFConfig(**out)} if out else {}
+        elif kind == "hnsw":
+            from quiver_tpu_torch.index.hnsw import HNSWConfig
+
+            out = {"config": HNSWConfig(**out)} if out else {}
     except TypeError as e:  # unknown dataclass field
         raise ValueError(f"invalid engine_config for {kind!r}: {e}") from e
     return out
 
 
 def make_engine(kind: str, store, **cfg):
-    """Build an engine over a VectorStore. Kinds: exact | ivf | hybrid (and
-    any registered one)."""
+    """Build an engine over a VectorStore. Kinds: exact | ivf | hnsw |
+    hybrid (and any registered one)."""
     if kind in _ENGINES:
         factory = _ENGINES[kind]
     elif kind == "ivf":
         from quiver_tpu_torch.index.ivf import IVFIndex
 
         factory = IVFIndex
+    elif kind == "hnsw":
+        from quiver_tpu_torch.index.hnsw import HNSWIndex
+
+        factory = HNSWIndex
     elif kind == "hybrid":
         from quiver_tpu_torch.index.hybrid import HybridIndex
 

@@ -24,18 +24,18 @@ learned exact-threshold. Differences by design:
   ("exact" | "ivf" | "hnsw"), matching the reference's per-strategy stats
   (hybrid_index.go:383-469).
 
-PyTorch port of ``quiver_tpu/index/hybrid.py`` with its IVF backend. The
-HNSW backend waits for the HNSW engine (ROADMAP.md queue 1, item 4):
-``ann_backend="hnsw"``, or an ``hnsw_config`` or HNSW keyword that resolves
-``"auto"`` to it (``hybrid.py:216-220``), raises ``NotImplementedError``.
-The default engines are the port's ``ExactIndex`` and ``IVFIndex``, both
-at the hybrid's ``compute_dtype`` (f32 by default, so the IVF side keeps
-f32 blocks: ``ops/ivf_cuda.py``'s f32 kernel on the card).
+PyTorch port of ``quiver_tpu/index/hybrid.py``, with both ANN backends:
+the IVF engine and the HNSW engine (``index/hnsw.py``). The default engines
+are the port's ``ExactIndex`` and ``IVFIndex``, both at the hybrid's
+``compute_dtype`` (f32 by default, so the IVF side keeps f32 blocks:
+``ops/ivf_cuda.py``'s f32 kernel on the card); an ``hnsw_config`` or an
+HNSW keyword resolves ``"auto"`` to the graph, built at the same dtype.
 
 On the card, ``_search_mixed``'s two threads launch on the device's default
 stream, as every query does: the exact scan's ``VectorStore.device_view()``
-syncs under the store's lock, and the IVF engine holds its own lock across
-its device path, so the two sub-batches need nothing more. One change for
+syncs under the store's lock, and the IVF and HNSW engines each hold their
+own lock across their device path, so the two sub-batches need nothing
+more. One change for
 concurrent callers: the per-strategy counters are updated under a lock
 (the reference's ``+=`` can lose counts between concurrent searches).
 """
@@ -217,8 +217,7 @@ class HybridIndex:
           An explicit ``hnsw_config`` or HNSW kwarg resolves auto to
           "hnsw" (the caller clearly wants the graph).
         * "ivf": force IVF.  * "hnsw": force the graph (reference
-          parity — incremental pointer-graph semantics); not ported yet,
-          it raises ``NotImplementedError`` (ROADMAP.md queue 1, item 4).
+          parity — incremental pointer-graph semantics).
 
         Strategy labels and per-strategy stats name the engine that
         actually ran (reference hybrid_index.go:383-469)."""
@@ -243,11 +242,13 @@ class HybridIndex:
                 store, config=ivf_config, compute_dtype=compute_dtype
             )
         elif ann_backend == "hnsw":
-            raise NotImplementedError(
-                "the hybrid engine's HNSW backend is not ported to "
-                "quiver_tpu_torch yet (ROADMAP.md queue 1, item 4)"
-                + (f"; HNSW keywords given: {sorted(hnsw_overrides)}"
-                   if hnsw_overrides else "")
+            from quiver_tpu_torch.index.hnsw import HNSWIndex
+
+            self.ann = HNSWIndex(
+                store,
+                config=hnsw_config,
+                compute_dtype=compute_dtype,
+                **hnsw_overrides,
             )
         else:
             raise ValueError(f"unknown ann_backend {ann_backend!r}")

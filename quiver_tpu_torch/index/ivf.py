@@ -86,6 +86,7 @@ import torch
 
 from quiver_tpu_torch.core.store import VectorStore
 from quiver_tpu_torch.index.exact import ExactIndex
+from quiver_tpu_torch.index.hnsw import _merge_rows
 from quiver_tpu_torch.ops.distance import pairwise_distance
 from quiver_tpu_torch.ops.ivf_kernels import (
     POS_BITS,
@@ -121,23 +122,6 @@ def _cmax_shape(want: float) -> int:
     if w >= 128:
         return (w + 127) // 128 * 128
     return _pow2(w, lo=8)
-
-
-def _merge_rows(d1, i1, d2, i2, k):
-    """Merge two sorted candidate rows, dedup by id, keep k smallest
-    (copied from ``quiver_tpu/index/hnsw.py:933-947``)."""
-    seen = {}
-    for d, i in list(zip(d1, i1)) + list(zip(d2, i2)):
-        i = int(i)
-        if i >= 0 and (i not in seen or d < seen[i]):
-            seen[i] = float(d)
-    items = sorted(seen.items(), key=lambda kv: kv[1])[:k]
-    out_d = np.full(k, MASKED_DIST, np.float32)
-    out_i = np.full(k, -1, np.int32)
-    for j, (i, d) in enumerate(items):
-        out_d[j] = d
-        out_i[j] = i
-    return out_d, out_i
 
 
 def _layout_dev(block_slot, vectors, norms_sq, cents, dtype):

@@ -7,8 +7,9 @@ are fused in as masked scores, and a running top-k is merged per tile; the
 budget. Winners are rescored exactly in f32.
 
 ``compute_dtype=torch.bfloat16`` is the reference's fast mode
-(``scan.py:76-95``): the caller passes a bf16 copy of the corpus, the query
-is rounded to bf16, and the product is taken with f32 sums
+(``scan.py:76-95``): the caller passes a bf16 copy of the corpus (or the
+f32 corpus, rounded tile by tile, as the HNSW build does), the query is
+rounded to bf16, and the product is taken with f32 sums
 (``preferred_element_type=f32``): here a ``torch.matmul`` of the bf16
 values held in f32, whose products are exact. The winners' rescore reads
 the corpus it was given, as the reference's does (``scan.py:98-104``).
@@ -67,10 +68,11 @@ def _affine_scores(q, v, metric, v_norms_sq, v_inv_norms, compute_dtype=torch.fl
     """Monotonic larger-is-better scores: one matmul + one affine. Per-row
     constants and monotone transforms are dropped; true distances are
     reconstructed for the winners only. With a bf16 ``compute_dtype`` the
-    query is rounded to bf16 (``v`` is then the bf16 corpus copy) and the
-    products of the bf16 values are summed in f32."""
+    query and ``v`` are rounded to bf16 (a no-op on the bf16 corpus copy)
+    and the products of the bf16 values are summed in f32."""
     if compute_dtype != torch.float32:
         q = q.to(compute_dtype).float()
+        v = v.to(compute_dtype)
     dots = q @ v.float().T
     if metric == DistanceType.COSINE:
         return dots * v_inv_norms[None, :]

@@ -14,8 +14,9 @@ both, another summation order); on the default hybrid engine over IVF the
 port's recall@10 against the exact answer is at least the reference's less
 0.02 (ROADMAP.md's expected divergences). Status codes and error bodies are
 equal: 400 (a dimension mismatch, a malformed filter), 404, 401 and the
-rate limiter's 429. The one intended difference: ``engine: "hnsw"`` is 501
-on the port, with the ROADMAP.md item in its message.
+rate limiter's 429. HNSW collections (``engine: "hnsw"`` and a hybrid's
+``hnsw`` block) answer on both; the sharded kinds are 501 on the port, with
+the ROADMAP.md item in the message.
 
 Every server binds a free ephemeral port (tests/test_api.py binds
 18080-18086 and 19090, and may run at the same time on another worker).
@@ -600,17 +601,37 @@ def test_auth_and_rate_limit_parity():
 
 
 def test_hnsw_engine_is_501_on_the_port(pair):
-    """The intended difference: the reference serves an HNSW collection;
-    the port answers 501 naming the ROADMAP.md item, and creates nothing."""
-    servers, _, _ = pair
-    body = {"name": "graph", "dimension": D_PAR, "engine": "hnsw"}
-    rj, rt = both(servers, "POST", "/api/v1/collections", body)
-    assert rj.status_code == 201
-    assert rt.status_code == 501
-    assert "ROADMAP.md queue 1, item 4" in rt.json()["error"]
-    listed = requests.get(f"{servers['torch'].base}/api/v1/collections").json()["collections"]
-    assert "graph" not in listed
+    """Both servers serve HNSW now: an ``engine: "hnsw"`` collection and a
+    hybrid with an ``hnsw`` block answer create (201), insert and search
+    (200) on both, with the same top hit for each query (at this size each
+    query's own row is its top hit in both). The 501 stays for the kinds
+    the port lacks: a sharded kind answers 501 on the port, naming its
+    ROADMAP.md item, and creates nothing."""
+    servers, vecs, queries = pair
+    n = 400
+    rows = [{"id": f"v{i}", "vector": v.tolist()} for i, v in enumerate(vecs[:n])]
+    graph = {"build_batch": 512}  # one build batch, the same shapes in both collections
+    for name, extra in (
+            ("graph", {"engine": "hnsw", "engine_config": {"hnsw": graph}}),
+            ("graph2", {"engine": "hybrid", "engine_config": {
+                "hnsw": graph,
+                "adaptive": {"exploration_factor": 0.0, "initial_exact_threshold": 10}}})):
+        body = {"name": name, "dimension": D_PAR, "distance_function": "euclidean", **extra}
+        rj, rt = both(servers, "POST", "/api/v1/collections", body)
+        assert rj.status_code == rt.status_code == 201, (rj.text, rt.text)
+        rj, rt = both(servers, "POST", f"/api/v1/collections/{name}/vectors/batch",
+                      {"vectors": rows})
+        assert rj.status_code == rt.status_code == 201
+        for b in range(8):
+            rj, rt = both(servers, "POST", f"/api/v1/collections/{name}/search",
+                          {"vector": vecs[b].tolist(), "top_k": K})
+            assert rj.status_code == rt.status_code == 200
+            assert rt.json()["results"][0]["id"] == rj.json()["results"][0]["id"] == f"v{b}"
+    stats = requests.get(f"{servers['torch'].base}/api/v1/collections/graph2/stats").json()
+    assert stats["engine"]["per_strategy_queries"].get("hnsw", 0) > 0, stats
     rt = requests.post(f"{servers['torch'].base}/api/v1/collections", json={
-        "name": "graph2", "dimension": D_PAR, "engine": "hybrid",
-        "engine_config": {"hnsw": {"m": 8}}})
-    assert rt.status_code == 501 and "ROADMAP.md" in rt.json()["error"]
+        "name": "sharded", "dimension": D_PAR, "engine": "sharded_hnsw"})
+    assert rt.status_code == 501
+    assert "ROADMAP.md queue 1, item 5" in rt.json()["error"]
+    listed = requests.get(f"{servers['torch'].base}/api/v1/collections").json()["collections"]
+    assert "sharded" not in listed

@@ -125,6 +125,9 @@ def test_churn_runs_small_on_cpu():
     "quiver_tpu_torch.benches.bench_filtered",
     "quiver_tpu_torch.benches.bench_persistence",
     "quiver_tpu_torch.benches.profile_api",
+    "quiver_tpu_torch.benches.bench_hnsw",
+    "quiver_tpu_torch.benches.exp_hnsw_recall",
+    "quiver_tpu_torch.benches.bench_hybrid",
 ])
 def test_entry_points_refuse_without_cuda(module):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
@@ -220,3 +223,63 @@ def test_device_bytes_counts_aliases_once():
     assert store_device_bytes(store) == store.capacity * (4 * 4 + 1 + 4 + 4)
     assert device_bytes(h, skip=(VectorStore,)) == 424
     assert device_bytes(h) == 424 + store_device_bytes(store)
+
+
+def test_hnsw_benches_small_on_cpu():
+    """``bench_hnsw``, ``exp_hnsw_recall`` and ``bench_hybrid`` at a few
+    thousand rows: the rows the card run prints, host-clock figures marked
+    as the CPU's."""
+    from quiver_tpu_torch.benches import bench_hnsw, bench_hybrid, exp_hnsw_recall
+
+    rows = bench_hnsw.run("cpu", n=3000, b=32, batches=(16, 64), reps=1, emit_rows=False)
+    assert [r["unit"] for r in rows] == ["s", "qps", "qps", "qps", "ms/batch", "ms/batch"]
+    assert rows[0]["inserts_per_s"] > 0 and all("CPU host clock" in r["metric"] for r in rows)
+    for r in rows[1:4]:
+        assert 0.5 <= r["recall_at_10"] <= r["recall_at_10_ties"] <= 1.0 and r["card"] is None
+    rows = exp_hnsw_recall.run("cpu", n=3000, b=32, efs=(50,), reps=1, emit_rows=False)
+    assert [r["metric"].split(" ef=")[0].split("qd=")[1] for r in rows] == [
+        "float32 visited=ring", "float32 visited=bitmap", "bfloat16 visited=ring",
+        "bfloat16 visited=bitmap"]
+    rows = bench_hybrid.run("cpu", n=3000, b=32, reps=1, emit_rows=False)
+    assert [r.get("strategy") for r in rows] == ["ivf", None, "hnsw"]
+    assert rows[2]["per_strategy_queries"]["hnsw"] > 0 and rows[1]["hybrid_vs_raw"] > 0
+
+
+def test_chip_smoke_hnsw_phase_small_on_cpu():
+    """Phase 11's code path at a few thousand rows on the CPU (its card-only
+    trace skipped): every gate passes on a sound graph."""
+    import chip_smoke
+
+    vecs = clustered(4096)
+    out = chip_smoke.phase_hnsw(torch, torch.device("cpu"), vecs, n=2048, n_q=32,
+                                efs=(50, 400), batches=(16,), n_parity=16, reps=1)
+    assert out["n"] == 2048 and out["iters"]["max"] <= out["iters"]["max_iters"]
+    assert [r["visited"] for r in out["sweep"]] == ["ring", "ring", "bitmap"]
+    out = chip_smoke.phase_hnsw_stack(torch, torch.device("cpu"), vecs, n=2048, batch=512,
+                                      n_q=16, n_rest=256, n_hybrid=2048)
+    assert out["hybrid"]["split"]["hnsw"] > 0
+
+
+def test_chip_smoke_hnsw_gates_catch_a_broken_graph():
+    """``hnsw_invariants`` refuses a self edge, a repeated id and a fill
+    count that disagrees with its row; ``ids_agree`` counts only swaps of
+    entries whose distances differ."""
+    import chip_smoke
+    from quiver_tpu_torch.benches.bench_hnsw import build
+
+    _, idx, _ = build("cpu", clustered(1024)[:, :16].copy(), build_batch=512)
+    chip_smoke.hnsw_invariants(torch, idx)
+    adj = idx.layer0._adj_dev
+    for break_it in (lambda a: a.__setitem__((3, 0), int(idx.layer0.nodes[3])),
+                     lambda a: a.__setitem__((5, 1), int(a[5, 0]))):
+        saved = adj.clone()
+        break_it(adj)
+        with pytest.raises(AssertionError, match="graph invariants broken"):
+            chip_smoke.hnsw_invariants(torch, idx)
+        adj.copy_(saved)
+    idx.layer0._fill_dev[7] -= 1
+    with pytest.raises(AssertionError, match="'fill': 1"):
+        chip_smoke.hnsw_invariants(torch, idx)
+    ids = np.array([[1, 2, 3]])
+    assert chip_smoke.ids_agree(ids, [[1.0, 2.0, 2.0]], [[1, 3, 2]], [[1.0, 2.0, 2.0]]) == 0
+    assert chip_smoke.ids_agree(ids, [[1.0, 2.0, 3.0]], [[1, 3, 2]], [[1.0, 2.5, 3.0]]) == 1

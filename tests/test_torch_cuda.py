@@ -12,9 +12,10 @@ the card: ``block_topw`` (bf16 and f32 blocks) within the tolerance of
 (two packing quanta plus the bound of the dot products' rounding on
 unpacked scores, positions equal where scores are separated), ``scatter_rows`` and ``index_read`` exactly (they
 copy and double floats, or add one int to a float); the slice on the card
-against the slice on the CPU; and the live index on the card (writes and a
+against the slice on the CPU; the live index on the card (writes and a
 background refresh on the maintenance stream) against the CPU, and serving
-while a job runs.
+while a job runs; the HNSW engine's beam search and build on the card
+against the same calls on the CPU.
 """
 
 import threading
@@ -546,3 +547,55 @@ def test_server_on_cuda_serves_through_block_topw_f32(cuda):
     _, truth = ExactIndex(coll.store).search_slots(queries, 10)
     recall = np.mean([len(set(g) & set(t)) / 10 for g, t in zip(got, truth)])
     assert recall >= 0.9, recall
+
+
+def _hnsw_pair(devices, *, n=3000, d=32, seed=4, **cfg):
+    """The same clustered rows in an HNSW index per device, built alike."""
+    from quiver_tpu_torch.benches.common import make_clustered_corpus
+    from quiver_tpu_torch.index.hnsw import HNSWIndex
+
+    vecs, rng = make_clustered_corpus(n, d, seed=seed, n_centers=24)
+    out = []
+    for dev in devices:
+        store = VectorStore(dim=d, metric="euclidean", device=dev)
+        idx = HNSWIndex(store, build_batch=1024, **cfg)
+        idx.on_insert(store.add_batch([f"v{i}" for i in range(n)], vecs), vecs)
+        out.append(idx)
+    q = (vecs[rng.integers(0, n, 64)] + 0.1 * rng.normal(size=(64, d))).astype(np.float32)
+    return out, vecs, q
+
+
+@pytest.mark.parametrize("visited", ["ring", "bitmap"])
+def test_hnsw_search_on_cuda_matches_cpu_on_one_graph(cuda, visited):
+    """The CPU build's graph imported on the card: the beam search gives the
+    same ids (up to swaps of entries tied within 1e-4) and distances to
+    atol 1e-4: the graph's affine f32 distance rounds by ~eps(|q|^2 +
+    |v|^2) / d, which reaches ~2e-5 at the nearest rows here (|v|^2 ~ 34,
+    d ~ 0.5), summed in another order on each device."""
+    from quiver_tpu_torch.convert import hnsw_from_topology
+
+    (ic,), vecs, q = _hnsw_pair(("cpu",), visited=visited)
+    store = VectorStore(dim=vecs.shape[1], metric="euclidean", device=cuda)
+    store.add_batch([f"v{i}" for i in range(len(vecs))], vecs)
+    ig = hnsw_from_topology(store, ic.export_topology(), visited=visited)
+    dg, sg = ig.search_slots(q, 10)
+    dc, sc = ic.search_slots(q, 10)
+    np.testing.assert_allclose(dg, dc, rtol=1e-5, atol=1e-4)
+    assert chip_smoke.ids_agree(sg, dg, sc, dc, rel=1e-4) == 0
+
+
+def test_hnsw_build_on_cuda_matches_cpu(cuda):
+    """Builds of the same rows from the same seed on the card and on the
+    CPU: the same levels and entry point, at least 95% of the layer-0 rows
+    identical, recall within 0.02 of each other."""
+    from quiver_tpu_torch.index.exact import ExactIndex
+
+    (ic, ig), vecs, q = _hnsw_pair(("cpu", cuda))
+    np.testing.assert_array_equal(ig.node_level, ic.node_level)
+    assert ig.entry_point == ic.entry_point
+    assert (ig.layer0.adj == ic.layer0.adj).all(axis=1).mean() >= 0.95
+    chip_smoke.hnsw_invariants(torch, ig)
+    _, truth = ExactIndex(ic.store).search_slots(q, 10)
+    rec = [np.mean([len(set(s[b]) & set(truth[b])) / 10 for b in range(len(q))])
+           for s in (ig.search_slots(q, 10)[1], ic.search_slots(q, 10)[1])]
+    assert abs(rec[0] - rec[1]) <= 0.02 and rec[0] >= 0.9

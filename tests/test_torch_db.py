@@ -10,11 +10,11 @@ namespace; results are held to each other: ids equal, distances to
 rtol/atol 1e-4 (f32 in both: the exact scan, or IVF over f32 blocks,
 where only the summation order differs), sizes and flags equal.
 
-Waiting for the HNSW engine (ROADMAP.md queue 1, item 4), because they
-build the graph: ``test_topology_roundtrip_identical_graph``,
-``test_topology_with_wal_mutations`` and ``test_hybrid_engine_sidecar`` as
-written (HNSW default engine); here the same flows run with the IVF engine
-and the hybrid's IVF backend.
+The reference's ``test_topology_roundtrip_identical_graph``,
+``test_topology_with_wal_mutations`` and ``test_hybrid_engine_sidecar``
+build the graph (its HNSW default engine); here the same flows run with
+the IVF engine and the hybrid's IVF backend, and the HNSW sidecar's round
+trip between the packages is held in test_torch_persistence.py.
 """
 
 import threading

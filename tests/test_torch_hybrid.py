@@ -13,13 +13,9 @@ out the same f32 blocks; the queries then agree in distances to rtol/atol
 wherever the reference's distances are separated from the k-th by more
 than that (``assert_topk_agree``).
 
-Waiting for the HNSW engine (ROADMAP.md queue 1, item 4), because they
-build the graph backend: ``test_large_corpus_selects_hnsw``'s routing to a
-graph, ``test_hybrid_large_routes_hnsw``, ``test_writes_propagate_to_graph``,
-``test_optimization_parameters_surface`` (``ef_search`` / ``m``) and the
-HNSW half of ``test_optimization_knobs_of_other_backend_are_noop`` and
-``test_default_ann_backend_resolves_to_ivf``; here the port raises
-``NotImplementedError`` for that backend instead (:func:`test_hnsw_backend_raises`).
+The HNSW backend runs through both packages too (:class:`Both` with
+``hnsw``): the port's graph imports the JAX build's topology, so both
+search the same graph, and ids and distances are held as above.
 """
 
 import sys
@@ -40,6 +36,8 @@ from quiver_tpu_torch import Collection
 from quiver_tpu_torch.core.store import VectorStore as TStore
 from quiver_tpu_torch.index import hybrid as th
 from quiver_tpu_torch.index import make_engine, resolve_engine_config
+from quiver_tpu_torch.index.hnsw import HNSWConfig as THConfig
+from quiver_tpu_torch.index.hnsw import HNSWIndex as THNSW
 from quiver_tpu_torch.index.ivf import IVFConfig as TConfig
 from quiver_tpu_torch.index.ivf import IVFIndex as TIVF
 
@@ -67,17 +65,19 @@ class Both:
     """A JAX and a port hybrid over the same rows; the port's IVF side
     holds the JAX engine's topology once the JAX one has built."""
 
-    def __init__(self, n=300, d=D, *, seed=0, adaptive=None, ivf=None, metric="euclidean"):
+    def __init__(self, n=300, d=D, *, seed=0, adaptive=None, ivf=None, metric="euclidean",
+                 hnsw=None):
         rng = np.random.default_rng(seed)
         self.vecs = rng.normal(size=(n, d)).astype(np.float32)
         ivf = {"build_threshold": 256, "n_probe": 8, **(ivf or {})}
         adaptive = dict(adaptive or {"exploration_factor": 0.0})
         self.js = JStore(dim=d, metric=metric, capacity=n)
         self.ts = TStore(dim=d, metric=metric, capacity=n, device="cpu")
-        self.j = jh.HybridIndex(self.js, ivf_config=JConfig(**ivf),
-                                adaptive_config=jh.AdaptiveConfig(**adaptive))
-        self.t = th.HybridIndex(self.ts, ivf_config=TConfig(**ivf),
-                                adaptive_config=th.AdaptiveConfig(**adaptive))
+        # the ANN side: IVF, or the graph with ``hnsw``'s keywords
+        j_ann = {"ivf_config": JConfig(**ivf)} if hnsw is None else dict(hnsw)
+        t_ann = {"ivf_config": TConfig(**ivf)} if hnsw is None else dict(hnsw)
+        self.j = jh.HybridIndex(self.js, adaptive_config=jh.AdaptiveConfig(**adaptive), **j_ann)
+        self.t = th.HybridIndex(self.ts, adaptive_config=th.AdaptiveConfig(**adaptive), **t_ann)
         ids = [f"v{i}" for i in range(n)]
         js_slots = self.js.add_batch(ids, self.vecs)
         ts_slots = self.ts.add_batch(ids, self.vecs)
@@ -265,19 +265,59 @@ def test_default_backend_is_ivf_with_f32_blocks():
     assert b.t.last_strategy == "ivf" and (s[:, 0] == np.arange(8)).mean() >= 0.8
 
 
+def near(q):
+    """Queries a little off their rows: at a stored row the affine f32
+    distance is cancellation noise (~1e-3), which neither package computes
+    alike."""
+    return (q + 0.01 * np.random.default_rng(8).normal(size=q.shape)).astype(np.float32)
+
+
 def test_hnsw_backend_raises():
-    """The graph backend waits for the HNSW engine: every route to it raises
-    NotImplementedError naming its ROADMAP.md item (the reference builds
-    the graph there)."""
+    """The graph backend: ``ann_backend="hnsw"``, an HNSW keyword or an
+    ``hnsw_config`` build it (the ``hnsw`` namespace of a JSON config too,
+    as in the reference); it routes and answers as the reference's on the
+    same graph. An unknown backend still raises."""
     ts = TStore(dim=D, metric="euclidean", device="cpu")
-    for kw in ({"ann_backend": "hnsw"}, {"build_batch": 128}, {"hnsw_config": object()}):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            th.HybridIndex(ts, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        resolve_engine_config("hybrid", {"hnsw": {"m": 8}})
-    assert j_resolve("hybrid", {"hnsw": {"m": 8}})["ann_backend"] == "hnsw"
+    for kw in ({"ann_backend": "hnsw"}, {"build_batch": 128}, {"hnsw_config": THConfig(m=8)}):
+        idx = th.HybridIndex(ts, **kw)
+        assert idx.ann_backend == "hnsw" and isinstance(idx.ann, THNSW) and idx.ann_label == "hnsw"
+    out, ref = resolve_engine_config("hybrid", {"hnsw": {"m": 8}}), j_resolve("hybrid", {"hnsw": {"m": 8}})
+    assert out["ann_backend"] == ref["ann_backend"] == "hnsw"
+    assert vars(out["hnsw_config"]) == vars(ref["hnsw_config"])
+    assert th.HybridIndex(ts, **out).ann.config.m == 8
+    b = Both(n=300, hnsw={"build_batch": 256},
+             adaptive={"exploration_factor": 0.0, "initial_exact_threshold": 10})
+    _, slots = b.search(near(b.vecs[:8]), 5)
+    assert b.t.last_strategy == "hnsw" and (slots[:, 0] == np.arange(8)).all()
     with pytest.raises(ValueError, match="unknown ann_backend"):
         th.HybridIndex(ts, ann_backend="bogus")
+
+
+def test_large_corpus_selects_hnsw():
+    """The selector's default ANN label is the graph's, in both packages."""
+    sj, st = jh.AdaptiveStrategySelector(no_explore(jh)), th.AdaptiveStrategySelector(no_explore(th))
+    for count, dim, k in ((100_000, 64, 10), (100_000, 512, 10), (500, 64, 10)):
+        assert st.select_strategy(count, dim, k) == sj.select_strategy(count, dim, k)
+    assert st.select_strategy(100_000, 64, 10) == th.HNSW == "hnsw"
+
+
+def test_hybrid_large_routes_hnsw():
+    b = Both(n=300, hnsw={"build_batch": 256},
+             adaptive={"exploration_factor": 0.0, "initial_exact_threshold": 10})
+    _, slots = b.search(near(b.vecs[:2]), 5)
+    assert b.t.last_strategy == th.HNSW
+    assert b.ts.id_of(int(slots[0, 0])) == "v0"
+
+
+def test_writes_propagate_to_graph():
+    b = Both(n=300, hnsw={"build_batch": 256},
+             adaptive={"exploration_factor": 0.0, "initial_exact_threshold": 10})
+    for store, idx in ((b.js, b.j), (b.ts, b.t)):
+        slot = store.slot_of("v3")
+        store.delete("v3")
+        idx.on_delete(np.asarray([slot]))
+    _, slots = b.search(near(b.vecs[3][None]), 10, strategy=th.HNSW)
+    assert "v3" not in {b.ts.id_of(int(s)) for s in slots[0] if s >= 0}
 
 
 def test_recall_shortfall_routes_to_exact():

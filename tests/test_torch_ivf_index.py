@@ -182,17 +182,15 @@ def test_unported_parts_raise(jax_topology):
     te.config.formulation = "einsum"
     with pytest.raises(NotImplementedError, match="einsum.*ROADMAP.md"):
         te.search_slots(queries, KTOP)
-    for kind, item in (("hnsw", "queue 1, item 4"), ("sharded_exact", "queue 1, item 5"),
-                       ("sharded_hnsw", "queue 1, item 5"), ("sharded_ivf", "queue 1, item 5"),
-                       ("sharded_hybrid", "queue 1, item 5")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    for kind in ("sharded_exact", "sharded_hnsw", "sharded_ivf", "sharded_hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
             make_engine(kind, te.store)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
             resolve_engine_config(kind, {})
-    # the hybrid is ported (its IVF backend); its graph backend is not
-    assert make_engine("hybrid", te.store).name == "hybrid"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-        make_engine("hybrid", te.store, ann_backend="hnsw")
+    # the graph engine and the hybrid with either backend are ported
+    assert make_engine("hnsw", te.store).name == "hnsw"
+    assert make_engine("hybrid", te.store).ann_backend == "ivf"
+    assert make_engine("hybrid", te.store, ann_backend="hnsw").ann.name == "hnsw"
 
 
 def test_fused_and_device_checks(jax_topology):

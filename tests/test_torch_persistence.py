@@ -11,18 +11,20 @@ the DB's lifecycle and options, and the native WAL. The port's WAL is
 always the native writer, built with g++ at first use.
 
 Then the files themselves: a storage directory written by either package
-loads in the other, for an ``exact`` and an ``ivf`` collection, with the
-topology sidecar and a WAL of writes after the last flush; JSON-lines WALs
+loads in the other, for an ``exact``, an ``ivf`` and an ``hnsw``
+collection, with the topology sidecar (the reader imports the graph and
+inserts only the rows the WAL added after it) and a WAL of writes after
+the last flush; JSON-lines WALs
 (the reference's Python writer) in both directions, and native frames with
 each package's ``wal.cc`` built into ``tmp_path`` and each log read with
 the other's library. Codecs are exact (arrays equal bit for bit); search
 distances agree to rtol/atol 1e-5 (f32 in both; only the summation order
 differs).
 
-Waiting for the HNSW engine (ROADMAP.md queue 1, item 4):
-``test_engine_kind_survives_reload`` reloads an ``engine="hnsw"``
-collection; here :func:`test_engine_kind_survives_reload_ivf` runs it with
-``engine="ivf"``.
+``test_engine_kind_survives_reload`` of the reference reloads an
+``engine="hnsw"`` collection; :func:`test_engine_kind_survives_reload_ivf`
+runs it with ``engine="ivf"``, and the cross-package directory test with
+``engine="hnsw"``.
 """
 
 import json
@@ -42,10 +44,12 @@ import quiver_tpu_torch.persistence.manager as tmanager
 from quiver_tpu import types as jtypes
 from quiver_tpu.core.db import DB as JDB
 from quiver_tpu.core.db import DBOptions as JDBOptions
+from quiver_tpu.index.hnsw import HNSWIndex as JHNSW
 from quiver_tpu.persistence import parquet_io as jpq
 from quiver_tpu_torch import types as ttypes
 from quiver_tpu_torch.core.db import DB as TDB
 from quiver_tpu_torch.core.db import DBOptions as TDBOptions
+from quiver_tpu_torch.index.hnsw import HNSWIndex as THNSW
 from quiver_tpu_torch.persistence import parquet_io as tpq
 
 D = 6
@@ -53,10 +57,10 @@ TOL = 1e-5
 
 JAX = types.SimpleNamespace(
     name="jax", DB=JDB, DBOptions=JDBOptions, manager=jmanager, pq=jpq, types=jtypes,
-    native=jnative, dev={})
+    native=jnative, hnsw=JHNSW, dev={})
 TORCH = types.SimpleNamespace(
     name="torch", DB=TDB, DBOptions=TDBOptions, manager=tmanager, pq=tpq, types=ttypes,
-    native=tnative, dev={"device": "cpu"})
+    native=tnative, hnsw=THNSW, dev={"device": "cpu"})
 PKGS = (JAX, TORCH)
 
 
@@ -512,36 +516,50 @@ def _write_dir(pkg, root, engine, *, crash):
 
 
 @pytest.mark.parametrize("crash", [False, True])
-@pytest.mark.parametrize("engine", ["exact", "ivf"])
+@pytest.mark.parametrize("engine", ["exact", "ivf", "hnsw"])
 @pytest.mark.parametrize("writer,reader", [(JAX, TORCH), (TORCH, JAX)])
-def test_storage_directory_loads_in_the_other_package(tmp_path, writer, reader, engine, crash):
+def test_storage_directory_loads_in_the_other_package(tmp_path, monkeypatch, writer, reader,
+                                                      engine, crash):
     """Written by one package, loaded by the other: rows, metadata, the
-    engine kind and, for IVF, the sidecar's topology (the reader's engine
-    imports it: same centroids, same assignment of every snapshot row);
-    with ``crash`` the last writes come from the writer's native WAL."""
+    engine kind and the sidecar's topology (for IVF the same centroids and
+    assignment of every snapshot row; for HNSW the imported graph, with
+    only the WAL's added rows inserted, none rebuilt); with ``crash`` the
+    last writes come from the writer's native WAL. The HNSW queries sit a
+    little off their rows: at a stored row the graph's affine f32 distance
+    is cancellation noise."""
     root = tmp_path / "d"
     ids, vecs = _write_dir(writer, root, engine, crash=crash)
-    assert os.path.exists(root / "c" / "topology.npz") == (engine == "ivf")
-    topo = dict(np.load(root / "c" / "topology.npz")) if engine == "ivf" else None
+    assert os.path.exists(root / "c" / "topology.npz") == (engine != "exact")
+    topo = dict(np.load(root / "c" / "topology.npz")) if engine != "exact" else None
+    inserted = []
+    insert = reader.hnsw.on_insert
+    monkeypatch.setattr(reader.hnsw, "on_insert",
+                        lambda self, s, v: (inserted.append(len(s)), insert(self, s, v))[1])
     db = reader.DB(opts(reader, root))
     c = db.get_collection("c")
     assert c.size == len(ids) and c.engine_kind == engine
     assert sorted(c.store.ids()) == sorted(ids) and c.get("v25").metadata == {"i": 25}
     np.testing.assert_array_equal(c.get("w3").values, vecs[ids.index("w3")])
+    snap = dict(zip(topo["snapshot_ids"].tolist(), topo["snapshot_slots"].tolist())) if topo else {}
     if engine == "ivf":
         assert c.engine._built
         np.testing.assert_array_equal(np.asarray(c.engine._centroids), topo["centroids"])
-        snap = dict(zip(topo["snapshot_ids"].tolist(), topo["snapshot_slots"].tolist()))
         for vid in ("v20", "v150", "v299"):
             assert c.engine._slot_pos[c.store.slot_of(vid), 0] == topo["assign"][snap[vid]]
-    hits = top(reader, c, vecs[ids.index("w5")], 3)
-    assert hits[0][0] == "w5" and "v3" not in [i for i, _ in top(reader, c, vecs[0], 50)]
+    if engine == "hnsw":
+        assert sum(inserted) == (20 if crash else 0), inserted
+        for vid in ("v20", "v150", "v299"):
+            assert c.engine.node_level[c.store.slot_of(vid)] == topo["node_level"][snap[vid]]
+    jitter = 0.2 if engine == "hnsw" else 0.0
+    q5, q0 = vecs[ids.index("w5")] + jitter, vecs[0] + jitter
+    hits = top(reader, c, q5, 3)
+    assert hits[0][0] == "w5" and "v3" not in [i for i, _ in top(reader, c, q0, 50)]
     db.close()
     # and the writer reads back what the reader flushed
     db2 = writer.DB(opts(writer, root))
     c2 = db2.get_collection("c")
     assert c2.size == len(ids)
-    assert_hits_agree(top(writer, c2, vecs[ids.index("w5")], 3), hits)
+    assert_hits_agree(top(writer, c2, q5, 3), hits)
     db2.close()
 
 
