@@ -147,13 +147,38 @@ printing any result. Phases, one line each (any failure raises):
    sidecar (a rebuild); a hybrid with an ``hnsw`` block at
    ``benches/bench_hybrid.py``'s shape (20,000 x 64-d; gate: a 128-query
    batch routes mostly to the graph); a REST create, insert and search of
-   an ``engine: "hnsw"`` collection (201, 201, 200).
+   an ``engine: "hnsw"`` collection (201, 201, 200);
+12. the sharded engines, 4 shards placed together on the card
+   (``SHARDS``; ``quiver_tpu_torch/parallel/``): (a) a ``ShardedIVFIndex``
+   over the 1M corpus at the headline config (tuner on): tie-aware
+   recall@10 against phase 4's oracle (gate >= 0.95), ms per batch at
+   B=65536 and 2,048, each shard's candidate stage and the merge apart
+   (CUDA events, ``sharded_ivf_query(stats=)``), launches per batch, card
+   bytes per shard; (b) 2,048 queries in shard 0's clusters: the skew
+   auto-raise must fire and the next batch's recall come within 0.01 of
+   the no-drop control; (c) the engine's ``ShardedExactIndex`` at B=2,048
+   against the single-card scan (ids equal up to tie swaps,
+   :func:`ids_agree`), the merge's share of its wall; (d) a
+   ``ShardedHNSWIndex`` over the first 65,536 rows (f32 construction, cut
+   as the persist cell): recall@10 at ef {100, 200} (gate >= 0.95 at
+   ef=200), ms per batch and launches per search at B=2,048, the batched
+   search equal to per-shard calls on 256 queries; (e) a DB with
+   ``default_engine="sharded_hybrid"`` (f32 blocks; the collection's
+   IVF knobs are phase 9b's ``DB_IVF``, the n_probe tuner on) over those
+   rows: recall@10 >= 0.95 against the exact scan, a refresh, then a
+   flush and reload through the sidecar serving identical top-10 lists
+   at the tuned n_probe with no build; a REST ``sharded_ivf`` collection
+   (201, 201, 200). Every ``block_topw`` call of (a), (b) and (e), each on a shard's
+   truncated pair list, is held against its plain version
+   (:class:`LiveCheck`).
 
-The 1M corpus is generated once and shared by phases 4-11; phase 4's engine
+The 1M corpus is generated once and shared by phases 4-12; phase 4's engine
 is dropped before phase 7. Then a JSON line of kernels (the bf16 kernel's
 launches are the main path's, phase 4, and the f32 kernel's the
-database's, phase 9; the pairs entry's error covers phases 3, 7 and 8,
-the row mode's phases 3 and 4, the f32 entries' phases 3, 9 and 10;
+database's, phase 9; ``sharded_launches`` on every entry are phase 12's
+launches of that variant; the pairs entry's error covers phases 3, 7 and
+8, the row mode's phases 3 and 4, the f32 entries' phases 3, 9 and 10,
+and each entry's also phase 12's calls of its variant;
 ``bound_ms`` is computed from this run's operands and ``bound_share`` is
 it over ``ms``), the card line, and last the result line.
 """
@@ -280,12 +305,13 @@ SCORE_KEYS = ("P", "scale", "col_add", "row_add", "col_mul", "sub_cent", "round_
 
 
 def pair_scores_orig(torch, args, kw):
-    """f32[BP, Cmax] plain scores of a block_topw call, rows in original
-    pair order (what compare_keys reads positions against)."""
+    """f32[B*P, Cmax] plain scores of a block_topw call, rows in original
+    pair order (what compare_keys reads positions against); rows no sorted
+    pair reaches (a shard's truncated list) are zero."""
     from quiver_tpu_torch.ops.ivf_cuda import pair_scores_reference
 
     s_sorted = pair_scores_reference(*args, **{k: kw[k] for k in SCORE_KEYS if k in kw})
-    s_orig = torch.empty_like(s_sorted)
+    s_orig = s_sorted.new_zeros(args[0].shape[0] * kw["P"], s_sorted.shape[1])
     s_orig[args[3].long()] = s_sorted
     return s_orig
 
@@ -296,7 +322,8 @@ SUM_ERR = 16.0
 
 
 def sum_scale(torch, args, kw):
-    """f32[BP] per pair, original order: |scale| * ||a|| * max_j |col_mul[c, j]|
+    """f32[B*P] per pair, original order (zero for pairs a truncated list
+    leaves out): |scale| * ||a|| * max_j |col_mul[c, j]|
     * ||b_j||, with a the pair's query row as the product takes it (minus the
     centroid for L2, bf16-rounded unless ``round_query`` is False) and b_j
     the columns of its cluster's block. By Cauchy-Schwarz it bounds
@@ -304,9 +331,9 @@ def sum_scale(torch, args, kw):
     the dot products."""
     q, cents, starts, order, blocks = args
     K, _, Cmax = blocks.shape
-    BP = order.shape[0]
+    M = order.shape[0]
     sorted_c = torch.repeat_interleave(torch.arange(K, device=q.device),
-                                       (starts[1:] - starts[:-1]).long(), output_size=BP)
+                                       (starts[1:] - starts[:-1]).long(), output_size=M)
     a = q[order.long() // kw["P"]]
     if kw["sub_cent"]:
         a = a - cents[sorted_c]
@@ -317,7 +344,7 @@ def sum_scale(torch, args, kw):
                     for c in range(0, K, 64)])  # f32[K, Cmax]
     if kw.get("col_mul") is not None:
         bn = bn * kw["col_mul"].abs()
-    out = torch.empty(BP, dtype=torch.float32, device=q.device)
+    out = torch.zeros(q.shape[0] * kw["P"], dtype=torch.float32, device=q.device)
     out[order.long()] = abs(kw["scale"]) * a * bn.max(dim=1).values[sorted_c]
     return out
 
@@ -348,8 +375,12 @@ def compare_keys(torch, k_kern, k_ref, s_orig, sums, *, W, R, pos_bits, win_add=
     mag = sr.abs() if win_add is None else sr.abs() + win_add.abs()[:, None]
     tol = 2.0 ** (pos_bits - 22) * mag + SUM_ERR * 2.0 ** -24 * sums[:, None]
     err = torch.where(real, (sk - sr).abs(), 0.0)
-    if not bool((err <= tol).all()):
-        bad = int((err > tol).sum())
+    # KEY_MIN lanes (row mode's sentinel, e.g. the rows a shard's truncated
+    # pair list leaves out) decode to NaN: they are masked winners, held
+    # key for key below
+    ok = (err <= tol) | ~real
+    if not bool(ok.all()):
+        bad = int((~ok).sum())
         raise AssertionError(f"{bad} winner scores differ beyond tolerance; max {float(err.max())}")
     if not bool((k_kern == k_ref)[~real].all()):
         raise AssertionError("masked winners differ")
@@ -437,15 +468,22 @@ class LiveCheck:
             raise AssertionError(f"{phase}: no block_topw call to check")
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        from quiver_tpu_torch.ops import ivf_cuda
+
         worst, diffs, bps = 0.0, 0, set()
-        #: the largest score error by (blocks' dtype, W, R)
-        self.worst_by = {}
+        #: the largest score error by (blocks' dtype, W, R), and by the
+        #: launch-count key of ``ivf_cuda.launch_counts`` (the variant)
+        self.worst_by, self.worst_by_variant = {}, {}
         for args, kw, k_kern in self.calls:
             err, n_diff = check_call(torch, args, kw, k_kern)
             worst, diffs = max(worst, err), diffs + n_diff
             bps.add((int(args[3].shape[0]), kw["P"], kw["W"], kw["R"]))
             key = (str(args[4].dtype).split(".")[-1], kw["W"], kw["R"])
             self.worst_by[key] = max(self.worst_by.get(key, 0.0), err)
+            wr = (kw["W"], kw["R"])
+            var = wr if wr in ivf_cuda.CUDA_VARIANTS else ivf_cuda.ROW_MODE
+            var = (ivf_cuda.F32, var) if args[4].dtype == torch.float32 else var
+            self.worst_by_variant[var] = max(self.worst_by_variant.get(var, 0.0), err)
         log(f"{phase} live check: {len(self.calls)} block_topw calls within tolerance "
             f"of block_topw_reference (BP, P, W, R in {sorted(bps)}): "
             f"max_abs_err={worst!r} pos_diffs={diffs}")
@@ -1688,6 +1726,332 @@ def phase_hnsw_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH, n
     return out
 
 
+#: phase 12: the sharded engines, their shards placed together on the card
+SHARDS = 4
+#: phase 12b: the skewed batch (every query in shard 0's clusters)
+SKEW_B = 2048
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    """``total`` plus the nonzero entries of ``counts``, key by key."""
+    for key, n in counts.items():
+        if n:
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def max_by(total: dict, errs: dict) -> dict:
+    """``total`` with each key's largest value of the two."""
+    for key, e in errs.items():
+        total[key] = max(total.get(key, 0.0), e)
+    return total
+
+
+def dtype_launches(ivf_cuda, *, f32: bool) -> int:
+    """``block_topw`` launches counted since the last reset, every variant
+    of the f32-block kernel (``f32``) or of the bf16 one."""
+    return sum(v for k, v in ivf_cuda.launch_counts.items()
+               if (isinstance(k, tuple) and k[0] == ivf_cuda.F32) == f32)
+
+
+def shard_bytes(eng) -> list:
+    """Card bytes each shard of a ``ShardedIVFIndex`` reads: its slice of
+    the block arrays and its rows of the store's device view (the exact
+    fallbacks' shards are views of the store, not copies)."""
+    KL = eng._k_local
+    out = []
+    for s, rows in enumerate(eng._exact.shards()):
+        sl = slice(s * KL, (s + 1) * KL)
+        blocks = sum(t[sl].numel() * t.element_size() for t in (
+            eng._blocks_t, eng._block_slot, eng._block_ns, eng._block_inv, eng._block_keep))
+        out.append(blocks + sum(t.numel() * t.element_size() for t in rows))
+    return out
+
+
+def phase_sharded_ivf(torch, dev, vecs, oracle_q, oracle_kth_, *, reps=10) -> dict:
+    """Phases 12a-c: the sharded IVF engine over the 1M corpus, 4 shards on
+    ``dev`` (module docstring), its skew auto-raise, then the sharded exact
+    scan against the single-card one; gates raise. Returns the measured
+    numbers, the block_topw calls' largest error and their launches."""
+    from quiver_tpu_torch import IVFConfig, VectorStore
+    from quiver_tpu_torch.index.exact import ExactIndex
+    from quiver_tpu_torch.ops import ivf_cuda
+    from quiver_tpu_torch.ops.scan import flat_scan_topk
+    from quiver_tpu_torch.parallel.sharded import merge_topk
+    from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex, span_ms
+
+    n, d = vecs.shape
+    out = {}
+    t0 = time.perf_counter()
+    store = VectorStore(dim=d, metric="euclidean", capacity=n, device=dev)
+    store.add_batch([f"v{i}" for i in range(n)], vecs)
+    eng = ShardedIVFIndex(store, SHARDS, config=IVFConfig(
+        n_clusters=N_CLUSTERS, n_probe=3, q_cap_factor=2, kmeans_iters=8,
+        build_threshold=1024, rescore=False, recall_target=RECALL_TARGET))
+    eng.build()
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    log(f"sharded ivf build: {SHARDS} shards on {dev}: wall_s={out['build_s']!r} "
+        f"(store load included) K'={int(eng._cluster_live.sum())} Kg={len(eng._cluster_live)} "
+        f"KL={eng._k_local} Cmax={eng._cmax} tuned n_probe={eng._tuned_n_probe} "
+        f"holdout_recall={eng._tuned_recall!r}")
+    _, qb = make_queries(vecs, B_SERVE, B_ORACLE)
+    qdev = torch.from_numpy(qb).to(dev)
+    ivf_cuda.reset_launch_counts()
+    with LiveCheck() as live:
+        dist, slots = eng.search_slots(oracle_q, TOP_K)
+        r = recall_with_ties(slots, oracle_q, vecs, oracle_kth_, TOP_K)
+        eng.search_slots_device(qdev, TOP_K)
+    if dist.shape != (len(oracle_q), TOP_K) or not np.isfinite(dist).all() or (slots < 0).any():
+        raise AssertionError("sharded ivf: bad result")
+    log(f"sharded ivf recall@{TOP_K} (tie-aware, phase 4's f64 oracle, {len(oracle_q)} "
+        f"queries) at n_probe={eng.config.n_probe}: {r!r}")
+    if r < RECALL_GATE:
+        raise AssertionError(f"sharded ivf recall@10 {r} < {RECALL_GATE}")
+    out["recall"] = r
+    live.verify(torch, "sharded ivf")
+    out["err"] = dict(live.worst_by_variant)
+    out["launches"] = add_counts({}, ivf_cuda.launch_counts)
+    ivf_cuda.reset_launch_counts()
+    eng.search_slots_device(qdev, TOP_K)
+    torch.cuda.synchronize()
+    per_batch = {str(k): v for k, v in ivf_cuda.launch_counts.items() if v}
+    log(f"sharded ivf launches per B={B_SERVE} batch: {per_batch}")
+    for b in (B_SERVE, 2048):
+        q = qdev[:b]
+        ms = cuda_ms(lambda: eng.search_slots_device(q, TOP_K), reps)
+        stats = {}
+        eng.search_slots_device(q, TOP_K, stats=stats)
+        torch.cuda.synchronize()
+        spans = span_ms(stats)
+        shard_ms = [spans[f"shard{s}"] for s in range(SHARDS)]
+        out[f"B{b}"] = {"ms": ms, "probe_ms": spans["probe"], "shard_ms": shard_ms,
+                        "merge_ms": spans["merge"]}
+        log(f"sharded ivf B={b} n_probe={eng.config.n_probe}: ms_per_batch={ms!r} "
+            f"qps={b / (ms / 1e3)!r}; one batch by stage (CUDA events): probe "
+            f"{spans['probe']!r} ms, per-shard candidates {shard_ms!r} ms, merge "
+            f"{spans['merge']!r} ms ({spans['merge'] / sum(spans.values())!r} of the batch)")
+    per_shard = shard_bytes(eng)
+    log(f"sharded ivf memory: per shard {per_shard} bytes (blocks slice + store rows, "
+        f"the rows shared with the exact fallbacks, no copy); "
+        f"engine device_bytes={eng.device_bytes()} memory_allocated="
+        f"{torch.cuda.memory_allocated(dev)} max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
+    out["shard_bytes"] = per_shard
+
+    # 12b: every query in shard 0's clusters
+    kl = eng._k_local
+    own0 = np.flatnonzero((eng._slot_pos[:, 0] >= 0) & (eng._slot_pos[:, 0] < kl))
+    rng = np.random.default_rng(17)
+    qs = (vecs[rng.choice(own0, size=SKEW_B)]
+          + 0.05 * vecs.std(axis=0) * rng.normal(size=(SKEW_B, d))).astype(np.float32)
+    kth_s = oracle_kth(dev, qs, vecs, TOP_K)
+    factor0 = eng.local_pair_factor
+    eng.local_pair_factor = float(SHARDS)  # the control: M >= B*P, nothing drops
+    r_ctrl = recall_with_ties(eng.search_slots(qs, TOP_K)[1], qs, vecs, kth_s, TOP_K)
+    eng._pending_load, eng.local_pair_factor = None, factor0
+    ivf_cuda.reset_launch_counts()
+    with LiveCheck() as live:
+        r1 = recall_with_ties(eng.search_slots(qs, TOP_K)[1], qs, vecs, kth_s, TOP_K)
+        r2 = recall_with_ties(eng.search_slots(qs, TOP_K)[1], qs, vecs, kth_s, TOP_K)
+    live.verify(torch, "sharded ivf skew")
+    max_by(out["err"], live.worst_by_variant)
+    add_counts(out["launches"], ivf_cuda.launch_counts)
+    log(f"sharded ivf skew: B={SKEW_B} all in shard 0 ({len(own0)} rows): recall@10 "
+        f"{r1!r} at local_pair_factor={factor0}, then {r2!r} at the raised "
+        f"{eng.local_pair_factor} (overflow_raises={eng._overflow_raises}); "
+        f"no-drop control {r_ctrl!r}")
+    if eng._overflow_raises < 1 or r2 < r_ctrl - 0.01:
+        raise AssertionError(f"sharded ivf skew: raises={eng._overflow_raises} "
+                             f"recall {r2} against the control {r_ctrl}")
+    out["skew"] = {"before": r1, "after": r2, "control": r_ctrl}
+
+    # 12c: the sharded exact scan (the engine's own fallback) against the
+    # single-card one
+    sh = eng._exact
+    qx = qdev[:2048]
+    d1, i1 = ExactIndex(store).search_slots(qb[:2048], TOP_K)
+    d2, i2 = sh.search_slots(qb[:2048], TOP_K)
+    bad = ids_agree(i2, d2, i1, d1)
+    view = store.device_view()
+    ms_one = cuda_ms(lambda: flat_scan_topk(qx, view.vectors, view.valid, None, view.norms_sq,
+                                            view.inv_norms, metric="euclidean", k=TOP_K), 5)
+    ms_sh = cuda_ms(lambda: sh.search_slots_device(qx, TOP_K), 5)
+    parts = [flat_scan_topk(qx, *t[:2], None, *t[2:], metric="euclidean", k=TOP_K)
+             for t in sh.shards()]
+    ms_merge = cuda_ms(lambda: merge_topk([p[0] for p in parts], [p[1] for p in parts], TOP_K), 20)
+    log(f"sharded exact: {SHARDS} shards, B=2048: ids equal to the single-card scan "
+        f"{float((i1 == i2).mean())!r}, differing beyond a tie swap: {bad}; ms_per_batch "
+        f"{ms_sh!r} against single-card {ms_one!r}; merge {ms_merge!r} ms "
+        f"({ms_merge / ms_sh!r} of the sharded wall)")
+    if bad:
+        raise AssertionError(f"sharded exact: {bad} ids differ from the single-card scan")
+    out["exact"] = {"ms": ms_sh, "single_ms": ms_one, "merge_ms": ms_merge}
+    del eng, sh, store, view, parts
+    return out
+
+
+def phase_sharded_hnsw(torch, dev, vecs, *, n=PERSIST_ROWS, n_q=2048, efs=(100, 200),
+                       n_parity=256, reps=3) -> dict:
+    """Phase 12d: the sharded HNSW engine, 4 subgraphs on ``dev``, over the
+    first 65,536 rows (cut as the persist cell); gates raise."""
+    from quiver_tpu_torch.benches.common import launch_trace, oracle_topk
+    from quiver_tpu_torch.core.store import VectorStore
+    from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
+
+    rows = vecs[:n]
+    store = VectorStore(dim=rows.shape[1], metric="euclidean", capacity=n, device=dev)
+    slots = store.add_batch([f"v{i}" for i in range(n)], rows)
+    g = ShardedHNSWIndex(store, SHARDS, m=16, m0=32, ef_construction=200, build_batch=8192,
+                         compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    g.on_insert(slots, rows)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    log(f"sharded hnsw build: N={n} in {SHARDS} subgraphs (f32 construction, M=16, m0=32, "
+        f"efC=200, build_batch 8192): wall_s={out['build_s']!r} sub sizes "
+        f"{[s.size for s in g._sub_stores]} levels {[sub.current_max_level for sub in g._subs]}")
+    queries, _ = make_queries(rows, n_q, n_q)
+    _, kth = oracle_topk(dev, queries, rows, TOP_K)
+    qd = torch.from_numpy(queries).to(dev)
+    for ef in efs:
+        g.set_optimization_parameters(ef_search=ef)
+        _, s = g.search_slots(queries, TOP_K)
+        r = recall_with_ties(s, queries, rows, kth, TOP_K)
+        ms = cuda_ms(lambda: g.search_device(qd, ef, TOP_K), reps)
+        tr = launch_trace(lambda: g.search_device(qd, ef, TOP_K))
+        out[f"ef{ef}"] = {"recall": r, "ms": ms, "launches": tr["launches"]}
+        log(f"sharded hnsw ef={ef} B={n_q}: recall@10 tie-aware {r!r} (f64 oracle) "
+            f"ms_per_batch={ms!r} qps={n_q / (ms / 1e3)!r} launches_per_search={tr['launches']} "
+            f"kernel_ms={tr['kernel_ms']!r} busy_share={tr['kernel_ms'] / tr['traced_wall_ms']!r}")
+    if out["ef200"]["recall"] < 0.95:
+        raise AssertionError(f"sharded hnsw recall@10 at ef=200 {out['ef200']['recall']} < 0.95")
+    pq = qd[:n_parity]
+    bd, bi = g.search_device(pq, 100, TOP_K, batched=True)
+    pd, pi = g.search_device(pq, 100, TOP_K, batched=False)
+    bad = ids_agree(bi.cpu().numpy(), bd.cpu().numpy(), pi.cpu().numpy(), pd.cpu().numpy())
+    tr1 = launch_trace(lambda: g.search_device(pq, 100, TOP_K, batched=False))
+    log(f"sharded hnsw batched vs per-shard calls, ef=100, {n_parity} queries: ids equal "
+        f"{float((bi == pi).float().mean())!r}, differing beyond a tie swap: {bad}; "
+        f"per-shard calls launch {tr1['launches']}")
+    if bad:
+        raise AssertionError(f"sharded hnsw: the batched search differs from per-shard calls ({bad})")
+    return out
+
+
+def phase_sharded_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH, n_q=256,
+                        n_rest=4096) -> dict:
+    """Phase 12e: a ``sharded_hybrid`` DB (f32 blocks) over the persist
+    cell's rows, flushed and reloaded through its sidecar, and a REST
+    ``sharded_ivf`` collection; gates raise. Returns the f32 kernel's
+    launches and the largest error of its calls."""
+    import gc
+    import shutil
+    from pathlib import Path
+
+    from quiver_tpu_torch import DB, DBOptions
+    from quiver_tpu_torch.benches.common import recall_at_k
+    from quiver_tpu_torch.index.exact import ExactIndex
+    from quiver_tpu_torch.ops import ivf_cuda
+    from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    from quiver_tpu_torch.types import SearchRequest
+
+    root = Path(__file__).resolve().parent / "quiver_tpu_torch" / "_build" / "chip_smoke_sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    opts = dict(storage_path=str(root), flush_interval_s=0, device=str(dev),
+                default_engine="sharded_hybrid", engine_config={"mesh": SHARDS})
+    rows, ids = vecs[:n], [f"v{i}" for i in range(n)]
+    queries, _ = make_queries(rows, n_q, n_q)
+    out = {}
+
+    def answers(db):
+        resps = db.batch_search("s", [SearchRequest(vector=q, top_k=TOP_K) for q in queries])
+        return [[it.id for it in r.results] for r in resps]
+
+    ivf_cuda.reset_launch_counts()
+    with LiveCheck() as live:
+        db = DB(DBOptions(**opts))
+        coll = db.create_collection("s", rows.shape[1], "euclidean",
+                                    engine_config={"ivf": DB_IVF})
+        t0 = time.perf_counter()
+        for at in range(0, n, batch):
+            db.batch_insert("s", ids[at:at + batch], rows[at:at + batch])
+        eng = coll.engine
+        if not eng.ann.wait_maintenance(timeout=300):
+            raise AssertionError("sharded db: background maintenance did not finish")
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        # IVF's sidecar holds the centroids and each row's cluster, not its
+        # block position: a reload lays the rows out afresh, in slot order.
+        # A refresh lays the served engine out the same way, so the reload
+        # must then answer identically.
+        eng.ann.refresh()
+        before = answers(db)
+        _, truth = ExactIndex(coll.store).search_slots(queries, TOP_K)
+        _, ann = eng.ann.search_slots(queries, TOP_K)
+    got = np.asarray([[coll.store.slot_of(i) for i in row] for row in before])
+    r_db, r_ann = recall_at_k(got, truth, TOP_K), recall_at_k(ann, truth, TOP_K)
+    n_probe = eng.ann.config.n_probe
+    log(f"sharded db: engine={eng.name} ann={eng.ann.name} ({eng.ann.n_shards} shards, "
+        f"{eng.ann.compute_dtype}, n_probe={eng.ann.config.n_probe}, K'={eng.ann.n_clusters}, "
+        f"local_pair_factor={eng.ann.local_pair_factor}, "
+        f"retrains={eng.ann._n_retrains}) exact={eng.exact.name}: {n} rows in "
+        f"{t_ingest!r} s (background maintenance drained); recall@10 {r_db!r} through batch_search (split "
+        f"{eng.stats()['per_strategy_queries']}), {r_ann!r} on the ann side (exact f32, "
+        f"{n_q} queries)")
+    if min(r_db, r_ann) < RECALL_GATE:
+        raise AssertionError(f"sharded db recall@10 {r_db} / {r_ann} < {RECALL_GATE}")
+    db.close()
+    del db, coll, eng
+    gc.collect()
+    builds = []
+    build = ShardedIVFIndex.build
+    ShardedIVFIndex.build = lambda self, *a, **kw: (builds.append(1), build(self, *a, **kw))[1]
+    try:
+        with LiveCheck() as live2:
+            t0 = time.perf_counter()
+            db = DB(DBOptions(**opts))
+            coll = db.get_collection("s")
+            out["load_s"] = time.perf_counter() - t0
+            after = answers(db)
+            _, ann2 = coll.engine.ann.search_slots(queries, TOP_K)
+    finally:
+        ShardedIVFIndex.build = build
+    same = float(np.mean([a == b for a, b in zip(after, before)]))
+    n_probe2 = coll.engine.ann.config.n_probe
+    log(f"sharded db reload through topology.npz: load_s={out['load_s']!r} builds={len(builds)} "
+        f"n_probe {n_probe2} (tuned before: {n_probe}) local_pair_factor "
+        f"{coll.engine.ann.local_pair_factor} identical top-10 lists {same!r}, "
+        f"ann side {float((ann2 == ann).all(axis=1).mean())!r}")
+    if builds or n_probe2 != n_probe or same < 1.0 or not (ann2 == ann).all():
+        raise AssertionError(f"sharded db reload: builds={len(builds)} n_probe {n_probe2} "
+                             f"against {n_probe} identical={same}")
+    live.verify(torch, "sharded db")
+    live2.verify(torch, "sharded db reload")
+    out["err"] = max_by(dict(live.worst_by_variant), live2.worst_by_variant)
+    out["launches"] = add_counts({}, ivf_cuda.launch_counts)
+    if dtype_launches(ivf_cuda, f32=True) <= 0:
+        raise AssertionError("block_topw_f32 was not launched by the sharded db")
+
+    st = ServerThread(db, enable_metrics_server=False)
+    try:
+        codes = [http(st.port, "POST", "/api/v1/collections", {
+            "name": "r", "dimension": rows.shape[1], "distance_function": "euclidean",
+            "engine": "sharded_ivf"})[0]]
+        codes.append(http(st.port, "POST", "/api/v1/collections/r/vectors/batch", {
+            "vectors": [{"id": ids[i], "vector": rows[i].tolist()} for i in range(n_rest)]})[0])
+        status, _, body = http(st.port, "POST", "/api/v1/collections/r/search",
+                               {"vector": rows[7].tolist(), "top_k": TOP_K})
+        codes.append(status)
+        log(f"sharded rest: create/insert/search -> {codes}, top hit {body['results'][0]['id']} "
+            f"(engine {db.get_collection('r').engine.name})")
+        if codes != [201, 201, 200] or body["results"][0]["id"] != ids[7]:
+            raise AssertionError(f"sharded rest: {codes}, {body}")
+    finally:
+        st.stop(close_db=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1822,6 +2186,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_hnsw_stack(torch, dev, vecs)
 
+    # phase 12: the sharded engines, 4 shards placed together on the card;
+    # their block_topw calls are held against the plain version and their
+    # launches join the kernels line (sharded_launches)
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    sharded = phase_sharded_ivf(torch, dev, vecs, oracle_q, oracle_kth_)
+    t_ivf = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_sharded_hnsw(torch, dev, vecs)
+    t_hnsw = time.perf_counter()
+    torch.cuda.empty_cache()
+    stack = phase_sharded_stack(torch, dev, vecs)
+    log(f"phase 12 walls: ivf+skew+exact {t_ivf - t12!r} s, hnsw {t_hnsw - t_ivf!r} s, "
+        f"stack {time.perf_counter() - t_hnsw!r} s")
+    # phase 12's launches and largest error, by variant (launch-count key)
+    sharded_launches = add_counts(dict(sharded["launches"]), stack["launches"])
+    sharded_err = max_by(dict(sharded["err"]), stack["err"])
+    log(f"phase 12 block_topw launches by variant: {sharded_launches}; largest error "
+        f"against the plain version by variant: {sharded_err}")
+
     # bounds: block_topw's from phase 3's operands (topw_bound); the probes'
     # from their main-path operands: scatter_rows reads and writes its rows,
     # index_read reads G entries of big and x once and writes G floats
@@ -1834,7 +2218,7 @@ def main() -> int:
     replaces = {"pairs": "quiver_tpu/ops/ivf_kernels.py:633",
                 "fused": "quiver_tpu/ops/ivf_pallas.py:145",
                 "row100": "quiver_tpu/ops/ivf_kernels.py:716"}
-    kernels = []
+    kernels, listed = [], set()
     for tag, recs, launches, source in (
             ("", records, counts, "quiver_tpu_torch/csrc/ivf_block_topw.cu"),
             ("_f32", records_f32, counts_db, "quiver_tpu_torch/csrc/ivf_block_topw_f32.cu")):
@@ -1846,6 +2230,8 @@ def main() -> int:
                 key = (ivf_cuda.F32, key)
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          db_worst.get(("float32", rec["W"], rec["R"]), 0.0))
+            rec["max_abs_err"] = max(rec["max_abs_err"], sharded_err.get(key, 0.0))
+            listed.add(key)
             if launches[key] <= 0:
                 raise AssertionError(f"block_topw{tag} {variant} was not launched by the main path")
             kernels.append({
@@ -1862,7 +2248,11 @@ def main() -> int:
                 "bound_share": rec["bound_ms"] / rec["ms"],
                 "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
                 **({"server_launches": counts_server[key]} if tag else {}),
+                "sharded_launches": sharded_launches.get(key, 0),
             })
+    if set(sharded_launches) - listed:
+        raise AssertionError(f"phase 12 launched variants with no kernels entry: "
+                             f"{set(sharded_launches) - listed}")
     for name, replaces in (("scatter_rows", "benches/probe_pallas.py:42"),
                            ("index_read", "benches/probe_pallas.py:101")):
         if probe_counts[name] <= 0:

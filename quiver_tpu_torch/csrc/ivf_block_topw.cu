@@ -31,7 +31,7 @@
 // independent one-tile blocks per SM, as did a persistent grid (PERF.md).
 //
 // Design. A prologue kernel gathers each sorted pair's query (minus the
-// centroid for L2, rounded to bf16, zero past d) into a [BP, d_pad] scratch
+// centroid for L2, rounded to bf16, zero past d) into an [M, d_pad] scratch
 // in sorted order, so both operands of the product arrive by TMA. The main
 // kernel gives each block one tile of 64 pairs of one cluster (a sync-free
 // map: the grid is an upper bound on the tiles and surplus blocks exit). Its
@@ -169,10 +169,10 @@ __device__ __forceinline__ void gather_row(const float* __restrict__ qr,
 __global__ void __launch_bounds__(256) gather_queries(
     const float* __restrict__ q, const float* __restrict__ cents,
     const int* __restrict__ starts, const int* __restrict__ order,
-    __nv_bfloat162* __restrict__ qa, int K, int d, int d_pad, int P, int BP, int sub_cent) {
+    __nv_bfloat162* __restrict__ qa, int K, int d, int d_pad, int P, int M, int sub_cent) {
   const int row0 = (blockIdx.x * 8 + (threadIdx.x >> 5)) * GATHER_ROWS;
   const int lane = threadIdx.x & 31;
-  if (row0 >= BP) return;
+  if (row0 >= M) return;
   const bool vec = (d & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(cents)) & 15) == 0;
   int lo = 0, hi = K;  // starts[lo] <= row0 < starts[lo + 1]
@@ -180,7 +180,7 @@ __global__ void __launch_bounds__(256) gather_queries(
     const int mid = (lo + hi) >> 1;
     if (starts[mid] <= row0) lo = mid; else hi = mid;
   }
-  for (int row = row0; row < min(row0 + GATHER_ROWS, BP); ++row) {
+  for (int row = row0; row < min(row0 + GATHER_ROWS, M); ++row) {
     while (starts[lo + 1] <= row) ++lo;
     gather_row(q + static_cast<size_t>(order[row] / P) * d, cents + static_cast<size_t>(lo) * d,
                qa + static_cast<size_t>(row) * (d_pad / 2), d, d_pad, sub_cent, vec, lane);
@@ -497,33 +497,38 @@ const char* ivf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Two counts: M, the sorted pairs to score (order[M], starts[K] == M, the rows
+// of qa and of the query tensor map), and the output rows, which original
+// pair ids (order[i] < B*P) index, as row_add and win_add do. The kernels
+// write only the rows a sorted pair reaches: with a truncated pair list
+// (M < B*P, one shard's pairs) the caller fills out with the sentinel first.
 // Returns the cudaError_t of the launches (0 = queued). Pointers are device
 // pointers on `device`; row_add, col_mul and win_add may be null. qa is
-// scratch of BP x d_pad bf16 (d_pad = d rounded up to 64). tile_start[K+1]
+// scratch of M x d_pad bf16 (d_pad = d rounded up to 64). tile_start[K+1]
 // counts each cluster's tiles of TQ sorted pairs; n_tiles, the grid, is an
 // upper bound on their count.
 // W = 0 is row mode: the top R <= 32 of the whole row, or every key of the
-// row ([BP, Cmax]) when R > 32. The library links its own CUDA runtime,
+// row (an out of [B*P, Cmax]) when R > 32. The library links its own CUDA runtime,
 // whose current device is set here rather than inherited from the caller's.
 int ivf_block_topw(const float* q, const float* cents, const int* starts,
                    const int* tile_start, const int* order, const void* blocks, void* qa,
                    const float* row_add, const float* col_mul, const float* col_add,
-                   const float* win_add, int* out, int K, int d, int Cmax, int P, int BP,
+                   const float* win_add, int* out, int K, int d, int Cmax, int P, int M,
                    int n_tiles, float scale, int sub_cent, int W, int R, int pos_bits,
                    int sentinel, int device, void* stream) {
-  if (BP <= 0 || n_tiles <= 0) return 0;
+  if (M <= 0 || n_tiles <= 0) return 0;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   auto s = static_cast<cudaStream_t>(stream);
   const int d_pad = (d + DK - 1) / DK * DK;
   const int per_block = 8 * GATHER_ROWS;
-  gather_queries<<<(BP + per_block - 1) / per_block, 256, 0, s>>>(q, cents, starts, order,
+  gather_queries<<<(M + per_block - 1) / per_block, 256, 0, s>>>(q, cents, starts, order,
                                               static_cast<__nv_bfloat162*>(qa), K, d, d_pad, P,
-                                              BP, sub_cent);
+                                              M, sub_cent);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map_a, map_b;
-  const cuuint64_t dims_a[2] = {(cuuint64_t)d_pad, (cuuint64_t)BP};
+  const cuuint64_t dims_a[2] = {(cuuint64_t)d_pad, (cuuint64_t)M};
   const cuuint64_t strides_a[1] = {(cuuint64_t)d_pad * 2};
   const cuuint64_t dims_b[3] = {(cuuint64_t)Cmax, (cuuint64_t)d, (cuuint64_t)K};
   const cuuint64_t strides_b[2] = {(cuuint64_t)Cmax * 2, (cuuint64_t)d * Cmax * 2};

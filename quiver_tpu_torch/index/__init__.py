@@ -10,10 +10,13 @@ Engine protocol (duck-typed):
   on_insert(slots, vectors) / on_update(slots, vectors) / on_delete(slots)
       (optional write hooks for engines that maintain derived state)
 
-The port has the ``exact``, ``ivf``, ``hnsw`` and ``hybrid`` engines (the
-hybrid with its IVF or HNSW backend). The sharded kinds of the reference
-raise ``NotImplementedError`` naming their ROADMAP.md item; unknown kinds
-and unknown config fields raise ``ValueError``.
+The port has every kind of the reference: ``exact``, ``ivf``, ``hnsw``,
+``hybrid`` (with its IVF or HNSW backend) and the sharded ones,
+``sharded_exact``, ``sharded_ivf``, ``sharded_hnsw`` and
+``sharded_hybrid`` (``parallel/``). A sharded kind takes ``mesh``: None
+(one shard on the store's device), an int n (n shards placed together on
+the store's device) or a sequence of devices. Unknown kinds and unknown
+config fields raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -21,21 +24,6 @@ from __future__ import annotations
 from quiver_tpu_torch.index.exact import ExactIndex
 
 _ENGINES = {"exact": ExactIndex}
-
-#: the reference's kinds that the port has not yet, with their ROADMAP.md item
-_NOT_PORTED = {
-    "sharded_exact": "queue 1, item 5",
-    "sharded_hnsw": "queue 1, item 5",
-    "sharded_ivf": "queue 1, item 5",
-    "sharded_hybrid": "queue 1, item 5",
-}
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"engine {kind!r} is not ported to quiver_tpu_torch yet "
-        f"(ROADMAP.md {_NOT_PORTED[kind]})"
-    )
 
 
 def register_engine(name: str, factory) -> None:
@@ -57,15 +45,15 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
     matching engine (the hybrid's keys must all be namespaced; its ``ivf``,
     ``hnsw`` and ``adaptive`` blocks become ``ivf_config``, ``hnsw_config``
     with ``ann_backend="hnsw"``, and ``adaptive_config``); flat keys pass to
-    the engine constructor. Unknown fields raise ValueError (a REST layer
-    maps it to 400). Kinds the port lacks raise NotImplementedError."""
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
+    the engine constructor. A sharded kind resolves as its base kind (the
+    ``sharded_`` prefix stripped, ``quiver_tpu/index/__init__.py:51``).
+    Unknown fields raise ValueError (a REST layer maps it to 400)."""
     jcfg = dict(jcfg or {})
     ns = {k: jcfg.pop(k) for k in _CONFIG_NAMESPACES if isinstance(jcfg.get(k), dict)}
+    base = kind.removeprefix("sharded_")
     out: dict = {}
     try:
-        if kind == "hybrid":
+        if base == "hybrid":
             if jcfg:
                 raise ValueError(
                     f"hybrid engine_config keys must be namespaced "
@@ -85,16 +73,16 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
 
                 out["adaptive_config"] = AdaptiveConfig(**ns["adaptive"])
             return out
-        stray = [k for k in ns if k != kind]
+        stray = [k for k in ns if k != base]
         if stray:
             raise ValueError(f"engine_config namespaces {stray} do not apply to engine {kind!r}")
-        out.update(ns.get(kind, {}))
+        out.update(ns.get(base, {}))
         out.update(jcfg)
-        if kind == "ivf":
+        if base == "ivf":
             from quiver_tpu_torch.index.ivf import IVFConfig
 
             out = {"config": IVFConfig(**out)} if out else {}
-        elif kind == "hnsw":
+        elif base == "hnsw":
             from quiver_tpu_torch.index.hnsw import HNSWConfig
 
             out = {"config": HNSWConfig(**out)} if out else {}
@@ -103,9 +91,60 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
     return out
 
 
+def _sharded_hybrid(store, **cfg):
+    """The hybrid over sharded engines (``quiver_tpu/index/__init__.py:
+    123-167``): the exact side a ``ShardedExactIndex``, the ANN side a
+    ``ShardedIVFIndex`` (its IVFConfig knobs: ``ivf_config`` or flat
+    overrides) or, when graph knobs are given (``hnsw_config`` or flat
+    HNSW fields) or ``ann_backend="hnsw"``, a ``ShardedHNSWIndex``."""
+    from quiver_tpu_torch.index.hybrid import HybridIndex
+    from quiver_tpu_torch.parallel.sharded import ShardedExactIndex, resolve_mesh
+
+    mesh = resolve_mesh(cfg.pop("mesh", None), store.device)
+    compute_dtype = cfg.get("compute_dtype")
+    dtype_kw = {"compute_dtype": compute_dtype} if compute_dtype is not None else {}
+    backend = cfg.pop("ann_backend", "auto")
+    ivf_config = cfg.pop("ivf_config", None)
+    hnsw_config = cfg.pop("hnsw_config", None)
+    adaptive_config = cfg.pop("adaptive_config", None)
+    if backend == "auto":
+        hnsw_keys = {
+            "m", "m0", "ef_construction", "ef_search", "max_level",
+            "level_prob", "build_batch", "visited", "build_approx", "query_dtype",
+        }
+        backend = "hnsw" if (hnsw_config is not None or hnsw_keys & set(cfg)) else "ivf"
+    if backend == "ivf":
+        from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+        ivf_kw = dict(cfg)
+        if ivf_config is not None:
+            ivf_kw["config"] = ivf_config
+
+        def ann_factory(s):
+            return ShardedIVFIndex(s, mesh, **ivf_kw)
+    elif backend == "hnsw":
+        from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
+
+        hnsw_kw = dict(cfg)
+        if hnsw_config is not None:
+            hnsw_kw["config"] = hnsw_config
+
+        def ann_factory(s):
+            return ShardedHNSWIndex(s, mesh, **hnsw_kw)
+    else:
+        raise ValueError(f"unknown ann_backend {backend!r}")
+    return HybridIndex(
+        store,
+        adaptive_config=adaptive_config,
+        exact_factory=lambda s: ShardedExactIndex(s, mesh, **dtype_kw),
+        ann_factory=ann_factory,
+    )
+
+
 def make_engine(kind: str, store, **cfg):
     """Build an engine over a VectorStore. Kinds: exact | ivf | hnsw |
-    hybrid (and any registered one)."""
+    hybrid | sharded_exact | sharded_ivf | sharded_hnsw | sharded_hybrid
+    (and any registered one)."""
     if kind in _ENGINES:
         factory = _ENGINES[kind]
     elif kind == "ivf":
@@ -120,8 +159,20 @@ def make_engine(kind: str, store, **cfg):
         from quiver_tpu_torch.index.hybrid import HybridIndex
 
         factory = HybridIndex
-    elif kind in _NOT_PORTED:
-        raise _not_ported(kind)
+    elif kind == "sharded_exact":
+        from quiver_tpu_torch.parallel.sharded import ShardedExactIndex
+
+        factory = ShardedExactIndex
+    elif kind == "sharded_ivf":
+        from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+        factory = ShardedIVFIndex
+    elif kind == "sharded_hnsw":
+        from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
+
+        factory = ShardedHNSWIndex
+    elif kind == "sharded_hybrid":
+        factory = _sharded_hybrid
     else:
         raise ValueError(f"unknown index engine: {kind!r}")
     try:

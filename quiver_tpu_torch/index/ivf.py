@@ -532,7 +532,14 @@ class IVFIndex:
         ``_select_probes``: top-2 per 128-id window ranked by score while
         ``probe_sel_approx`` is set, K >= 256 and nwin >= P, the exact
         ranking otherwise. Overflow rows count as found (the serving path
-        scans them exactly)."""
+        scans them exactly).
+
+        ``truth`` comes from the live store, which may have grown past the
+        snapshot this layout was built on (a background build's staging
+        clone shares the store while writes land): slots at or past
+        ``len(self._slot_pos)`` are newer than the layout, the job's replay
+        places them later, and they count as overflow rows (found), as
+        unplaced rows do."""
         c = self.config
         cents = self._centroids
         K = len(cents)
@@ -563,8 +570,12 @@ class IVFIndex:
             ranked_w = np.take_along_axis(wins_i, order, axis=1)
         order_e = np.argsort(-scores, axis=1, kind="stable")
         # cluster of each true top-k row; overflow/unplaced rows (cluster
-        # -1) count as found
-        t_clust = np.where(truth >= 0, self._slot_pos[truth, 0], -2)
+        # -1) count as found, and so do slots newer than the layout
+        known = (truth >= 0) & (truth < len(self._slot_pos))
+        t_clust = np.where(
+            known, self._slot_pos[np.where(known, truth, 0), 0],
+            np.where(truth >= 0, -1, -2),
+        )
         est = np.empty(p_max, np.float64)
         found = np.zeros(truth.shape, bool) | (t_clust == -1)
         found_e = found.copy()
@@ -955,6 +966,11 @@ class IVFIndex:
         "_tuned_n_probe", "_tuned_recall", "_tuned_stderr",
     )
 
+    #: subclass layout fields a refresh's staging clone starts from and the
+    #: swap installs with the layout (the sharded engine's cluster-ownership
+    #: geometry, ``parallel/sharded_ivf.py``)
+    _CLONE_EXTRA: tuple = ()
+
     def _clone_for_maintenance(self) -> "IVFIndex":
         """A fresh engine of the same class over the same store: the
         staging target of a background rebuild. Its config is a COPY: the
@@ -981,6 +997,8 @@ class IVFIndex:
                 eng._cmax = self._cmax
                 eng._built_resid = self._built_resid
                 eng._built = self._built
+                for f in self._CLONE_EXTRA:
+                    setattr(eng, f, getattr(self, f))
             if self._maint_stream is not None and eng._cent_dev is not None:
                 # read on this stream: their memory must outlive its reads
                 for t in eng._cent_dev:
@@ -1017,7 +1035,7 @@ class IVFIndex:
         tensors were allocated on the maintenance stream, whose next job
         could otherwise be handed their memory while serving kernels are
         still queued on it."""
-        for f in self._ADOPT_FIELDS:
+        for f in self._ADOPT_FIELDS + self._CLONE_EXTRA:
             setattr(self, f, getattr(eng, f))
         if self._maint_stream is not None:
             sync = self.store.sync_stream()
@@ -1384,26 +1402,37 @@ class IVFIndex:
     def export_topology(self) -> Optional[dict]:
         """Sidecar: centroids + assignment (slot-addressed), so a load
         skips k-means (the block layout is rebuilt deterministically).
-        Same format as the reference engine's."""
+        The reference engine's format, plus the n_probe tuner's pick when
+        it ran (``tuned_n_probe``, ``tuned_rescore``, ``tuned_recall``,
+        ``tuned_stderr``): a load skips the tuner too, and without them
+        would serve at the configured n_probe. The reference ignores keys
+        it does not read."""
         with self._lock:
             if not self._built:
                 return None
             assign = np.full(self.store.capacity, -1, np.int64)
             live = self._slot_pos[:, 0] >= 0
             assign[live] = self._slot_pos[live, 0]
-            return {
+            out = {
                 "format_version": np.int64(1),
                 "kind": np.bytes_(b"ivf"),
                 "centroids": self._centroids.copy(),
                 "assign": assign,
                 "cmax": np.int64(self._cmax),
             }
+            if self._tuned_n_probe is not None:
+                out["tuned_n_probe"] = np.int64(self._tuned_n_probe)
+                out["tuned_rescore"] = np.bool_(self.config.rescore)
+                out["tuned_recall"] = np.float64(self._tuned_recall)
+                out["tuned_stderr"] = np.float64(self._tuned_stderr)
+            return out
 
     def import_topology(self, data: dict, slot_remap: np.ndarray) -> None:
         """Install an exported topology (this engine's or the reference
         engine's): ``slot_remap`` maps the exporter's slots to this store's
         (-1 = gone); live rows the sidecar does not know go to their
-        nearest centroid."""
+        nearest centroid. An engine with a ``recall_target`` also takes
+        the tuner's pick, when the sidecar holds one."""
         kind = data.get("kind")
         if kind is not None and bytes(kind) != b"ivf":
             return
@@ -1424,6 +1453,12 @@ class IVFIndex:
                 assign[unknown] = self._assign_nearest(self.store._np_vectors[unknown])
             cmax = data.get("cmax")
             self._layout_from_assign(assign, K, cmax=None if cmax is None else int(cmax))
+            tuned = data.get("tuned_n_probe")
+            if tuned is not None and self.config.recall_target is not None:
+                self.config.n_probe = self._tuned_n_probe = int(tuned)
+                self.config.rescore = bool(data["tuned_rescore"])
+                self._tuned_recall = float(data["tuned_recall"])
+                self._tuned_stderr = float(data["tuned_stderr"])
 
     def _layout_from_assign(
         self, assign: np.ndarray, K: int, cmax: Optional[int] = None

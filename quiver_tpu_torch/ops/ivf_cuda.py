@@ -125,15 +125,15 @@ def pair_scores_reference(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add,
     row_add=None, col_mul=None, sub_cent, round_query=True,
 ):
-    """f32[BP, Cmax] epilogue scores of every pair, in SORTED pair order
-    (row i is pair ``order[i]``): the block as stored (bf16 or f32), the
-    query rounded to bf16 when ``round_query``, f32 products and sums.
-    Plain PyTorch; loops over the clusters on the host."""
+    """f32[M, Cmax] epilogue scores of the M sorted pairs (row i is pair
+    ``order[i]``): the block as stored (bf16 or f32), the query rounded to
+    bf16 when ``round_query``, f32 products and sums. Plain PyTorch; loops
+    over the clusters on the host."""
     K, d, Cmax = blocks_t.shape
-    BP = order.shape[0]
+    M = order.shape[0]
     counts = starts[1:] - starts[:-1]
     sorted_c = torch.repeat_interleave(
-        torch.arange(K, device=q.device), counts.long(), output_size=BP
+        torch.arange(K, device=q.device), counts.long(), output_size=M
     )
     orig = order.long()
     qp = q[orig // P]
@@ -141,7 +141,7 @@ def pair_scores_reference(
         qp = qp - centroids[sorted_c]
     if round_query:
         qp = qp.to(torch.bfloat16).float()
-    dots = torch.zeros(BP, Cmax, dtype=torch.float32, device=q.device)
+    dots = torch.zeros(M, Cmax, dtype=torch.float32, device=q.device)
     bounds = starts.tolist()
     for c in range(K):
         lo, hi = bounds[c], bounds[c + 1]
@@ -160,12 +160,15 @@ def block_topw_reference(
     row_add=None, col_mul=None, win_add=None, sub_cent, round_query=True, W, R,
     pos_bits, sentinel,
 ):
-    """Plain PyTorch version of the kernel: i32[BP, R*S] winner keys
+    """Plain PyTorch version of the kernel: i32[B*P, R*S] winner keys
     (S = Cmax // W) in original pair order, lane ``r*S + w`` holding the
     r-th best key of window w; with ``win_add`` each winner ``m`` becomes
-    ``(to_key(from_key(m & ~pm) + win_add[pair]) & ~pm) | (m & pm)``."""
+    ``(to_key(from_key(m & ~pm) + win_add[pair]) & ~pm) | (m & pm)``. A
+    row that no sorted pair reaches (``order`` truncated) holds
+    ``sentinel`` in every lane."""
     Cmax = blocks_t.shape[2]
-    BP = order.shape[0]
+    M = order.shape[0]
+    BP = q.shape[0] * P
     S = Cmax // W
     pm = (1 << pos_bits) - 1
     s = pair_scores_reference(
@@ -173,18 +176,18 @@ def block_topw_reference(
         col_add=col_add, row_add=row_add, col_mul=col_mul, sub_cent=sub_cent,
         round_query=round_query,
     )
-    keys = _pack_lane(s, pm).reshape(BP, S, W)
+    keys = _pack_lane(s, pm).reshape(M, S, W)
     sent = torch.tensor(int(sentinel), dtype=torch.int32, device=q.device)
     wins = []
     for _ in range(R):
         m = keys.max(dim=2).values
         wins.append(m)
         keys = torch.where(keys == m[:, :, None], sent, keys)
-    wins = torch.stack(wins, dim=1).reshape(BP, R * S)
+    wins = torch.stack(wins, dim=1).reshape(M, R * S)
     if win_add is not None:
         f = _from_key(wins & ~pm) + win_add[order.long()][:, None]
         wins = (_to_key(f) & ~pm) | (wins & pm)
-    out = torch.empty(BP, R * S, dtype=torch.int32, device=q.device)
+    out = torch.full((BP, R * S), int(sentinel), dtype=torch.int32, device=q.device)
     out[order.long()] = wins
     return out
 
@@ -221,14 +224,21 @@ def block_topw(
     row_add=None, col_mul=None, win_add=None, sub_cent, round_query=True, W, R,
     pos_bits, sentinel,
 ):
-    """Winner keys i32[BP, R*(Cmax//W)] of every (query, probe) pair, lane
-    ``r*S + w`` (S = Cmax // W) in each pair's original row.
+    """Winner keys i32[B*P, R*(Cmax//W)] of every (query, probe) pair,
+    lane ``r*S + w`` (S = Cmax // W) in each pair's original row.
+
+    Two counts: the M sorted pairs to score (the rows of ``order``, M =
+    ``starts[K]``) and the B*P output rows, which original pair ids index,
+    as ``row_add`` and ``win_add`` do. M < B*P is a truncated pair list (a
+    shard scores only the pairs whose cluster it owns,
+    ``parallel/sharded_ivf.py``); the output rows no sorted pair reaches
+    hold ``sentinel`` in every lane.
 
     Args:
       q: f32[B, d] queries; centroids: f32[K, d].
       starts: i32[K+1] CSR offsets of each cluster's run in the stably
-        sorted pair list; order: i32[B*P] original pair index (query-major,
-        ``b*P + j``) of each sorted pair.
+        sorted pair list; order: i32[M] original pair index (query-major,
+        ``b*P + j``) of each sorted pair, M <= B*P, no index twice.
       blocks_t: bf16 or f32 [K, d, Cmax] residual blocks.
       col_add: f32[K, Cmax]; row_add: optional f32[B*P] per original pair;
         col_mul: optional f32[K, Cmax] (the epilogue in the module doc).
@@ -259,7 +269,9 @@ def block_topw(
     _check("q", q, torch.float32, (B, d), dev)
     _check("centroids", centroids, torch.float32, (K, d), dev)
     _check("starts", starts, torch.int32, (K + 1,), dev)
-    _check("order", order, torch.int32, (BP,), dev)
+    _check("order", order, torch.int32, None, dev)
+    if order.dim() != 1 or order.shape[0] > BP:
+        raise ValueError(f"block_topw: order shape {tuple(order.shape)}: want (M,), M <= {BP}")
     bdt = getattr(blocks_t, "dtype", None)
     if bdt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"block_topw: blocks_t must be bf16 or f32, got {bdt}")
@@ -308,14 +320,24 @@ def _variant(lib_row_max, W, R, Cmax, win_add):
     )
 
 
-def _tile_start(starts, K, BP, tq):
+def _tile_start(starts, K, M, tq):
     """(tile_start i32[K+1], grid): cluster c owns tiles [tile_start[c],
     tile_start[c+1]) of ``tq`` sorted pairs, made without a host sync; the
-    grid is an upper bound on the tile count and surplus blocks exit."""
+    grid is an upper bound on the tile count of the M sorted pairs and
+    surplus blocks exit."""
     counts = starts[1:] - starts[:-1]
     tile_start = torch.zeros(K + 1, dtype=torch.int32, device=starts.device)
     tile_start[1:] = torch.cumsum((counts + (tq - 1)) // tq, 0)
-    return tile_start, (BP + tq - 1) // tq + K
+    return tile_start, (M + tq - 1) // tq + K
+
+
+def _out_rows(BP, M, width, sentinel, device):
+    """The kernel's output, i32[BP, width]: the kernel writes every row a
+    sorted pair reaches, so a full pair list needs no fill; a truncated one
+    (M < BP) starts from the sentinel."""
+    if M == BP:
+        return torch.empty(BP, width, dtype=torch.int32, device=device)
+    return torch.full((BP, width), int(sentinel), dtype=torch.int32, device=device)
 
 
 def _launch_cuda(
@@ -335,15 +357,14 @@ def _launch_cuda(
             raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
     lib = load_library()
     variant, w_arg, whole = _variant(lib.ivf_block_topw_row_max(), W, R, Cmax, win_add)
-    BP = B * P
-    out = torch.empty(BP, Cmax if whole else (Cmax // W) * R, dtype=torch.int32,
-                      device=q.device)
-    if BP == 0:
+    BP, M = B * P, order.shape[0]
+    out = _out_rows(BP, M, Cmax if whole else (Cmax // W) * R, sentinel, q.device)
+    if M == 0:
         return out[:, :R] if whole else out
-    tile_start, n_tiles_max = _tile_start(starts, K, BP, lib.ivf_block_topw_tile_rows())
+    tile_start, n_tiles_max = _tile_start(starts, K, M, lib.ivf_block_topw_tile_rows())
     # the prologue's output: each sorted pair's bf16 query row, d padded to
     # the kernel's 64-deep chunks
-    qa = torch.empty(BP, (d + 63) // 64 * 64, dtype=torch.bfloat16, device=q.device)
+    qa = torch.empty(M, (d + 63) // 64 * 64, dtype=torch.bfloat16, device=q.device)
     err = lib.ivf_block_topw(
         q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
         tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
@@ -353,7 +374,7 @@ def _launch_cuda(
         col_add.data_ptr(),
         0 if win_add is None else win_add.data_ptr(),
         out.data_ptr(),
-        K, d, Cmax, P, BP, n_tiles_max, float(scale), int(bool(sub_cent)),
+        K, d, Cmax, P, M, n_tiles_max, float(scale), int(bool(sub_cent)),
         w_arg, R, pos_bits, int(sentinel), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -387,15 +408,14 @@ def _launch_cuda_f32(
         # the running top-R admits only keys above its R-th best, which
         # equals the reference's passes when the sentinel is below every key
         raise ValueError("block_topw: f32 row mode takes the KEY_MIN sentinel on CUDA")
-    BP = B * P
-    out = torch.empty(BP, Cmax if whole else (Cmax // W) * R, dtype=torch.int32,
-                      device=q.device)
-    if BP == 0:
+    BP, M = B * P, order.shape[0]
+    out = _out_rows(BP, M, Cmax if whole else (Cmax // W) * R, sentinel, q.device)
+    if M == 0:
         return out[:, :R] if whole else out
-    tile_start, n_tiles_max = _tile_start(starts, K, BP, lib.ivf_block_topw_f32_tile_rows())
+    tile_start, n_tiles_max = _tile_start(starts, K, M, lib.ivf_block_topw_f32_tile_rows())
     # the prologue's output: each sorted pair's f32 query row (bf16-rounded
     # when round_query), d padded to the kernel's 32-deep chunks
-    qa = torch.empty(BP, (d + 31) // 32 * 32, dtype=torch.float32, device=q.device)
+    qa = torch.empty(M, (d + 31) // 32 * 32, dtype=torch.float32, device=q.device)
     err = lib.ivf_block_topw_f32(
         q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
         tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
@@ -405,7 +425,7 @@ def _launch_cuda_f32(
         col_add.data_ptr(),
         0 if win_add is None else win_add.data_ptr(),
         out.data_ptr(),
-        K, d, Cmax, P, BP, n_tiles_max, float(scale), int(bool(sub_cent)),
+        K, d, Cmax, P, M, n_tiles_max, float(scale), int(bool(sub_cent)),
         int(bool(round_query)), w_arg, R, pos_bits, int(sentinel), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

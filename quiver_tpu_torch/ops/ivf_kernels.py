@@ -447,7 +447,19 @@ def _pairs_candidates(
     it through ``block_topw``'s row mode (one window spanning the row), whose
     packed keys quantize the score by ceil(log2(Cmax)) bits where the
     reference keeps the f32 score. The per-pair constant is added after the
-    kernel here (it cannot change the ranking within a pair)."""
+    kernel here (it cannot change the ranking within a pair).
+
+    ``order`` may be a TRUNCATED pair list (``ivf_kernels.py:615-623``): M
+    <= B*P sorted pairs, the ones a shard scores
+    (``parallel/sharded_ivf.py``), with ``starts`` the CSR over the
+    shard's local cluster ids and ``blocks_t``, ``centroids``,
+    ``block_*`` the shard's slice of them; ``probe`` and ``caff`` stay the
+    full [B, P] in the global id space. A pair absent from ``order`` gets
+    the masked sentinel in every lane (``block_topw``'s contract), so it
+    never survives. ``best_flat`` is rebuilt from ``probe``, so it indexes
+    the GLOBAL [K_global * Cmax] grid in both branches, and the
+    reference's ``cluster_offset`` (which its per-pair branch adds to the
+    sorted local ids) has nothing to do here."""
     B, d = q.shape
     K, _, Cmax = blocks_t.shape
     P = probe.shape[1]

@@ -9,9 +9,12 @@ keyed by ``untyped_storage().data_ptr()`` and counted at the storage's
 size. Whole-card figures (allocator caches, scratch inside a call) come
 from ``torch.cuda.max_memory_allocated()`` instead.
 
-Not ported yet: the per-chip share of a sharded array (``memory.py:48-63``).
-It waits for the sharding slice (ROADMAP.md queue 1, item 5); until then
-every tensor lives whole on one device.
+Sharded engines (``parallel/``) hold their shards' tensors on the devices
+of their mesh; ``device_bytes`` reports bytes per device, the whole divided
+by the number of distinct devices the tensors live on
+(:func:`_per_chip_nbytes`, the counterpart of ``memory.py:48-63``). Shards
+placed together on one device share it, so there the per-device figure is
+the whole.
 """
 
 from __future__ import annotations
@@ -26,8 +29,17 @@ import torch
 _MAX_DEPTH = 5
 
 
+def _per_chip_nbytes(per_device: dict) -> int:
+    """Bytes per device of tensors spread over a shard list: the sum over
+    ``per_device`` (device -> bytes) divided by the number of distinct
+    devices. Evenly sharded tensors report the global size over n; shards
+    placed together on one device report their whole."""
+    return int(sum(per_device.values()) / max(len(per_device), 1))
+
+
 def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
-    """Bytes of the tensors reachable from ``obj``'s attributes.
+    """Bytes per device of the tensors reachable from ``obj``'s attributes
+    (:func:`_per_chip_nbytes`; one device: their total).
 
     Follows objects of this package, lists/tuples/sets/dicts; stops at any
     object whose type is in ``skip`` (e.g. VectorStore, so an engine's own
@@ -36,10 +48,9 @@ def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
     """
     seen_objs: set[int] = set()
     seen_bufs: set = set()
-    total = 0
+    per_device: dict = {}
 
     def walk(x, depth):
-        nonlocal total
         if x is None or depth > _MAX_DEPTH:
             return
         if isinstance(x, torch.Tensor):
@@ -47,7 +58,7 @@ def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
             key = (x.device, storage.data_ptr())
             if key not in seen_bufs:
                 seen_bufs.add(key)
-                total += int(storage.nbytes())
+                per_device[x.device] = per_device.get(x.device, 0) + int(storage.nbytes())
             return
         if isinstance(x, (str, bytes, int, float, bool, np.ndarray)):
             return
@@ -69,7 +80,7 @@ def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
             walk(v, depth + 1)
 
     walk(obj, 0)
-    return total
+    return _per_chip_nbytes(per_device)
 
 
 def store_device_bytes(store) -> int:

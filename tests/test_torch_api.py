@@ -15,8 +15,8 @@ port's recall@10 against the exact answer is at least the reference's less
 0.02 (ROADMAP.md's expected divergences). Status codes and error bodies are
 equal: 400 (a dimension mismatch, a malformed filter), 404, 401 and the
 rate limiter's 429. HNSW collections (``engine: "hnsw"`` and a hybrid's
-``hnsw`` block) answer on both; the sharded kinds are 501 on the port, with
-the ROADMAP.md item in the message.
+``hnsw`` block) answer on both, and so do the sharded kinds (a
+``sharded_ivf`` collection).
 
 Every server binds a free ephemeral port (tests/test_api.py binds
 18080-18086 and 19090, and may run at the same time on another worker).
@@ -604,9 +604,10 @@ def test_hnsw_engine_is_501_on_the_port(pair):
     """Both servers serve HNSW now: an ``engine: "hnsw"`` collection and a
     hybrid with an ``hnsw`` block answer create (201), insert and search
     (200) on both, with the same top hit for each query (at this size each
-    query's own row is its top hit in both). The 501 stays for the kinds
-    the port lacks: a sharded kind answers 501 on the port, naming its
-    ROADMAP.md item, and creates nothing."""
+    query's own row is its top hit in both). The sharded kinds, once 501
+    on the port, answer as the reference's: a ``sharded_ivf`` collection
+    is created (201), takes rows (201) and answers searches (200) with
+    the same top hit on both servers."""
     servers, vecs, queries = pair
     n = 400
     rows = [{"id": f"v{i}", "vector": v.tolist()} for i, v in enumerate(vecs[:n])]
@@ -629,9 +630,16 @@ def test_hnsw_engine_is_501_on_the_port(pair):
             assert rt.json()["results"][0]["id"] == rj.json()["results"][0]["id"] == f"v{b}"
     stats = requests.get(f"{servers['torch'].base}/api/v1/collections/graph2/stats").json()
     assert stats["engine"]["per_strategy_queries"].get("hnsw", 0) > 0, stats
-    rt = requests.post(f"{servers['torch'].base}/api/v1/collections", json={
-        "name": "sharded", "dimension": D_PAR, "engine": "sharded_hnsw"})
-    assert rt.status_code == 501
-    assert "ROADMAP.md queue 1, item 5" in rt.json()["error"]
+    body = {"name": "sharded", "dimension": D_PAR, "distance_function": "euclidean",
+            "engine": "sharded_ivf"}
+    rj, rt = both(servers, "POST", "/api/v1/collections", body)
+    assert rj.status_code == rt.status_code == 201, (rj.text, rt.text)
+    rj, rt = both(servers, "POST", "/api/v1/collections/sharded/vectors/batch", {"vectors": rows})
+    assert rj.status_code == rt.status_code == 201
+    for b in range(4):
+        rj, rt = both(servers, "POST", "/api/v1/collections/sharded/search",
+                      {"vector": vecs[b].tolist(), "top_k": K})
+        assert rj.status_code == rt.status_code == 200
+        assert rt.json()["results"][0]["id"] == rj.json()["results"][0]["id"] == f"v{b}"
     listed = requests.get(f"{servers['torch'].base}/api/v1/collections").json()["collections"]
-    assert "sharded" not in listed
+    assert "sharded" in listed

@@ -122,6 +122,57 @@ def test_block_topw_f32_kernel_matches_twin(cuda, variant, W, R, pos_bits, metri
     chip_smoke.check_call(torch, args, wkw, got)
 
 
+def _shard_of(torch, args, kw, lo, KL):
+    """One shard's call: the clusters [lo, lo+KL) of a kernel_inputs call,
+    the blocks, centroids and column operands as contiguous views (no
+    copies), and the sorted pairs of those clusters only (a truncated
+    list, M < B*P; ``starts`` rebased)."""
+    q, cents, starts, order, blocks = args
+    s0, s1 = int(starts[lo]), int(starts[lo + KL])
+    sub = dict(kw)
+    for name in ("col_add", "col_mul"):
+        if kw.get(name) is not None:
+            sub[name] = kw[name][lo:lo + KL]
+    return (q, cents[lo:lo + KL], (starts[lo:lo + KL + 1] - s0).contiguous(),
+            order[s0:s1], blocks[lo:lo + KL]), sub
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize(
+    "variant,W,R,pos_bits,metric",
+    [(v, w, r, pb, m) for v, w, r, pb, ms in chip_smoke.VARIANTS for m in ms],
+)
+def test_block_topw_truncated_pairs_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric,
+                                                        dtype):
+    """A shard's call (``parallel/sharded_ivf.py``): the pairs of clusters
+    [12, 28) of K=37 against the views of their blocks. The kernel's keys
+    match the plain version's (``chip_smoke.check_call``), and the rows of
+    pairs outside the shard hold the sentinel in every lane."""
+    dt = getattr(torch, dtype)
+    args, kw = chip_smoke.kernel_inputs(
+        torch, cuda, B=300, P=3, K=37, Cmax=384, d=100, metric=metric,
+        variant=variant, seed=13, dtype=dt,
+    )
+    count_key = ivf_cuda.ROW_MODE if W == 0 else (W, R)
+    if dt == torch.float32:
+        count_key = (ivf_cuda.F32, count_key)
+    W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, 384)
+    wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
+    sargs, skw = _shard_of(torch, args, wkw, 12, 16)
+    M = sargs[3].shape[0]
+    assert 0 < M < 300 * 3
+    assert sargs[4].data_ptr() == args[4].data_ptr() + 12 * 100 * 384 * sargs[4].element_size()
+    before = ivf_cuda.launch_counts[count_key]
+    got = ivf_cuda.block_topw(*sargs, **skw)
+    assert ivf_cuda.launch_counts[count_key] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape[0] == 300 * 3
+    chip_smoke.check_call(torch, sargs, skw, got)
+    hit = torch.zeros(300 * 3, dtype=torch.bool, device=cuda)
+    hit[sargs[3].long()] = True
+    assert bool((got[~hit] == int(sentinel)).all())
+
+
 @pytest.mark.parametrize("k", [10, 24, 48, 100])
 def test_per_pair_row_mode_on_cuda_matches_cpu(cuda, k):
     """Cmax=64 leaves 2 windows < k: ivf_query takes the per-pair top-R

@@ -60,6 +60,13 @@ MODULES = [
     "quiver_tpu_torch.benches.bench_hnsw",
     "quiver_tpu_torch.benches.exp_hnsw_recall",
     "quiver_tpu_torch.benches.bench_hybrid",
+    "quiver_tpu_torch.parallel",
+    "quiver_tpu_torch.parallel.sharded",
+    "quiver_tpu_torch.parallel.sharded_ivf",
+    "quiver_tpu_torch.parallel.sharded_graph",
+    "quiver_tpu_torch.parallel.distributed",
+    "quiver_tpu_torch.parallel.dryrun",
+    "quiver_tpu_torch.benches.bench_skew",
 ]
 
 

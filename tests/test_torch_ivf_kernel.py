@@ -403,7 +403,7 @@ def test_block_topw_checks_its_inputs():
     with pytest.raises(TypeError, match="q must be"):
         tc.block_topw(*bad, **kw)
     bad = list(args)
-    bad[3] = args[3][:-1]
+    bad[3] = torch.cat([args[3], args[3][:1]])  # a truncated list may be shorter, not longer
     with pytest.raises(ValueError, match="order shape"):
         tc.block_topw(*bad, **kw)
     bad = list(args)
@@ -414,3 +414,137 @@ def test_block_topw_checks_its_inputs():
         tc.block_topw(*args, **dict(kw, W=48))
     with pytest.raises(ValueError, match="pos_bits"):
         tc.block_topw(*args, **dict(kw, pos_bits=4))
+
+
+# ------------------------------------------------ a shard's truncated pairs
+
+
+def _shard_pairs(probe, lo, KL, M):
+    """One shard's truncated pair list, as ``sharded_ivf_query`` makes it
+    (``quiver_tpu/parallel/sharded_ivf.py:151-172``): the M lowest-rank
+    pairs whose cluster is in [lo, lo+KL), grouped by cluster; pad rows
+    under the shard's last (reserved) id. Returns (order, sorted_c local,
+    starts local)."""
+    flat = probe.reshape(-1)
+    rank = np.tile(np.arange(P), B)
+    is_local = (flat >= lo) & (flat < lo + KL)
+    ord1 = np.argsort(np.where(is_local, rank, P), kind="stable")[:M]
+    kept = is_local[ord1]
+    ord2 = np.argsort(np.where(kept, flat[ord1], 1 << 30), kind="stable")
+    order = ord1[ord2].astype(np.int32)
+    sorted_c = np.where(kept[ord2], flat[order] - lo, KL - 1).astype(np.int32)
+    starts = np.searchsorted(sorted_c, np.arange(KL + 1), side="left").astype(np.int32)
+    return order, sorted_c, starts
+
+
+def _shard_case(seed, metric, exact):
+    """Operands over K=8 clusters, the shard owning ids [4, 8), the last
+    one reserved. ``exact``: small multiples of powers of two, so every
+    product and sum is exact in f32 (ties abound); else normal draws,
+    whose near-ties are rare."""
+    rng = np.random.default_rng(seed)
+    if exact:
+        q = (rng.integers(-8, 9, (B, D)) / 4).astype(np.float32)
+        cents = (rng.integers(-4, 5, (K, D)) / 4).astype(np.float32)
+        blocks_f = (rng.integers(-8, 9, (K, D, CMAX)) / 8).astype(np.float32)
+    else:
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        cents = (0.5 * rng.normal(size=(K, D))).astype(np.float32)
+        blocks_f = np.asarray(jnp.asarray(0.5 * rng.normal(size=(K, D, CMAX)), jnp.bfloat16),
+                              np.float32)
+    blocks = jnp.asarray(blocks_f, jnp.bfloat16)
+    keep = rng.random((K, CMAX)) > 0.1
+    keep[K - 1] = False  # the reserved id: an empty block
+    rns = np.sum(blocks_f ** 2, axis=1).astype(np.float32)
+    inv = (0.5 + rng.random((K, CMAX))).astype(np.float32)
+    live = np.ones(K, bool)
+    live[K - 1] = False
+    jm = JDT.parse(metric)
+    cns = np.sum(cents * cents, axis=1)
+    c_dots, _, probe, caff = jk.probe_stage(
+        jnp.asarray(q), jnp.asarray(cents), jnp.asarray(cns), jm, P, None,
+        cluster_live=jnp.asarray(live),
+    )
+    return q, cents, blocks, keep, rns, inv, c_dots, probe, caff
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+@pytest.mark.parametrize("path,M", [("windowed", 8), ("windowed", 32), ("per_pair", 8),
+                                    ("per_pair", 32)])
+def test_truncated_pairs_candidates_match_reference(metric, path, M):
+    """The port's ``_pairs_candidates`` on one shard's truncated pair list
+    (M <= B*P rows, the shard's slice of the blocks, ``probe`` global)
+    against the reference's with ``cluster_offset``: the valid survivors
+    are the same global block positions with the same scores (bit for bit
+    on the windowed path; on the per-pair path, whose packed keys the
+    reference does not use, within two quanta of 2^(pos_bits-22) relative
+    to the score before the per-pair constant plus 1e-4 x the score scale
+    for the summation order, as ``_score_tol``; normal draws there, since
+    its keys break exact ties by position the other way). Pairs absent
+    from ``order`` never survive."""
+    lo, KL = 4, 4
+    q, cents, blocks, keep, rns, inv, c_dots, probe, caff = _shard_case(
+        11, metric, exact=path == "windowed")
+    order, sorted_c, starts = _shard_pairs(np.asarray(probe), lo, KL, M)
+    k = 8 if path == "windowed" else 16  # 16 > Cmax // 32: the per-pair branch
+    sl = slice(lo, lo + KL)
+    want_s, want_f = jk._pairs_candidates(
+        jnp.asarray(q), jnp.asarray(cents[sl]), c_dots, caff, probe, jnp.asarray(order),
+        jnp.asarray(sorted_c), jnp.asarray(order // P), blocks[sl], jnp.asarray(rns[sl]),
+        jnp.asarray(inv[sl]), jnp.asarray(keep[sl]), metric=JDT.parse(metric), k=k,
+        compute_dtype=jnp.bfloat16, oversample=4, probe_approx=None, seg_width=32,
+        cluster_offset=lo,
+    )
+    got_s, got_f = tk._pairs_candidates(
+        _t(q), _t(cents[sl]), _t(c_dots), None if caff is None else _t(caff),
+        _t(probe, torch.int64), _t(order), _t(starts), _t(blocks)[sl], _t(rns[sl]),
+        _t(inv[sl]), _t(keep[sl]), metric=DistanceType.parse(metric), k=k,
+        oversample=4, seg_width=32,
+    )
+    want_s, want_f = np.asarray(want_s), np.asarray(want_f)
+    got_s, got_f = got_s.numpy(), got_f.numpy()
+    present = np.zeros(B * P, bool)
+    present[order[sorted_c < KL - 1]] = True
+    for b in range(B):
+        wv, gv = want_s[b] > NEG_BIG / 2, got_s[b] > NEG_BIG / 2
+        assert wv.sum() == gv.sum()
+        if not wv.any():  # none of b's pairs is on this shard
+            continue
+        wf, gf = want_f[b][wv], got_f[b][gv]
+        # every valid survivor lies in a cluster this shard scored for b
+        assert np.isin(gf // CMAX, np.asarray(probe)[b][present[b * P:(b + 1) * P]]).all()
+        wo, go = np.argsort(wf, kind="stable"), np.argsort(gf, kind="stable")
+        np.testing.assert_array_equal(gf[go], wf[wo])
+        ws, gs = want_s[b][wv][wo], got_s[b][gv][go]
+        if path == "windowed":
+            np.testing.assert_array_equal(gs.view(np.int32), ws.view(np.int32))
+        else:
+            # the keys quantize the score before the per-pair constant is
+            # added, so the quantum scales with |score| + |caff|
+            pre = np.abs(ws) + (0.0 if caff is None else np.abs(np.asarray(caff)[b]).max())
+            tol = _score_tol(pre, (CMAX - 1).bit_length(), np.abs(ws).max())
+            assert np.all(np.abs(gs - ws) <= tol)
+
+
+@pytest.mark.parametrize("W,R,sentinel", [(32, 2, "mask"), (128, 4, "min"), (CMAX, 16, "min")])
+def test_block_topw_truncated_rows_hold_the_sentinel(W, R, sentinel):
+    """``block_topw`` with M < B*P sorted pairs: the rows of the pairs it
+    scored equal the full-list call's (a pair's keys depend only on its own
+    row), and every other row holds the sentinel in every lane."""
+    q, cents, blocks, keep, rns, inv, probe = _case(12)
+    flat = probe.reshape(-1)
+    sent = tc._mask_key(W) if sentinel == "mask" else tc.KEY_MIN
+    pos_bits = max(5, (W - 1).bit_length())
+    kw = dict(P=P, scale=2.0, col_add=_t(np.where(keep, -rns, NEG_BIG).astype(np.float32)),
+              sub_cent=True, W=W, R=R, pos_bits=pos_bits, sentinel=sent)
+    order, starts = _csr(probe)
+    full = tc.block_topw(_t(q), _t(cents), _t(starts), _t(order), _t(blocks), **kw).numpy()
+    sub = np.flatnonzero(flat[order] >= 3)[: B * P // 3]  # a prefix of clusters 3..
+    t_order = order[sub]
+    t_starts = np.searchsorted(flat[t_order], np.arange(K + 1), side="left").astype(np.int32)
+    got = tc.block_topw(_t(q), _t(cents), _t(t_starts), _t(t_order), _t(blocks), **kw).numpy()
+    assert got.shape == full.shape
+    hit = np.zeros(B * P, bool)
+    hit[t_order] = True
+    np.testing.assert_array_equal(got[hit], full[hit])
+    assert (got[~hit] == np.int32(sent)).all() and (~hit).any()
