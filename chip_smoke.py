@@ -15,16 +15,20 @@ printing any result. Phases, one line each (any failure raises):
    the card (:func:`check_call`) at the main path's shapes (d=128,
    Cmax=1280, K=1405, B=65536, P in {2, 3, 4}) and at a 768-d one (B=16384,
    K=1024, P=3), pairs variant (W=32, R=2: L2, dot, cosine; caff re-keyed
-   onto the winners for L2 and dot), fused variant (W=128, R=4: L2, dot)
-   and row mode (one window per row: R=16, the running top-R; R=100, every
-   key of the row and the wrapper's top-R); then the same variants over
-   f32 blocks (``csrc/ivf_block_topw_f32.cu``; pairs and row mode on the
-   f32 query, fused on the bf16-rounded one) at P in {2, 3} and at the
+   onto the winners for L2 and dot), fused variant (W=128, R=4: L2, dot),
+   row mode (one window per row: R=16, the running top-R; R=100, every
+   key of the row and the wrapper's top-R) and the pairs stage at
+   ``seg_width`` 64 and 128 (W=64 and 128, R=2, 6 and 7 position bits, the
+   ``_mask_key(W)`` sentinel; at P in {2, 3} only); then the same variants
+   over f32 blocks (``csrc/ivf_block_topw_f32.cu``; pairs and row mode on
+   the f32 query, fused on the bf16-rounded one) at P in {2, 3} and at the
    768-d shape; times of kernel and plain version with CUDA events and the
-   least time the card could take (:func:`topw_bound`: bytes at 3.35 TB/s,
-   products at the bf16 tensor-core peak or, for f32 blocks, three TF32
-   products each, two on a bf16-rounded query, at the TF32 peak); then the error of the card's dot products against f64
-   at d=128 and 768, for bf16 and for f32 blocks (:func:`phase_sums`);
+   least time the card could take (``benches/common.py::topw_bound`` at
+   the card's published peaks, ``peaks``: bytes at its HBM rate, products
+   at the bf16 tensor-core peak or, for f32 blocks, three TF32 products
+   each, two on a bf16-rounded query, at the TF32 peak); then the error of
+   the card's dot products against f64 at d=128 and 768, for bf16 and for
+   f32 blocks (:func:`phase_sums`);
 4. slice: the headline bench's path (``quiver_tpu_torch/bench.py``): the
    1M x 128-d clustered L2 corpus through ``VectorStore(device="cuda")`` ->
    ``IVFIndex.build()`` with ``recall_target=0.96``, so the build tunes
@@ -140,8 +144,12 @@ printing any result. Phases, one line each (any failure raises):
    and launches at the phase's shapes (:func:`hnsw_programs`); gate: 256
    queries at ef=100 return the same ids on the card as on a CPU index
    holding the same graph, up to swaps of entries tied within 1e-5
-   (:func:`ids_agree`); (c) through the stack (:func:`phase_hnsw_stack`):
-   a ``DB`` collection with engine "hnsw" over the persist cell's 65,536
+   (:func:`ids_agree`); then the HNSW leg of ``benches/streaming.py``
+   on that graph (:func:`phase_hnsw_streaming`: 8 x 8,192 stream rows,
+   B=256 queries half near old rows, half near new; the store grows under
+   the graph; gates: it grew, recall@10 against the live exact scan >=
+   0.90, the graph's invariants hold after); (c) through the stack
+   (:func:`phase_hnsw_stack`): a ``DB`` collection with engine "hnsw" over the persist cell's 65,536
    rows, flushed and reopened from its sidecar (gates: no row inserted by
    the load, the same top-10 lists), against a cold reload without the
    sidecar (a rebuild); a hybrid with an ``hnsw`` block at
@@ -170,17 +178,37 @@ printing any result. Phases, one line each (any failure raises):
    at the tuned n_probe with no build; a REST ``sharded_ivf`` collection
    (201, 201, 200). Every ``block_topw`` call of (a), (b) and (e), each on a shard's
    truncated pair list, is held against its plain version
-   (:class:`LiveCheck`).
+   (:class:`LiveCheck`);
+13. the benches at scale: (a) ``benches/bench_10m.py`` at full width
+   (:func:`phase_10m`: 10M x 128-d, K=4096, n_probe=3; the cold build,
+   the ``import_topology`` layout of its assignment, device GiB and bytes
+   per vector, QPS at B=32768 and 65536; gates: recall@10 >= 0.95
+   against the f64 oracle, the imported layout answers as the built one;
+   every ``block_topw`` call outside the timed loops held against the
+   plain version); (b) ``benches/bench_corpus_matrix.py`` at N=250,000
+   (:func:`phase_matrix`: five families, the ``[ivf]``, ``[hybrid auto]``
+   and ``[hnsw]`` rows beside the reference's recall; gate:
+   ``[hybrid auto]`` >= 0.95 on every family; every ``block_topw`` call
+   held against the plain version); (c) ``benches/bench_roofline.py``'s
+   ``seg_width`` sweep {32, 64, 128} over phase 4's engine at B=65536,
+   n_probe=2 (:func:`phase_roofline`, run after phase 6 while that engine
+   lives; one batch per width held against the plain version), which
+   launches the (64, 2) and (128, 2) variants; achieved TFLOP/s and GB/s
+   and their shares of the card's published peaks. Each part's wall is
+   logged.
 
 The 1M corpus is generated once and shared by phases 4-12; phase 4's engine
 is dropped before phase 7. Then a JSON line of kernels (the bf16 kernel's
-launches are the main path's, phase 4, and the f32 kernel's the
-database's, phase 9; ``sharded_launches`` on every entry are phase 12's
-launches of that variant; the pairs entry's error covers phases 3, 7 and
-8, the row mode's phases 3 and 4, the f32 entries' phases 3, 9 and 10,
-and each entry's also phase 12's calls of its variant;
-``bound_ms`` is computed from this run's operands and ``bound_share`` is
-it over ``ms``), the card line, and last the result line.
+launches are the main path's, phase 4, except the seg_width variants'
+(pairs64, pairs128), which are phase 13c's, and the f32 kernel's the
+database's, phase 9; ``sharded_launches`` and ``scale_launches`` on every
+entry are phase 12's and phase 13's launches of that variant; the pairs
+entry's error covers phases 3, 7 and 8, the row mode's phases 3 and 4,
+the f32 entries' phases 3, 9 and 10, and each entry's also phase 12's and
+13's calls of its variant; ``bound_ms`` is computed from this run's
+operands at the card's published peaks and ``bound_share`` is it over
+``ms``), the card line, the run's total seconds, and last the result
+line.
 """
 
 from __future__ import annotations
@@ -203,7 +231,9 @@ from quiver_tpu_torch.bench import (
     save_cache,
 )
 from quiver_tpu_torch.benches.common import K as TOP_K
-from quiver_tpu_torch.benches.common import N, card, clustered, cuda_ms, kernel_ms, oracle_kth
+from quiver_tpu_torch.benches.common import (
+    N, bound, card, clustered, cuda_ms, kernel_ms, oracle_kth, peaks, topw_bound,
+)
 from quiver_tpu_torch.benches.truth import recall_with_ties
 
 #: kernel-phase shapes: the serving point of the slice (K' of the headline
@@ -226,7 +256,12 @@ VARIANTS = (
     ("fused", 128, 4, 11, ("euclidean", "dot_product")),
     ("row", 0, 16, 0, ("euclidean", "dot_product", "cosine")),
     ("row100", 0, 100, 0, ("euclidean", "dot_product", "cosine")),
+    ("pairs64", 64, 2, 6, ("euclidean", "dot_product", "cosine")),
+    ("pairs128", 128, 2, 7, ("euclidean", "dot_product", "cosine")),
 )
+#: the pairs stage at ``seg_width`` 64 and 128 (phase 13c's roofline sweep
+#: launches them): held at the main path's P in {2, 3} and the 768-d shape
+SEG_VARIANTS = {"pairs64": 64, "pairs128": 128}
 
 
 #: the probes' times beside ms and plain_ms in the kernels line
@@ -241,10 +276,16 @@ def variant_args(variant, W, R, pos_bits, Cmax):
 
     if W == 0:
         return Cmax, max(1, (Cmax - 1).bit_length()), KEY_MIN
-    return W, pos_bits, int(_mask_key(W)) if variant == "pairs" else KEY_MIN
+    return W, pos_bits, int(_mask_key(W)) if variant.startswith("pairs") else KEY_MIN
 
 
 _T0 = time.perf_counter()
+
+
+def card_peaks(torch) -> dict:
+    """The published peaks of the card this run is on (``peaks``; an
+    unknown card raises)."""
+    return peaks(torch.cuda.get_device_name(0))
 
 
 def log(msg: str) -> None:
@@ -280,7 +321,7 @@ def kernel_inputs(torch, dev, *, B, P, K, Cmax, d, metric, variant, seed, dtype=
     m = DistanceType.parse(metric)
     if variant != "fused":
         scale, sub_cent, col_add, row_add, col_mul = _epilogue(m, keep, rns, inv, c_dots, probe)
-        if variant == "pairs" and m != DistanceType.COSINE:
+        if variant.startswith("pairs") and m != DistanceType.COSINE:
             # the per-pair constant caff, re-keyed onto each winner
             win_add = 0.25 * d * torch.randn(B * P, generator=g, device=dev)
     elif m == DistanceType.EUCLIDEAN:
@@ -491,40 +532,6 @@ class LiveCheck:
         return worst
 
 
-#: published peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
-#: device memory bytes/s, bf16 and TF32 dense tensor-core FLOP/s (f32
-#: blocks run on the tensor cores in 3xTF32: csrc/ivf_block_topw_f32.cu)
-HBM_BPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 989e12, 495e12
-
-
-def bound(nbytes, flops, peak=BF16_FLOPS):
-    """(least ms the card could take, "bytes" or "operations") for
-    ``nbytes`` moved and ``flops`` done at the rate ``peak``."""
-    t_b, t_o = nbytes / HBM_BPS, flops / peak
-    return (1e3 * t_b, "bytes") if t_b >= t_o else (1e3 * t_o, "operations")
-
-
-def topw_bound(args, kw, out):
-    """bound() of one block_topw call: each input read once (the blocks,
-    col_add and col_mul rows of the clusters some pair probes), the keys
-    written once; the products 2 * BP * Cmax * d, at the bf16 tensor-core
-    peak for bf16 blocks; for f32 blocks three TF32 products each (3xTF32:
-    the f32 query and the block split into high and low parts), two where
-    the query is rounded to bf16 (``round_query``: exact in TF32), at the
-    TF32 tensor-core peak."""
-    q, cents, starts, order, blocks = args
-    K, d, Cmax = blocks.shape
-    probed = int(((starts[1:] - starts[:-1]) > 0).sum())
-    per_cluster = d * Cmax * blocks.element_size() + Cmax * 4 * (1 + (kw.get("col_mul") is not None))
-    per_pair = 4 * (1 + (kw.get("row_add") is not None) + (kw.get("win_add") is not None))
-    nbytes = (q.numel() * 4 + cents.numel() * 4 + starts.numel() * 4 + probed * per_cluster
-              + order.shape[0] * per_pair + out.numel() * out.element_size())
-    flops = 2.0 * order.shape[0] * Cmax * d
-    if blocks.element_size() == 2:
-        return bound(nbytes, flops)
-    return bound(nbytes, flops * (2 if kw.get("round_query", True) else 3), TF32_FLOPS)
-
-
 def phase_kernels(torch, dev, *, shape, probes, reps, dtype=None):
     """Kernel against twin at the given shape and blocks' dtype (bf16 by
     default); returns per-variant records (max error; at P=3 L2: kernel,
@@ -536,7 +543,7 @@ def phase_kernels(torch, dev, *, shape, probes, reps, dtype=None):
     for variant, W, R, pos_bits, metrics in VARIANTS:
         W, pos_bits, sentinel = variant_args(variant, W, R, pos_bits, shape["Cmax"])
         rec = records.setdefault(variant, {"W": W, "R": R, "max_abs_err": 0.0})
-        for P in probes:
+        for P in probes if variant not in SEG_VARIANTS else [p for p in probes if p <= 3]:
             for metric in metrics:
                 args, kw = kernel_inputs(
                     torch, dev, P=P, metric=metric, variant=variant,
@@ -551,7 +558,8 @@ def phase_kernels(torch, dev, *, shape, probes, reps, dtype=None):
                 extra = ""
                 if P == 3 and metric == "euclidean":
                     rec["ms"], rec["plain_ms"] = ms, plain_ms
-                    rec["bound_ms"], rec["bound_by"] = topw_bound(args, wkw, k_kern)
+                    rec["bound_ms"], rec["bound_by"] = topw_bound(args, wkw, k_kern,
+                                                                  card_peaks(torch))
                     extra = (f" bound_ms={rec['bound_ms']!r} ({rec['bound_by']}) "
                              f"bound_share={rec['bound_ms'] / ms!r}")
                 log(
@@ -1512,9 +1520,11 @@ def hnsw_programs(torch, idx, qd, *, ef=100, reps=3) -> dict:
 
 
 def phase_hnsw(torch, dev, vecs, *, n=HNSW_ROWS, n_q=2048, efs=HNSW_EFS,
-               batches=HNSW_BATCHES, n_parity=HNSW_PARITY_QUERIES, reps=3) -> dict:
+               batches=HNSW_BATCHES, n_parity=HNSW_PARITY_QUERIES, reps=3, stream=None) -> dict:
     """Phase 11a-b: the HNSW engine's build and search on ``dev`` (module
-    docstring); gates raise. Returns the measured numbers."""
+    docstring); gates raise. Returns the measured numbers. ``stream``:
+    (batches, rows per batch, queries per batch) of the HNSW streaming leg
+    (:func:`phase_hnsw_streaming`), run on the built graph after the rest."""
     from quiver_tpu_torch.benches import bench_hnsw
     from quiver_tpu_torch.benches.common import launch_trace, oracle_topk
     from quiver_tpu_torch.convert import hnsw_from_topology
@@ -1589,7 +1599,40 @@ def phase_hnsw(torch, dev, vecs, *, n=HNSW_ROWS, n_q=2048, efs=HNSW_EFS,
     if bad:
         raise AssertionError(f"hnsw: {bad} result slots differ between the card and the CPU")
     del cpu, cpu_store
+    if stream is not None:
+        out["stream"] = phase_hnsw_streaming(torch, dev, store, idx, rows, *stream)
     return out
+
+
+#: the HNSW streaming leg on phase 11a's graph: the IVF leg's stream (8 x
+#: 8,192 rows, B=256 queries); its gate on recall against the live exact
+#: scan (a floor a graph that lost the grown store's rows cannot pass)
+HNSW_STREAM = (8, 8192, 256)
+HNSW_STREAM_RECALL_FLOOR = 0.90
+
+
+def phase_hnsw_streaming(torch, dev, store, idx, rows, stream_batches, stream_batch, b) -> dict:
+    """``benches/streaming.py::run_hnsw`` on a built graph over ``rows``:
+    the stream grows the store under it (gate: it grew, and recall@10
+    against the live exact scan >= HNSW_STREAM_RECALL_FLOOR)."""
+    from quiver_tpu_torch.benches import streaming
+
+    t0 = time.perf_counter()
+    line, = streaming.run_hnsw(dev, stream_batches=stream_batches, stream_batch=stream_batch,
+                               b=b, base=rows, graph=(store, idx))
+    log(f"hnsw streaming leg: {stream_batches} x {stream_batch} rows into the {len(rows)}-row "
+        f"graph, store capacity {line['store_capacity_before']} -> "
+        f"{line['store_capacity_after']}: steady inserts/s {line['value']!r} (first batch "
+        f"{line['first_batch_inserts_per_s']!r}), query qps {line['query_qps_during_stream']!r}, "
+        f"recall@10 live {line['recall_at_10_live']!r} at ef={line['ef_search']}; wall "
+        f"{time.perf_counter() - t0!r} s")
+    if line["store_capacity_after"] <= line["store_capacity_before"]:
+        raise AssertionError("hnsw streaming: the stream did not grow the store")
+    if line["recall_at_10_live"] < HNSW_STREAM_RECALL_FLOOR:
+        raise AssertionError(f"hnsw streaming recall_at_10_live {line['recall_at_10_live']} "
+                             f"< {HNSW_STREAM_RECALL_FLOOR}")
+    hnsw_invariants(torch, idx)
+    return line
 
 
 def phase_hnsw_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH, n_q=256,
@@ -2052,6 +2095,124 @@ def phase_sharded_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH
     return out
 
 
+#: phase 13a: the 10M cell's gate (the reference reached 0.978 at n_probe=3,
+#: docs/BENCH_RESULTS.md:158-161) and its timed calls per batch size
+TEN_M_RECALL_GATE = 0.95
+TEN_M_REPS = 5
+#: phase 13b: the hybrid's gate on every family, as the reference's; and
+#: the reference's [ivf] recall per family (docs/BENCH_RESULTS.md:211-220)
+MATRIX_GATE = 0.95
+MATRIX_REFERENCE_IVF = {"clustered": 0.956, "anisotropic": 0.959, "heavy-tail": 0.846,
+                        "near-dup": 0.991, "uniform": 0.512}
+#: phase 13c: timed batches per seg_width of the roofline sweep
+ROOFLINE_REPS = 10
+
+
+def phase_roofline(torch, eng, qdev, *, reps=ROOFLINE_REPS, card_peaks_=None) -> dict:
+    """Phase 13c: ``benches/bench_roofline.py``'s seg_width sweep over
+    phase 4's engine at B=65536, n_probe=2 (pairs). One un-timed batch per
+    seg_width is held against the plain version (:class:`LiveCheck`); the
+    launch counts cover the sweep. Returns the rows, the largest error by
+    variant and the launches. ``card_peaks_``: the card's by default."""
+    from quiver_tpu_torch.benches import bench_roofline
+    from quiver_tpu_torch.ops import ivf_cuda
+
+    form0, probe0 = eng.config.formulation, eng.config.n_probe
+    eng.config.formulation, eng.config.n_probe = "pairs", bench_roofline.N_PROBE
+    ivf_cuda.reset_launch_counts()
+    try:
+        with LiveCheck() as live:
+            for seg in bench_roofline.SEG_WIDTHS:
+                eng.config.seg_width = seg
+                eng.search_slots_device(qdev, TOP_K)
+        eng.config.seg_width = 32
+        rows = bench_roofline.ivf_rows(eng, qdev, card_peaks_ or card_peaks(torch), reps=reps)
+    finally:
+        eng.config.formulation, eng.config.n_probe, eng.config.seg_width = form0, probe0, 32
+    launches = add_counts({}, ivf_cuda.launch_counts)
+    for r in rows:
+        log(f"roofline {r['metric']}: ms_per_batch={r['batch_ms']!r} qps={r['value']!r} "
+            f"TFLOP/s={r['achieved_tflops']!r} ({r['pct_bf16_peak']!r}% of bf16 peak) "
+            f"GB/s={r['achieved_gbs']!r} ({r['pct_hbm_bw']!r}% of HBM) K={r['K']} Cmax={r['Cmax']}")
+    log(f"roofline launches: {launches}")
+    live.verify(torch, "roofline")
+    for W in (64, 128):  # the CPU takes the plain version and counts none
+        if qdev.is_cuda and launches.get((W, 2), 0) <= 0:
+            raise AssertionError(f"block_topw (W={W}, R=2) was not launched by the roofline sweep")
+    return {"rows": rows, "err": dict(live.worst_by_variant), "launches": launches}
+
+
+def phase_10m(torch, dev, *, reps=TEN_M_REPS) -> dict:
+    """Phase 13a: ``benches/bench_10m.py`` at full width (10M x 128-d,
+    K=4096, n_probe=3); every ``block_topw`` call outside its timed loops
+    held against the plain version (:class:`LiveCheck`). Gates: recall@10
+    >= TEN_M_RECALL_GATE, the imported layout answers as the built one.
+    Returns the rows, the largest error by variant and the launches."""
+    from quiver_tpu_torch.benches import bench_10m
+    from quiver_tpu_torch.ops import ivf_cuda
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ivf_cuda.reset_launch_counts()
+    live = LiveCheck()
+    rows = bench_10m.run(dev, reps=reps, check=live, emit_rows=False, log=log)
+    launches = add_counts({}, ivf_cuda.launch_counts)
+    build, imp, mem, *serve = rows
+    log(f"10m cold build: {build['value']!r} s ({build['inserts_per_s']!r} inserts/s) "
+        f"K'={build['n_clusters']} Cmax={build['cmax']}; import_topology layout "
+        f"{imp['value']!r} s, beats the cold build: {imp['beats_cold_build']}, same answers: "
+        f"{imp['same_answers']}")
+    log(f"10m device memory: {mem['value']!r} GiB (engine {mem['engine_gib']}, store "
+        f"{mem['store_gib']}), bytes/vector {mem['bytes_per_vector']}; "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
+    for r in serve:
+        log(f"10m {r['metric']}: qps={r['value']!r} ms_per_batch={r['batch_latency_ms']!r}")
+    log(f"10m launches: {launches}; wall {time.perf_counter() - t0!r} s")
+    err = live.verify(torch, "10m")
+    recall = serve[0]["recall_at_10"]
+    if recall < TEN_M_RECALL_GATE:
+        raise AssertionError(f"10m recall@10 {recall} < {TEN_M_RECALL_GATE}")
+    if not imp["same_answers"]:
+        raise AssertionError("10m: the imported layout does not answer as the built one")
+    return {"rows": rows, "err": dict(live.worst_by_variant), "launches": launches,
+            "max_abs_err": err}
+
+
+def phase_matrix(torch, dev) -> dict:
+    """Phase 13b: ``benches/bench_corpus_matrix.py`` at N=250,000 on the
+    five families, every ``block_topw`` call held against the plain
+    version (:class:`LiveCheck`). Gate: ``[hybrid auto]`` recall@10 >=
+    MATRIX_GATE on every family. Returns the rows, the largest error by
+    variant and the launches."""
+    from quiver_tpu_torch.benches import bench_corpus_matrix
+    from quiver_tpu_torch.ops import ivf_cuda
+
+    t0 = time.perf_counter()
+    ivf_cuda.reset_launch_counts()
+    with LiveCheck() as live:
+        rows = bench_corpus_matrix.run(dev, emit_rows=False, log=log)
+    launches = add_counts({}, ivf_cuda.launch_counts)
+    by = {}
+    for r in rows:
+        fam, kind = r["metric"].split()[1], r["metric"].split("[")[1].split("]")[0]
+        by.setdefault(fam, {})[kind] = r
+    for fam, kinds in by.items():
+        ivf, hyb, g = kinds["ivf"], kinds["hybrid auto"], kinds["hnsw"]
+        log(f"matrix {fam}: [ivf] {ivf['value']!r} (reference {MATRIX_REFERENCE_IVF[fam]}) "
+            f"tuned n_probe {ivf['tuned_n_probe']} holdout {ivf['tuner_holdout']} K' "
+            f"{ivf['n_clusters']} recall_shortfall {ivf['recall_shortfall']}; [hybrid auto] "
+            f"{hyb['value']!r} via {hyb['engine']}; [hnsw] {g['value']!r} at ef={g['ef']} "
+            f"(build {g['build_s']!r} s)")
+    log(f"matrix launches: {launches}; wall {time.perf_counter() - t0!r} s")
+    live.verify(torch, "matrix")
+    low = {fam: k["hybrid auto"]["value"] for fam, k in by.items()
+           if k["hybrid auto"]["value"] < MATRIX_GATE}
+    if low or len(by) != len(MATRIX_REFERENCE_IVF):
+        raise AssertionError(f"matrix: [hybrid auto] below {MATRIX_GATE}: {low} "
+                             f"(families run: {sorted(by)})")
+    return {"rows": rows, "err": dict(live.worst_by_variant), "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2125,6 +2286,11 @@ def main() -> int:
     ivf_cuda.reset_launch_counts()
     bench_latency.latency_rows(eng)
     log(f"latency launches: {dict(ivf_cuda.launch_counts)}")
+    # phase 13c (run here, on phase 4's engine): the roofline's seg_width
+    # sweep; its launches are the (64, 2) and (128, 2) entries' own
+    t13c = time.perf_counter()
+    roof = phase_roofline(torch, eng, qdev)
+    t13c_wall = time.perf_counter() - t13c
     cache = cache_path(N, N_CLUSTERS)
     save_cache(eng, cache)  # phase 7 imports this topology, builds none
     del eng, qdev
@@ -2182,7 +2348,9 @@ def main() -> int:
     # phase 11: the HNSW engine (torch ops, no hand-written kernel): its
     # build and search on the shared corpus, then through the stack
     torch.cuda.empty_cache()
-    phase_hnsw(torch, dev, vecs)
+    t11 = time.perf_counter()
+    phase_hnsw(torch, dev, vecs, stream=HNSW_STREAM)
+    log(f"phase 11a-b wall (the streaming leg included): {time.perf_counter() - t11!r} s")
     torch.cuda.empty_cache()
     phase_hnsw_stack(torch, dev, vecs)
 
@@ -2205,41 +2373,69 @@ def main() -> int:
     sharded_err = max_by(dict(sharded["err"]), stack["err"])
     log(f"phase 12 block_topw launches by variant: {sharded_launches}; largest error "
         f"against the plain version by variant: {sharded_err}")
+    del sharded, stack
+
+    # phase 13: the benches at scale. (a) the 10M cell, (b) the corpus
+    # matrix; (c) ran after phase 6. Their block_topw calls are held
+    # against the plain version; their launches join the kernels line
+    # (scale_launches, and the seg_width variants' launches from 13c)
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    tenm = phase_10m(torch, dev)
+    t13a = time.perf_counter()
+    torch.cuda.empty_cache()
+    matrix = phase_matrix(torch, dev)
+    log(f"phase 13 walls: 10m {t13a - t13!r} s, matrix {time.perf_counter() - t13a!r} s, "
+        f"roofline (13c) {t13c_wall!r} s")
+    scale_launches = add_counts(add_counts(dict(tenm["launches"]), matrix["launches"]),
+                                roof["launches"])
+    scale_err = max_by(max_by(dict(tenm["err"]), matrix["err"]), roof["err"])
+    log(f"phase 13 block_topw launches by variant: {scale_launches}; largest error against "
+        f"the plain version by variant: {scale_err}")
 
     # bounds: block_topw's from phase 3's operands (topw_bound); the probes'
     # from their main-path operands: scatter_rows reads and writes its rows,
     # index_read reads G entries of big and x once and writes G floats
     vals = scatter_ops["vals"]
+    pk = card_peaks(torch)
     probe_bounds = {
         "scatter_rows": bound(2 * vals.numel() * 4 + 4 * (scatter_ops["starts"].numel()
-                                                          + scatter_ops["pos"].numel()), 0.0),
-        "index_read": bound(8 * read_ops["grid"] + 4, 0.0),
+                                                          + scatter_ops["pos"].numel()), 0.0,
+                              pk["bf16"], pk["hbm"]),
+        "index_read": bound(8 * read_ops["grid"] + 4, 0.0, pk["bf16"], pk["hbm"]),
     }
     replaces = {"pairs": "quiver_tpu/ops/ivf_kernels.py:633",
                 "fused": "quiver_tpu/ops/ivf_pallas.py:145",
-                "row100": "quiver_tpu/ops/ivf_kernels.py:716"}
+                "row100": "quiver_tpu/ops/ivf_kernels.py:716",
+                "pairs64": "quiver_tpu/ops/ivf_kernels.py:660",
+                "pairs128": "quiver_tpu/ops/ivf_kernels.py:660"}
     kernels, listed = [], set()
     for tag, recs, launches, source in (
             ("", records, counts, "quiver_tpu_torch/csrc/ivf_block_topw.cu"),
             ("_f32", records_f32, counts_db, "quiver_tpu_torch/csrc/ivf_block_topw_f32.cu")):
         for variant, rec in recs.items():
-            if variant not in replaces:  # row mode at R=16: not on the main path
+            # row mode at R=16 is on no main path, nor the seg_width variants
+            # over f32 blocks
+            if variant not in replaces or (tag and variant in SEG_VARIANTS):
                 continue
             key = ivf_cuda.ROW_MODE if rec["W"] == KERNEL_SHAPE["Cmax"] else (rec["W"], rec["R"])
             if tag:
                 key = (ivf_cuda.F32, key)
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          db_worst.get(("float32", rec["W"], rec["R"]), 0.0))
-            rec["max_abs_err"] = max(rec["max_abs_err"], sharded_err.get(key, 0.0))
+            rec["max_abs_err"] = max(rec["max_abs_err"], sharded_err.get(key, 0.0),
+                                     scale_err.get(key, 0.0))
             listed.add(key)
-            if launches[key] <= 0:
+            # the seg_width variants' path is the roofline sweep (13c)
+            path = roof["launches"] if variant in SEG_VARIANTS else launches
+            if path.get(key, 0) <= 0:
                 raise AssertionError(f"block_topw{tag} {variant} was not launched by the main path")
             kernels.append({
                 "name": f"block_topw{tag}[W={rec['W']},R={rec['R']}] ({variant})",
                 "route": "cuda",
                 "source": source,
                 "replaces": replaces[variant],
-                "launches": launches[key],
+                "launches": path[key],
                 "max_abs_err": rec["max_abs_err"],
                 "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"],
@@ -2249,10 +2445,12 @@ def main() -> int:
                 "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
                 **({"server_launches": counts_server[key]} if tag else {}),
                 "sharded_launches": sharded_launches.get(key, 0),
+                "scale_launches": scale_launches.get(key, 0),
             })
-    if set(sharded_launches) - listed:
-        raise AssertionError(f"phase 12 launched variants with no kernels entry: "
-                             f"{set(sharded_launches) - listed}")
+    for phase, seen in (("12", sharded_launches), ("13", scale_launches)):
+        if set(seen) - listed:
+            raise AssertionError(f"phase {phase} launched variants with no kernels entry: "
+                                 f"{set(seen) - listed}")
     for name, replaces in (("scatter_rows", "benches/probe_pallas.py:42"),
                            ("index_read", "benches/probe_pallas.py:101")):
         if probe_counts[name] <= 0:
@@ -2275,6 +2473,7 @@ def main() -> int:
             **{k: t[k] for k in PROBE_EXTRAS[name]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"chip_smoke total: {time.perf_counter() - _T0!r} s")
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -216,6 +216,63 @@ def oracle_kth(device, queries, vecs, k, block=131_072):
     return oracle_topk(device, queries, vecs, k, block)[1]
 
 
+#: published dense peaks by card name (NVIDIA's data sheets, without
+#: sparsity, at the part's full power limit): bf16 and TF32 tensor-core
+#: FLOP/s, HBM bytes/s. The key is matched inside
+#: ``torch.cuda.get_device_name()`` ("NVIDIA H100 80GB HBM3" is the SXM part)
+PEAKS = {
+    "H100 80GB HBM3": {"bf16": 989e12, "tf32": 495e12, "hbm": 3.35e12},
+    "H100 PCIe": {"bf16": 756e12, "tf32": 378e12, "hbm": 2.0e12},
+    "H100 NVL": {"bf16": 835e12, "tf32": 417.5e12, "hbm": 3.9e12},
+}
+
+
+def peaks(card_name: str) -> dict:
+    """{"bf16", "tf32": FLOP/s, "hbm": bytes/s} of the card named
+    ``card_name`` (:data:`PEAKS`); an unknown name raises: a roofline
+    against another card's peaks would be wrong."""
+    hits = [v for k, v in PEAKS.items() if k in card_name]
+    if len(hits) != 1:
+        raise ValueError(f"no published peaks for the card {card_name!r} (known: {sorted(PEAKS)})")
+    return hits[0]
+
+
+def bound(nbytes: float, flops: float, peak: float, hbm: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations") for
+    ``nbytes`` moved at ``hbm`` bytes/s and ``flops`` done at ``peak``."""
+    t_b, t_o = nbytes / hbm, flops / peak
+    return (1e3 * t_b, "bytes") if t_b >= t_o else (1e3 * t_o, "operations")
+
+
+def topw_work(args, kw, out) -> tuple[int, float, str]:
+    """(bytes, operations, peak key of :func:`peaks`) of one ``block_topw``
+    call: each input read once (the queries, centroids, CSR and the blocks,
+    ``col_add`` and ``col_mul`` rows of the clusters some pair probes, the
+    per-pair operands), the keys written once; the products 2 * M * Cmax * d
+    for the M sorted pairs, on the bf16 tensor cores for bf16 blocks; for
+    f32 blocks three TF32 products each (3xTF32: the f32 query and the
+    block split into high and low parts), two where the query is rounded to
+    bf16 (``round_query``: exact in TF32)."""
+    q, cents, starts, order, blocks = args
+    K, d, Cmax = blocks.shape
+    probed = int(((starts[1:] - starts[:-1]) > 0).sum())
+    per_cluster = d * Cmax * blocks.element_size() + Cmax * 4 * (1 + (kw.get("col_mul") is not None))
+    per_pair = 4 * (1 + (kw.get("row_add") is not None) + (kw.get("win_add") is not None))
+    nbytes = (q.numel() * 4 + cents.numel() * 4 + starts.numel() * 4 + probed * per_cluster
+              + order.shape[0] * per_pair + out.numel() * out.element_size())
+    flops = 2.0 * order.shape[0] * Cmax * d
+    if blocks.element_size() == 2:
+        return nbytes, flops, "bf16"
+    return nbytes, flops * (2 if kw.get("round_query", True) else 3), "tf32"
+
+
+def topw_bound(args, kw, out, card_peaks: dict) -> tuple[float, str]:
+    """:func:`bound` of one ``block_topw`` call (:func:`topw_work`) at
+    ``card_peaks`` (:func:`peaks`)."""
+    nbytes, flops, kind = topw_work(args, kw, out)
+    return bound(nbytes, flops, card_peaks[kind], card_peaks["hbm"])
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` prints them."""
     return subprocess.run(

@@ -128,6 +128,13 @@ def test_churn_runs_small_on_cpu():
     "quiver_tpu_torch.benches.bench_hnsw",
     "quiver_tpu_torch.benches.exp_hnsw_recall",
     "quiver_tpu_torch.benches.bench_hybrid",
+    "quiver_tpu_torch.benches.bench_memory",
+    "quiver_tpu_torch.benches.bench_ivf",
+    "quiver_tpu_torch.benches.bench_ivf_mega",
+    "quiver_tpu_torch.benches.bench_roofline",
+    "quiver_tpu_torch.benches.bench_corpus_matrix",
+    "quiver_tpu_torch.benches.bench_10m",
+    "quiver_tpu_torch.benches.run_all",
 ])
 def test_entry_points_refuse_without_cuda(module):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)

@@ -67,6 +67,13 @@ MODULES = [
     "quiver_tpu_torch.parallel.distributed",
     "quiver_tpu_torch.parallel.dryrun",
     "quiver_tpu_torch.benches.bench_skew",
+    "quiver_tpu_torch.benches.bench_memory",
+    "quiver_tpu_torch.benches.bench_ivf",
+    "quiver_tpu_torch.benches.bench_ivf_mega",
+    "quiver_tpu_torch.benches.bench_roofline",
+    "quiver_tpu_torch.benches.bench_corpus_matrix",
+    "quiver_tpu_torch.benches.bench_10m",
+    "quiver_tpu_torch.benches.run_all",
 ]
 
 

@@ -548,3 +548,34 @@ def test_block_topw_truncated_rows_hold_the_sentinel(W, R, sentinel):
     hit[t_order] = True
     np.testing.assert_array_equal(got[hit], full[hit])
     assert (got[~hit] == np.int32(sent)).all() and (~hit).any()
+
+
+@pytest.mark.parametrize("seg_width", [32, 64, 128])
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_ivf_query_seg_width_matches_jax(metric, seg_width):
+    """``ivf_query``'s pairs stage at every window width the CUDA library
+    instantiates, ``block_topw``'s (W, 2) variants (W = seg_width, log2(W)
+    position bits, the ``_mask_key(W)`` sentinel, which equals the
+    reference's), against the JAX package on the same operands (the
+    arrays of tests/test_torch_ivf_query.py; Cmax=512 and k=4, so even
+    W=128 keeps its windows)."""
+    from quiver_tpu.ops.ivf_kernels import _mask_key as jax_mask_key
+    from tests.test_torch_ivf_query import check, graft_arrays, run_both
+
+    assert int(tc._mask_key(seg_width)) == int(jax_mask_key(seg_width))
+    seen, real = [], tk.block_topw
+
+    def spy(*args, **kw):
+        seen.append((kw["W"], kw["R"], kw["pos_bits"], int(kw["sentinel"])))
+        return real(*args, **kw)
+
+    tk.block_topw = spy
+    try:
+        queries, ops = graft_arrays()
+        dj, ij, dt, it = run_both(queries, ops, metric=metric, formulation="pairs",
+                                  rescore=False, seg_width=seg_width, k=4)
+    finally:
+        tk.block_topw = real
+    pos_bits = seg_width.bit_length() - 1
+    assert seen == [(seg_width, 2, pos_bits, int(jax_mask_key(seg_width)))]
+    check(queries, ops, dj, ij, dt, it, metric=metric, rescore=False, pos_bits=pos_bits)
