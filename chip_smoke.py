@@ -156,8 +156,9 @@ printing any result. Phases, one line each (any failure raises):
    ``benches/bench_hybrid.py``'s shape (20,000 x 64-d; gate: a 128-query
    batch routes mostly to the graph); a REST create, insert and search of
    an ``engine: "hnsw"`` collection (201, 201, 200);
-12. the sharded engines, 4 shards placed together on the card
-   (``SHARDS``; ``quiver_tpu_torch/parallel/``): (a) a ``ShardedIVFIndex``
+12. the sharded engines, 4 shards (``SHARDS``, round-robin over the
+   cards: together on one card, one per card on four;
+   ``quiver_tpu_torch/parallel/``): (a) a ``ShardedIVFIndex``
    over the 1M corpus at the headline config (tuner on): tie-aware
    recall@10 against phase 4's oracle (gate >= 0.95), ms per batch at
    B=65536 and 2,048, each shard's candidate stage and the merge apart
@@ -178,7 +179,36 @@ printing any result. Phases, one line each (any failure raises):
    at the tuned n_probe with no build; a REST ``sharded_ivf`` collection
    (201, 201, 200). Every ``block_topw`` call of (a), (b) and (e), each on a shard's
    truncated pair list, is held against its plain version
-   (:class:`LiveCheck`);
+   (:class:`LiveCheck`). Phase 12's timed batches are 3 per size (10
+   before phase 12f existed);
+12f. the sharded engines on a mesh of distinct devices. (a) The mixed
+   mesh ``MIXED = ("cuda:0", "cpu")``, on which every cross-device step
+   (placement, the write path's routing, the copies, the merge) runs with
+   one card; the CPU shard runs the kernels' plain versions. The 1M
+   corpus (not cut) under sharded IVF at the headline config with bf16
+   blocks and under the sharded exact scan (:func:`phase_mesh_ivf`), at
+   B=2,048 jittered corpus queries (256 for the exact scan); the HNSW
+   engine at 65,536 rows, its CPU subgraph built on the CPU
+   (:func:`phase_mesh_hnsw`); a ``sharded_hybrid`` DB with
+   ``engine_config={"mesh": MIXED}`` through inserts, updates, deletes, a
+   forced refresh, a flush and a sidecar reload, REST searches and a REST
+   ``sharded_ivf`` collection on the mixed mesh, and
+   ``parallel/dryrun.py``'s pipeline step on it
+   (:func:`phase_mesh_stack`). Gates: ids equal the same engine's over
+   ``(cuda:0,) * 2`` on the same topology up to tie swaps; recall@10 >=
+   0.95 (IVF against the f64 oracle, HNSW at ef=200, the DB against the
+   mesh's exact scan); the card's allocated bytes at most
+   ``MESH_BYTES_GATE`` (0.6) of the twin's; the store's own device view
+   never made; the current device unchanged by every ``block_topw`` call
+   (:class:`DeviceCheck`). Wall ms per batch against the twin's. (b) With
+   two or more cards, the 1M headline over every card (``mesh=None``) at
+   B=65536 and the tuned n_probe (:func:`phase_mesh_cards`): ms per batch
+   against as many shards on one card, GiB per card, recall@10, ids equal
+   up to ties; with one card it prints ``phase 12f(b): not run, 1
+   card``. Every ``block_topw`` call outside the timed loops (``wall_ms``)
+   is held against its plain version; the DBs of 12e and 12f(a) hold one
+   row mirror set (:func:`one_mirror_set`: the hybrid's ANN engine reads
+   its exact side's mirrors);
 13. the benches at scale: (a) ``benches/bench_10m.py`` at full width
    (:func:`phase_10m`: 10M x 128-d, K=4096, n_probe=3; the cold build,
    the ``import_topology`` layout of its assignment, device GiB and bytes
@@ -202,10 +232,11 @@ is dropped before phase 7. Then a JSON line of kernels (the bf16 kernel's
 launches are the main path's, phase 4, except the seg_width variants'
 (pairs64, pairs128), which are phase 13c's, and the f32 kernel's the
 database's, phase 9; ``sharded_launches`` and ``scale_launches`` on every
-entry are phase 12's and phase 13's launches of that variant; the pairs
+entry are phase 12's and phase 13's launches of that variant, and
+``mesh_launches`` phase 12f's; the pairs
 entry's error covers phases 3, 7 and 8, the row mode's phases 3 and 4,
-the f32 entries' phases 3, 9 and 10, and each entry's also phase 12's and
-13's calls of its variant; ``bound_ms`` is computed from this run's
+the f32 entries' phases 3, 9 and 10, and each entry's also phase 12's,
+12f's and 13's calls of its variant; ``bound_ms`` is computed from this run's
 operands at the card's published peaks and ``bound_share`` is it over
 ``ms``), the card line, the run's total seconds, and last the result
 line.
@@ -461,15 +492,17 @@ class LiveCheck:
     path's own, at its shapes, with the engine's real keep bits and filter
     masks. Each call's operands and keys are cloned as it runs, so later
     in-place writes to the blocks cannot change them; a block tensor is
-    cloned again only when it was replaced or written since the last clone
+    cloned again only when it was replaced or written since its last clone
     (its version counter), which costs one copy of the blocks (~0.46 GB on
-    the card) per query that follows a write."""
+    the card) per query that follows a write. Calls on CPU tensors (a
+    mixed mesh's CPU shard, phase 12f) run the plain version itself; they
+    are kept and held all the same."""
 
     def __init__(self):
         import threading
 
         self.calls = []
-        self._held = None  # (block tensor, its version, clone)
+        self._held = {}  # id(block tensor) -> (the tensor, its version, clone)
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -494,9 +527,9 @@ class LiveCheck:
 
         blocks = args[4]
         with self._lock:
-            held = self._held
+            held = self._held.get(id(blocks))
             if held is None or held[0] is not blocks or held[1] != blocks._version:
-                held = self._held = (blocks, blocks._version, blocks.clone())
+                held = self._held[id(blocks)] = (blocks, blocks._version, blocks.clone())
             self.calls.append(
                 ([clone(a) for a in args[:4]] + [held[2]],
                  {k: clone(v) for k, v in kw.items()}, out.clone()))
@@ -528,7 +561,7 @@ class LiveCheck:
         log(f"{phase} live check: {len(self.calls)} block_topw calls within tolerance "
             f"of block_topw_reference (BP, P, W, R in {sorted(bps)}): "
             f"max_abs_err={worst!r} pos_diffs={diffs}")
-        self.calls, self._held = [], None
+        self.calls, self._held = [], {}
         return worst
 
 
@@ -1798,14 +1831,11 @@ def dtype_launches(ivf_cuda, *, f32: bool) -> int:
 
 
 def shard_bytes(eng) -> list:
-    """Card bytes each shard of a ``ShardedIVFIndex`` reads: its slice of
-    the block arrays and its rows of the store's device view (the exact
-    fallbacks' shards are views of the store, not copies)."""
-    KL = eng._k_local
+    """Bytes each shard of a ``ShardedIVFIndex`` holds on its device: its
+    block arrays and its row mirror (the exact fallbacks' rows)."""
     out = []
     for s, rows in enumerate(eng._exact.shards()):
-        sl = slice(s * KL, (s + 1) * KL)
-        blocks = sum(t[sl].numel() * t.element_size() for t in (
+        blocks = sum(t[s].numel() * t[s].element_size() for t in (
             eng._blocks_t, eng._block_slot, eng._block_ns, eng._block_inv, eng._block_keep))
         out.append(blocks + sum(t.numel() * t.element_size() for t in rows))
     return out
@@ -1874,11 +1904,15 @@ def phase_sharded_ivf(torch, dev, vecs, oracle_q, oracle_kth_, *, reps=10) -> di
             f"qps={b / (ms / 1e3)!r}; one batch by stage (CUDA events): probe "
             f"{spans['probe']!r} ms, per-shard candidates {shard_ms!r} ms, merge "
             f"{spans['merge']!r} ms ({spans['merge'] / sum(spans.values())!r} of the batch)")
+    from quiver_tpu_torch.utils.memory import store_device_bytes
+
     per_shard = shard_bytes(eng)
-    log(f"sharded ivf memory: per shard {per_shard} bytes (blocks slice + store rows, "
-        f"the rows shared with the exact fallbacks, no copy); "
+    log(f"sharded ivf memory: per shard {per_shard} bytes (blocks + row mirror, the "
+        f"exact fallbacks' rows; the store's own view {store_device_bytes(store)} bytes); "
         f"engine device_bytes={eng.device_bytes()} memory_allocated="
         f"{torch.cuda.memory_allocated(dev)} max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
+    if store_device_bytes(store):
+        raise AssertionError("sharded ivf: the store's device view was made")
     out["shard_bytes"] = per_shard
 
     # 12b: every query in shard 0's clusters
@@ -2043,6 +2077,7 @@ def phase_sharded_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH
         f"{n_q} queries)")
     if min(r_db, r_ann) < RECALL_GATE:
         raise AssertionError(f"sharded db recall@10 {r_db} / {r_ann} < {RECALL_GATE}")
+    log(f"sharded db: one mirror set, bytes by device {one_mirror_set(eng, 'sharded db')}")
     db.close()
     del db, coll, eng
     gc.collect()
@@ -2095,10 +2130,458 @@ def phase_sharded_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH
     return out
 
 
+#: phase 12f: the sharded engines on a mesh of distinct devices. (a) the
+#: mixed mesh, the card and the CPU: every cross-device step (placement,
+#: the write path's routing, the copies, the merge) runs with one card;
+#: the CPU shard runs the kernels' plain versions. (b) every visible card,
+#: when there are two or more
+MIXED = ("cuda:0", "cpu")
+#: 12f(a)'s batch (the CPU shard sets the pace, so not B=65536), and the
+#: sharded exact scan's queries (the CPU shard scans 524,288 rows a query)
+MIXED_B, MIXED_EXACT_Q = 2048, 256
+#: 12f(a)'s timed batches per engine and probe placement
+MIXED_REPS = 3
+#: 12f(a): the card holds its shard and not the corpus: at most this share
+#: of the same engine's card bytes over (cuda:0,) * 2
+MESH_BYTES_GATE = 0.6
+#: 12f(b): timed B=65536 batches per engine and probe placement
+CARDS_REPS = 5
+
+
+class DeviceCheck:
+    """Every ``block_topw`` call inside the ``with`` block: the calling
+    thread's current CUDA device before and after it (``moved`` counts the
+    calls that changed it) and the calls on a card (``card_calls``)."""
+
+    def __enter__(self):
+        import torch
+
+        from quiver_tpu_torch.ops import ivf_kernels
+
+        self._mod, self._real = ivf_kernels, ivf_kernels.block_topw
+        self.moved = self.card_calls = 0
+
+        def block_topw(*args, **kw):
+            before = torch.cuda.current_device()
+            out = self._real(*args, **kw)
+            self.moved += int(torch.cuda.current_device() != before)
+            self.card_calls += int(args[0].device.type == "cuda")
+            return out
+
+        ivf_kernels.block_topw = block_topw
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.block_topw = self._real
+
+    def verify(self, torch, phase: str, dev0: int = 0) -> None:
+        if self.moved or torch.cuda.current_device() != dev0:
+            raise AssertionError(f"{phase}: {self.moved} block_topw calls changed the current "
+                                 f"device (now {torch.cuda.current_device()}, was {dev0})")
+
+
+def one_mirror_set(hybrid, phase: str) -> dict:
+    """A ``sharded_hybrid``'s bytes by device: its ANN engine's exact
+    fallback reads the exact side's row mirrors, so the hybrid holds no
+    byte beyond its ANN engine's (one mirror set plus the layout). Raises
+    otherwise; returns the bytes."""
+    from quiver_tpu_torch.core.store import VectorStore
+    from quiver_tpu_torch.utils.memory import device_bytes_by_device
+
+    hybrid.exact.shards()
+    total = device_bytes_by_device(hybrid, skip=(VectorStore,))
+    ann = device_bytes_by_device(hybrid.ann, skip=(VectorStore,))
+    if total != ann:
+        raise AssertionError(f"{phase}: the hybrid holds {total} bytes by device, its ANN "
+                             f"engine {ann}: a second device copy of the corpus")
+    return total
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Mean wall ms per call over ``reps`` calls after a warm-up, the cards
+    synchronized around them: a mesh's CPU shard works on the host between
+    the card's launches, which CUDA events on one card do not see."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def mesh_ivf_config():
+    from quiver_tpu_torch import IVFConfig
+
+    return IVFConfig(n_clusters=N_CLUSTERS, n_probe=3, q_cap_factor=2, kmeans_iters=8,
+                     build_threshold=1024, rescore=False, recall_target=RECALL_TARGET)
+
+
+def mesh_pair(torch, store, mesh, twin_mesh):
+    """(engine over ``mesh``, its twin over ``twin_mesh``, the twin's card
+    bytes, the engine's card bytes, seconds): the twin builds (k-means on
+    its row mirrors, the layout, the tuner), the engine imports the twin's
+    sidecar, so both serve one topology; card bytes are the growth of
+    ``torch.cuda.memory_allocated`` summed over the cards."""
+    from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    def allocated():
+        return sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count()))
+
+    m0 = allocated()
+    t0 = time.perf_counter()
+    twin = ShardedIVFIndex(store, twin_mesh, config=mesh_ivf_config())
+    twin.build()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    m1 = allocated()
+    eng = ShardedIVFIndex(store, mesh, config=mesh_ivf_config())
+    t0 = time.perf_counter()
+    eng.import_topology(twin.export_topology(), np.arange(store.capacity))
+    eng._exact.shards()  # the row mirrors, as the twin's build made its own
+    torch.cuda.synchronize()
+    t_import = time.perf_counter() - t0
+    return twin, eng, m1 - m0, allocated() - m1, {"build_s": t_build, "import_s": t_import}
+
+
+def phase_mesh_ivf(torch, dev, vecs, oracle_q, oracle_kth_) -> dict:
+    """Phase 12f(a), IVF and exact: the 1M headline corpus (not cut) on
+    the mixed mesh against the same engine over (cuda:0,) * 2 on one
+    topology; gates raise (module docstring)."""
+    from quiver_tpu_torch import VectorStore
+    from quiver_tpu_torch.parallel.sharded_ivf import span_ms
+    from quiver_tpu_torch.utils.memory import device_bytes_by_device, store_device_bytes
+
+    n, d = vecs.shape
+    store = VectorStore(dim=d, metric="euclidean", capacity=n, device=dev)
+    store.add_batch([f"v{i}" for i in range(n)], vecs)
+    colo, mixed, colo_bytes, mixed_bytes, walls = mesh_pair(torch, store, MIXED, (dev, dev))
+    per_dev = device_bytes_by_device(mixed, skip=(VectorStore,))
+    out = {"colo_bytes": colo_bytes, "mixed_bytes": mixed_bytes, "per_device": per_dev, **walls}
+    log(f"mesh ivf: {MIXED} and (cuda:0,) * 2 over one topology (the twin built in "
+        f"{walls['build_s']!r} s, the mixed engine imported its sidecar in {walls['import_s']!r} s; "
+        f"KL={mixed._k_local} Cmax={mixed._cmax} n_probe={mixed.config.n_probe}); card bytes "
+        f"{mixed_bytes} against the twin's {colo_bytes} ({mixed_bytes / colo_bytes!r}); the mixed "
+        f"engine's bytes by device {per_dev}; the store's view {store_device_bytes(store)} bytes")
+    if mixed_bytes > MESH_BYTES_GATE * colo_bytes or store_device_bytes(store):
+        raise AssertionError(f"mesh ivf: card bytes {mixed_bytes} against {colo_bytes}, store "
+                             f"view {store_device_bytes(store)}")
+    with LiveCheck() as live, DeviceCheck() as dc:
+        d_m, s_m = mixed.search_slots(oracle_q[:MIXED_B], TOP_K)
+        d_c, s_c = colo.search_slots(oracle_q[:MIXED_B], TOP_K)
+    live.verify(torch, "mesh ivf")
+    dc.verify(torch, "mesh ivf")
+    out["err"] = dict(live.worst_by_variant)
+    bad = ids_agree(s_m, d_m, s_c, d_c)
+    r = recall_with_ties(s_m, oracle_q[:MIXED_B], vecs, oracle_kth_[:MIXED_B], TOP_K)
+    log(f"mesh ivf B={MIXED_B}: ids equal to the twin's {float((s_m == s_c).mean())!r}, "
+        f"differing beyond a tie swap: {bad}; recall@10 (tie-aware, f64 oracle) {r!r}; "
+        f"block_topw calls on the card {dc.card_calls}")
+    if bad or r < RECALL_GATE or (s_m < 0).any() or not np.isfinite(d_m).all():
+        raise AssertionError(f"mesh ivf: {bad} ids differ, recall {r}")
+    out["recall"] = r
+    qd = torch.from_numpy(oracle_q[:MIXED_B]).to(dev)
+    out["ms"] = wall_ms(torch, lambda: mixed.search_slots_device(qd, TOP_K), MIXED_REPS)
+    out["twin_ms"] = wall_ms(torch, lambda: colo.search_slots_device(qd, TOP_K), MIXED_REPS)
+    stats = {}
+    mixed.search_slots_device(qd, TOP_K, stats=stats)
+    torch.cuda.synchronize()
+    out["spans"] = span_ms(stats)
+    log(f"mesh ivf B={MIXED_B} wall ms per batch: mixed {out['ms']!r}, the twin "
+        f"{out['twin_ms']!r}; one mixed batch on cuda:0's stream (CUDA events, the CPU "
+        f"shard's host work is the gap in shard1): {out['spans']}")
+
+    # the sharded exact scan, the IVF engines' own fallbacks
+    q_ex = oracle_q[:MIXED_EXACT_Q]
+    de_m, ie_m = mixed._exact.search_slots(q_ex, TOP_K)
+    de_c, ie_c = colo._exact.search_slots(q_ex, TOP_K)
+    bad = ids_agree(ie_m, de_m, ie_c, de_c)
+    qx = qd[:MIXED_EXACT_Q]
+    out["exact_ms"] = wall_ms(torch, lambda: mixed._exact.search_slots_device(qx, TOP_K), 2)
+    out["exact_twin_ms"] = wall_ms(torch, lambda: colo._exact.search_slots_device(qx, TOP_K), 2)
+    log(f"mesh exact B={MIXED_EXACT_Q}: ids equal to the twin's {float((ie_m == ie_c).mean())!r}, "
+        f"differing beyond a tie swap: {bad}; wall ms per batch mixed {out['exact_ms']!r}, "
+        f"the twin {out['exact_twin_ms']!r}; the store's view {store_device_bytes(store)} bytes")
+    if bad or store_device_bytes(store):
+        raise AssertionError(f"mesh exact: {bad} ids differ from the twin's")
+    return out
+
+
+def phase_mesh_hnsw(torch, dev, vecs, *, n=PERSIST_ROWS, n_q=256, ef=200) -> dict:
+    """Phase 12f(a), HNSW: the mixed mesh builds its two subgraphs (the
+    CPU's on the CPU); the same engine over the mixed mesh and over
+    (cuda:0,) * 2 each import its sidecar, so all three serve one graph:
+    ids agree up to ties, the imported pair's card bytes, recall; gates
+    raise. 256 queries: the CPU subgraph's beam is torch ops on the host."""
+    from quiver_tpu_torch.benches.common import oracle_topk
+    from quiver_tpu_torch.core.store import VectorStore
+    from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
+    from quiver_tpu_torch.utils.memory import store_device_bytes
+
+    rows = vecs[:n]
+    store = VectorStore(dim=rows.shape[1], metric="euclidean", capacity=n, device=dev)
+    slots = store.add_batch([f"v{i}" for i in range(n)], rows)
+    cfg = dict(m=16, m0=32, ef_construction=200, build_batch=8192, ef_search=ef,
+               compute_dtype=torch.float32)
+    queries, _ = make_queries(rows, n_q, n_q)
+    _, kth = oracle_topk(dev, queries, rows, TOP_K)
+    qd = torch.from_numpy(queries).to(dev)
+    m0 = torch.cuda.memory_allocated(0)
+    g_m = ShardedHNSWIndex(store, MIXED, **cfg)
+    t0 = time.perf_counter()
+    g_m.on_insert(slots, rows)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    dm, sm = g_m.search_slots(queries, TOP_K)
+    out["built_bytes"] = torch.cuda.memory_allocated(0) - m0
+    topo = g_m.export_topology()
+    answers, card = {}, {}
+    for name, mesh in (("mixed", MIXED), ("twin", (dev, dev))):
+        m1 = torch.cuda.memory_allocated(0)
+        g = ShardedHNSWIndex(store, mesh, **cfg)
+        g.import_topology(topo, np.arange(store.capacity))
+        answers[name] = g.search_slots(queries, TOP_K)
+        card[name] = torch.cuda.memory_allocated(0) - m1
+        if name == "twin":
+            out["twin_ms"] = wall_ms(torch, lambda: g.search_device(qd, ef, TOP_K), 1)
+        del g
+    bad = ids_agree(sm, dm, answers["twin"][1], answers["twin"][0])
+    bad += ids_agree(answers["mixed"][1], answers["mixed"][0], answers["twin"][1],
+                     answers["twin"][0])
+    r = recall_with_ties(sm, queries, rows, kth, TOP_K)
+    out.update(ms=wall_ms(torch, lambda: g_m.search_device(qd, ef, TOP_K), 1),
+               recall=r, card_bytes=card["mixed"], twin_bytes=card["twin"])
+    log(f"mesh hnsw: N={n} in 2 subgraphs on {MIXED} (M=16, m0=32, efC=200, f32 build, the "
+        f"CPU subgraph built on the CPU): build wall_s={out['build_s']!r}; ef={ef} B={n_q}: "
+        f"ids equal to (cuda:0,) * 2 on the same graph {float((sm == answers['twin'][1]).mean())!r}, "
+        f"differing beyond a tie swap (the built and the imported mixed engine): {bad}; "
+        f"recall@10 {r!r}; wall ms per batch {out['ms']!r} against {out['twin_ms']!r}; card "
+        f"bytes of the imported engines {out['card_bytes']} against {out['twin_bytes']} "
+        f"({out['card_bytes'] / out['twin_bytes']!r}), of the built mixed one "
+        f"{out['built_bytes']}; the store's view {store_device_bytes(store)} bytes")
+    if bad or r < 0.95 or out["card_bytes"] > MESH_BYTES_GATE * out["twin_bytes"] \
+            or store_device_bytes(store):
+        raise AssertionError(f"mesh hnsw: {bad} ids differ, recall {r}, bytes "
+                             f"{out['card_bytes']} / {out['twin_bytes']}")
+    return out
+
+
+def phase_mesh_stack(torch, dev, vecs, *, n=PERSIST_ROWS, batch=PERSIST_BATCH, n_q=256,
+                     n_rest=4096, n_write=1024) -> dict:
+    """Phase 12f(a), the stack: a ``sharded_hybrid`` DB with
+    ``engine_config={"mesh": MIXED}`` takes inserts, updates, deletes and a
+    forced refresh, flushes and reloads from its sidecar; then REST
+    searches, and a REST ``sharded_ivf`` collection on the mixed mesh; the
+    pipeline step of ``parallel/dryrun.py`` on it. Gates raise. Returns
+    the launches and the largest error of the block_topw calls."""
+    import gc
+    import shutil
+    from pathlib import Path
+
+    from quiver_tpu_torch import DB, DBOptions
+    from quiver_tpu_torch.benches.common import recall_at_k
+    from quiver_tpu_torch.ops import ivf_cuda
+    from quiver_tpu_torch.parallel.dryrun import dryrun_multichip
+    from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    from quiver_tpu_torch.types import SearchRequest
+    from quiver_tpu_torch.utils.memory import store_device_bytes
+
+    root = Path(__file__).resolve().parent / "quiver_tpu_torch" / "_build" / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    opts = dict(storage_path=str(root), flush_interval_s=0, device=str(dev),
+                default_engine="sharded_hybrid", engine_config={"mesh": list(MIXED)})
+    rows, ids = vecs[:n], [f"v{i}" for i in range(n)]
+    queries, _ = make_queries(rows, n_q, n_q)
+    rng = np.random.default_rng(23)
+    out = {}
+
+    def answers(db):
+        resps = db.batch_search("m", [SearchRequest(vector=q, top_k=TOP_K) for q in queries])
+        return [[it.id for it in r.results] for r in resps]
+
+    with LiveCheck() as live, DeviceCheck() as dc:
+        db = DB(DBOptions(**opts))
+        coll = db.create_collection("m", rows.shape[1], "euclidean",
+                                    engine_config={"ivf": DB_IVF})
+        t0 = time.perf_counter()
+        for at in range(0, n, batch):
+            db.batch_insert("m", ids[at:at + batch], rows[at:at + batch])
+        eng = coll.engine
+        upd = rng.choice(n, n_write, replace=False)
+        coll.update_batch([ids[i] for i in upd],
+                          rows[upd] + 0.01 * rng.normal(size=(n_write, rows.shape[1])).astype(
+                              np.float32))
+        gone = {ids[i] for i in rng.choice(n, n_write, replace=False)}
+        coll.delete_batch(sorted(gone))
+        if not eng.ann.wait_maintenance(timeout=300):
+            raise AssertionError("mesh db: background maintenance did not finish")
+        eng.ann.refresh()
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        before = answers(db)
+        _, truth = eng.exact.search_slots(queries, TOP_K)
+        _, ann = eng.ann.search_slots(queries, TOP_K)
+    live.verify(torch, "mesh db")
+    dc.verify(torch, "mesh db")
+    got = np.asarray([[coll.store.slot_of(i) for i in row] for row in before])
+    r_db, r_ann = recall_at_k(got, truth, TOP_K), recall_at_k(ann, truth, TOP_K)
+    dead = sum(i in gone for row in before for i in row)
+    # ids, not slots: the reload renumbers the slots the deletes left empty
+    ann_ids = [[coll.store.id_of(int(x)) for x in row] for row in ann]
+    log(f"mesh db: engine={eng.name} ann={eng.ann.name} on {[str(m) for m in eng.ann.mesh]} "
+        f"({eng.ann.compute_dtype}, n_probe={eng.ann.config.n_probe}, K'={eng.ann.n_clusters}, "
+        f"retrains={eng.ann._n_retrains} refreshes={eng.ann._n_refreshes}): {n} rows, {n_write} "
+        f"updates, {n_write} deletes in {t_ingest!r} s; recall@10 {r_db!r} through "
+        f"batch_search, {r_ann!r} on the ann side (against the mesh's exact scan, {n_q} "
+        f"queries); deleted ids returned {dead}; bytes by device (one mirror set) "
+        f"{one_mirror_set(eng, 'mesh db')}; the store's view "
+        f"{store_device_bytes(coll.store)}")
+    if min(r_db, r_ann) < RECALL_GATE or dead or store_device_bytes(coll.store):
+        raise AssertionError(f"mesh db: recall {r_db} / {r_ann}, {dead} deleted ids returned")
+    out["err"] = dict(live.worst_by_variant)
+    db.close()
+    del db, coll, eng
+    gc.collect()
+    builds = []
+    build = ShardedIVFIndex.build
+    ShardedIVFIndex.build = lambda self, *a, **kw: (builds.append(1), build(self, *a, **kw))[1]
+    try:
+        with LiveCheck() as live2, DeviceCheck() as dc2:
+            t0 = time.perf_counter()
+            db = DB(DBOptions(**opts))
+            coll = db.get_collection("m")
+            out["load_s"] = time.perf_counter() - t0
+            after = answers(db)
+            _, ann2 = coll.engine.ann.search_slots(queries, TOP_K)
+    finally:
+        ShardedIVFIndex.build = build
+    same = float(np.mean([a == b for a, b in zip(after, before)]))
+    same_ann = float(np.mean([[coll.store.id_of(int(x)) for x in row] == ids_
+                              for row, ids_ in zip(ann2, ann_ids)]))
+    log(f"mesh db reload through topology.npz: load_s={out['load_s']!r} builds={len(builds)} "
+        f"identical top-10 lists {same!r}, ann side {same_ann!r}; the store's view "
+        f"{store_device_bytes(coll.store)}")
+    if builds or same < 1.0 or same_ann < 1.0 or store_device_bytes(coll.store):
+        raise AssertionError(f"mesh db reload: builds={len(builds)} identical={same}")
+    live2.verify(torch, "mesh db reload")
+    dc2.verify(torch, "mesh db reload")
+    max_by(out["err"], live2.worst_by_variant)
+
+    st = ServerThread(db, enable_metrics_server=False)
+    try:
+        with LiveCheck() as live3:
+            codes = []
+            status, _, body = http(st.port, "POST", "/api/v1/collections/m/search",
+                                   {"vector": queries[0].tolist(), "top_k": TOP_K})
+            codes.append(status)
+            # the hybrid routes a request to either side: its top hit is
+            # batch_search's or the exact scan's
+            hit_m = body["results"][0]["id"] in (before[0][0], coll.store.id_of(int(truth[0, 0])))
+            codes.append(http(st.port, "POST", "/api/v1/collections", {
+                "name": "r", "dimension": rows.shape[1], "distance_function": "euclidean",
+                "engine": "sharded_ivf", "engine_config": {"mesh": list(MIXED)}})[0])
+            codes.append(http(st.port, "POST", "/api/v1/collections/r/vectors/batch", {
+                "vectors": [{"id": ids[i], "vector": rows[i].tolist()} for i in range(n_rest)]})[0])
+            status, _, body = http(st.port, "POST", "/api/v1/collections/r/search",
+                                   {"vector": rows[7].tolist(), "top_k": TOP_K})
+            codes.append(status)
+        r_eng = db.get_collection("r").engine
+        log(f"mesh rest: search m, create/insert/search r -> {codes}, the m hit as batch_search's "
+            f"{hit_m}, r's top hit {body['results'][0]['id']} (engine {r_eng.name} on "
+            f"{[str(m) for m in r_eng.mesh]})")
+        if codes != [200, 201, 201, 200] or not hit_m or body["results"][0]["id"] != ids[7] \
+                or r_eng.mesh != tuple(torch.device(m) for m in MIXED):
+            raise AssertionError(f"mesh rest: {codes}, {body}")
+        if live3.calls:  # the hybrid may route the one request to its exact side
+            live3.verify(torch, "mesh rest")
+            max_by(out["err"], live3.worst_by_variant)
+    finally:
+        st.stop(close_db=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+    with LiveCheck() as live4, DeviceCheck() as dc4:
+        t0 = time.perf_counter()
+        step = dryrun_multichip(list(MIXED), device=str(dev))
+    log(f"mesh dryrun (parallel/dryrun.py over {list(MIXED)}): {step} in "
+        f"{time.perf_counter() - t0!r} s")
+    live4.verify(torch, "mesh dryrun")
+    dc4.verify(torch, "mesh dryrun")
+    max_by(out["err"], live4.worst_by_variant)
+    if dtype_launches(ivf_cuda, f32=True) <= 0:
+        raise AssertionError("block_topw_f32 was not launched by the mesh db")
+    return out
+
+
+def phase_mesh_cards(torch, dev, vecs, oracle_q=None, oracle_kth_=None, *,
+                     reps=CARDS_REPS) -> dict:
+    """Phase 12f(b): the 1M headline over every visible card (``mesh=None``,
+    one shard per card) against the same engine with as many shards on
+    ``dev`` (one topology); ms per B=65536 batch at the tuned n_probe,
+    bytes per card, recall@10; ids equal up to ties. Gates raise. Needs two
+    or more cards."""
+    from quiver_tpu_torch import VectorStore
+    from quiver_tpu_torch.parallel.sharded import make_mesh
+    from quiver_tpu_torch.utils.memory import device_bytes_by_device, store_device_bytes
+
+    cards = make_mesh()
+    n, d = vecs.shape
+    if oracle_q is None:
+        oracle_q, _ = make_queries(vecs, B_ORACLE, B_ORACLE)
+        oracle_kth_ = oracle_kth(dev, oracle_q, vecs, TOP_K)
+    store = VectorStore(dim=d, metric="euclidean", capacity=n, device=dev)
+    store.add_batch([f"v{i}" for i in range(n)], vecs)
+    colo, multi, colo_bytes, multi_bytes, walls = mesh_pair(
+        torch, store, None, (dev,) * len(cards))
+    if multi.mesh != cards:
+        raise AssertionError(f"mesh=None placed {multi.mesh}, not every card {cards}")
+    with LiveCheck() as live, DeviceCheck() as dc:
+        d_m, s_m = multi.search_slots(oracle_q, TOP_K)
+        d_c, s_c = colo.search_slots(oracle_q, TOP_K)
+    live.verify(torch, "cards ivf")
+    dc.verify(torch, "cards ivf")
+    bad = ids_agree(s_m, d_m, s_c, d_c)
+    r = recall_with_ties(s_m, oracle_q, vecs, oracle_kth_, TOP_K)
+    per_card = {str(c): torch.cuda.memory_allocated(c) / 2**30 for c in cards}
+    out = {"recall": r, "per_card_gib": per_card, "err": dict(live.worst_by_variant),
+           "engine_per_device": device_bytes_by_device(multi, skip=(VectorStore,)), **walls}
+    _, qb = make_queries(vecs, B_SERVE, B_ORACLE)
+    qdev = torch.from_numpy(qb).to(dev)
+    out["ms"] = wall_ms(torch, lambda: multi.search_slots_device(qdev, TOP_K), reps)
+    out["colo_ms"] = wall_ms(torch, lambda: colo.search_slots_device(qdev, TOP_K), reps)
+    from quiver_tpu_torch.parallel.sharded_ivf import span_ms
+
+    stats = {}
+    multi.search_slots_device(qdev, TOP_K, stats=stats)
+    torch.cuda.synchronize()
+    out["spans"] = span_ms(stats)
+    log(f"phase 12f(b): one B={B_SERVE} batch on cuda:0's stream (CUDA events; a shard on "
+        f"another card shows its copies there, the merge span waits for it): {out['spans']}")
+    log(f"phase 12f(b): {len(cards)} cards {[str(c) for c in cards]}, 1M headline, "
+        f"n_probe={multi.config.n_probe}: ids equal to {len(cards)} shards on {dev} "
+        f"{float((s_m == s_c).mean())!r}, differing beyond a tie swap: {bad}; recall@10 {r!r}; "
+        f"wall ms per B={B_SERVE} batch {out['ms']!r}, on one card {out['colo_ms']!r}; "
+        f"allocated GiB per card {per_card}; engine bytes by device "
+        f"{out['engine_per_device']}; card bytes {multi_bytes} against one card's {colo_bytes}; "
+        f"the store's view {store_device_bytes(store)}; card power limits {cards_line()}")
+    if bad or r < RECALL_GATE or store_device_bytes(store):
+        raise AssertionError(f"phase 12f(b): {bad} ids differ, recall {r}")
+    return out
+
+
+def cards_line() -> str:
+    """Every card's name and power limit, as ``nvidia-smi`` prints them."""
+    import subprocess
+
+    return "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines())
+
+
 #: phase 13a: the 10M cell's gate (the reference reached 0.978 at n_probe=3,
 #: docs/BENCH_RESULTS.md:158-161) and its timed calls per batch size
 TEN_M_RECALL_GATE = 0.95
-TEN_M_REPS = 5
+TEN_M_REPS = 3  # cut from 5 to pay for phase 12f
 #: phase 13b: the hybrid's gate on every family, as the reference's; and
 #: the reference's [ivf] recall per family (docs/BENCH_RESULTS.md:211-220)
 MATRIX_GATE = 0.95
@@ -2359,7 +2842,8 @@ def main() -> int:
     # launches join the kernels line (sharded_launches)
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
-    sharded = phase_sharded_ivf(torch, dev, vecs, oracle_q, oracle_kth_)
+    # reps cut from 10 to 3 to pay for phase 12f
+    sharded = phase_sharded_ivf(torch, dev, vecs, oracle_q, oracle_kth_, reps=3)
     t_ivf = time.perf_counter()
     torch.cuda.empty_cache()
     phase_sharded_hnsw(torch, dev, vecs)
@@ -2374,6 +2858,34 @@ def main() -> int:
     log(f"phase 12 block_topw launches by variant: {sharded_launches}; largest error "
         f"against the plain version by variant: {sharded_err}")
     del sharded, stack
+
+    # phase 12f: the sharded engines on a mesh of distinct devices: (a) the
+    # mixed mesh (cuda:0, cpu), (b) every card when there are two or more.
+    # Every block_topw launch of theirs is held against the plain version;
+    # the launches join the kernels line (mesh_launches)
+    torch.cuda.empty_cache()
+    t12f = time.perf_counter()
+    ivf_cuda.reset_launch_counts()
+    mesh_ivf = phase_mesh_ivf(torch, dev, vecs, oracle_q, oracle_kth_)
+    t_mi = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_mesh_hnsw(torch, dev, vecs)
+    t_mh = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_stack = phase_mesh_stack(torch, dev, vecs)
+    mesh_err = max_by(dict(mesh_ivf["err"]), mesh_stack["err"])
+    t_ms = time.perf_counter()
+    if torch.cuda.device_count() >= 2:
+        torch.cuda.empty_cache()
+        max_by(mesh_err, phase_mesh_cards(torch, dev, vecs, oracle_q, oracle_kth_)["err"])
+    else:
+        print("phase 12f(b): not run, 1 card", flush=True)
+    mesh_launches = add_counts({}, ivf_cuda.launch_counts)
+    log(f"phase 12f walls: ivf+exact {t_mi - t12f!r} s, hnsw {t_mh - t_mi!r} s, stack "
+        f"{t_ms - t_mh!r} s, cards {time.perf_counter() - t_ms!r} s; block_topw launches by "
+        f"variant: {mesh_launches}; largest error against the plain version by variant: "
+        f"{mesh_err}")
+    del mesh_ivf, mesh_stack
 
     # phase 13: the benches at scale. (a) the 10M cell, (b) the corpus
     # matrix; (c) ran after phase 6. Their block_topw calls are held
@@ -2424,7 +2936,7 @@ def main() -> int:
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          db_worst.get(("float32", rec["W"], rec["R"]), 0.0))
             rec["max_abs_err"] = max(rec["max_abs_err"], sharded_err.get(key, 0.0),
-                                     scale_err.get(key, 0.0))
+                                     scale_err.get(key, 0.0), mesh_err.get(key, 0.0))
             listed.add(key)
             # the seg_width variants' path is the roofline sweep (13c)
             path = roof["launches"] if variant in SEG_VARIANTS else launches
@@ -2446,8 +2958,10 @@ def main() -> int:
                 **({"server_launches": counts_server[key]} if tag else {}),
                 "sharded_launches": sharded_launches.get(key, 0),
                 "scale_launches": scale_launches.get(key, 0),
+                "mesh_launches": mesh_launches.get(key, 0),
             })
-    for phase, seen in (("12", sharded_launches), ("13", scale_launches)):
+    for phase, seen in (("12", sharded_launches), ("13", scale_launches),
+                        ("12f", mesh_launches)):
         if set(seen) - listed:
             raise AssertionError(f"phase {phase} launched variants with no kernels entry: "
                                  f"{set(seen) - listed}")

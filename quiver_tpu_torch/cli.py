@@ -9,7 +9,10 @@ quiver_tpu_torch.cli`` or the ``quiver-tpu-torch`` script. The layered
 config gains ``device`` (``QUIVER_DEVICE``, the file's ``device``; default
 "cuda"), passed to ``DBOptions.device``: every collection lives there. A
 CUDA device with no card fails the command with the store's error
-(``core/store.py::resolve_device``); nothing falls back to the CPU.
+(``core/store.py::resolve_device``); nothing falls back to the CPU. It
+also gains ``mesh`` (``--mesh``, ``QUIVER_MESH``, the file's ``mesh``):
+the sharded engines' devices, passed as ``DBOptions.engine_config["mesh"]``
+(:func:`parse_mesh`; empty: every visible card, ``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,21 @@ DEFAULTS = {
     "compute_dtype": "float32",
     #: where the collections live: "cuda", "cuda:N" or "cpu"
     "device": "cuda",
+    #: the sharded engines' mesh: "" (every visible card), "N" (N shards)
+    #: or comma-separated devices ("cuda:0,cuda:1", "cuda:0,cpu")
+    "mesh": "",
 }
+
+
+def parse_mesh(text) -> Optional[object]:
+    """The ``mesh`` setting as an engine's ``mesh`` argument: None for
+    empty, an int for digits, else a list of device names."""
+    text = str(text or "").strip()
+    if not text:
+        return None
+    if text.isdigit():
+        return int(text)
+    return [part.strip() for part in text.split(",") if part.strip()]
 
 
 def load_config(config_path: Optional[str] = None) -> dict:
@@ -82,6 +99,7 @@ def _make_db(cfg: dict, *, persistence: bool = True):
         resolve_device(cfg["device"])
     except RuntimeError as e:  # a CUDA device with no card
         raise click.ClickException(str(e)) from e
+    mesh = parse_mesh(cfg.get("mesh"))
     return DB(
         DBOptions(
             storage_path=cfg["data_dir"],
@@ -90,6 +108,7 @@ def _make_db(cfg: dict, *, persistence: bool = True):
             default_engine=cfg["default_engine"],
             compute_dtype=cfg["compute_dtype"],
             device=cfg["device"],
+            engine_config={} if mesh is None else {"mesh": mesh},
         )
     )
 
@@ -99,8 +118,10 @@ def _make_db(cfg: dict, *, persistence: bool = True):
 @click.option("--data-dir", default=None, help="storage directory")
 @click.option("--log-level", default=None, help="debug|info|warning|error")
 @click.option("--device", default=None, help="cuda | cuda:N | cpu")
+@click.option("--mesh", default=None,
+              help="sharded engines' devices: N shards, or e.g. cuda:0,cuda:1 (default: every card)")
 @click.pass_context
-def cli(ctx: click.Context, config_path, data_dir, log_level, device) -> None:
+def cli(ctx: click.Context, config_path, data_dir, log_level, device, mesh) -> None:
     """quiver-tpu on PyTorch and CUDA — the vector search engine on the GPU."""
     cfg = load_config(config_path)
     if data_dir:
@@ -109,6 +130,8 @@ def cli(ctx: click.Context, config_path, data_dir, log_level, device) -> None:
         cfg["log_level"] = log_level
     if device:
         cfg["device"] = device
+    if mesh:
+        cfg["mesh"] = mesh
     from quiver_tpu_torch.observability import logging as qlog
 
     qlog.set_level(cfg["log_level"])

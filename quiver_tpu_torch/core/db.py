@@ -46,6 +46,9 @@ class DBOptions:
     flush_interval_s: float = 300.0
     default_engine: str = "hybrid"  # exact | hnsw | hybrid
     compute_dtype: str = "float32"  # float32 | bfloat16
+    #: constructor kwargs for every collection's engine; its ``"mesh"``
+    #: (None | int | device names, ``parallel/sharded.resolve_mesh``)
+    #: places the sharded kinds and is dropped for the others
     engine_config: dict = field(default_factory=dict)
     #: where every collection lives: "cuda" (the current card), "cuda:N"
     #: or "cpu"
@@ -114,6 +117,8 @@ class DB:
 
     def _engine_factory(self, engine: str, engine_config: Optional[dict] = None):
         cfg = dict(self.options.engine_config)
+        if not engine.startswith("sharded_"):
+            cfg.pop("mesh", None)  # the DB-wide mesh places the sharded kinds only
         if engine_config:
             # per-collection JSON knobs (REST create / persisted config)
             # override the DB-wide defaults

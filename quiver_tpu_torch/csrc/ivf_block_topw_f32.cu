@@ -87,6 +87,7 @@
 #include <stdint.h>
 
 #include "tma.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -578,8 +579,8 @@ int ivf_block_topw_f32_row_max() { return ROW_RMAX; }
 // counts each cluster's tiles of TQ sorted pairs; n_tiles, the grid, is an
 // upper bound on their count. W = 0 is row mode: the top R <= 32 of the
 // whole row, or every key of the row (an out of [B*P, Cmax]) when R > 32. The library
-// links its own CUDA runtime, whose current device is set here rather than
-// inherited from the caller's.
+// links its own CUDA runtime, whose current device is set here
+// (csrc/device_guard.cuh) and restored on return.
 int ivf_block_topw_f32(const float* q, const float* cents, const int* starts,
                        const int* tile_start, const int* order, const float* blocks, float* qa,
                        const float* row_add, const float* col_mul, const float* col_add,
@@ -587,8 +588,8 @@ int ivf_block_topw_f32(const float* q, const float* cents, const int* starts,
                        int n_tiles, float scale, int sub_cent, int round_query, int W, int R,
                        int pos_bits, int sentinel, int device, void* stream) {
   if (M <= 0 || n_tiles <= 0) return 0;
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   auto s = static_cast<cudaStream_t>(stream);
   const int d_pad = (d + DK - 1) / DK * DK;
   const int per_block = 8 * GATHER_ROWS;

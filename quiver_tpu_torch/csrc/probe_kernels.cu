@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -149,15 +151,15 @@ extern "C" {
 // i32[nchunks * (K + 1)], pos is i32[nchunks * BPc], flags is
 // u8[2 * nchunks * BPc] and zero (covered rows, then hit targets); all
 // device pointers on `device`. The library links its own CUDA runtime,
-// whose current device is set here rather than inherited from the
-// caller's runtime.
+// whose current device is set here (csrc/device_guard.cuh) and restored
+// on return.
 int probe_scatter_rows(const float* vals, const int* starts, const int* pos,
                        float* out, uint8_t* flags, int nchunks, int K,
                        int BPc, int lanes, int device, void* stream) {
   if (nchunks <= 0 || BPc <= 0 || lanes <= 0) return 0;
   if (lanes % 4 || K <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   auto s = static_cast<cudaStream_t>(stream);
   const int l4 = lanes / 4;
   uint8_t* covered = flags;
@@ -182,8 +184,8 @@ int probe_scatter_rows(const float* vals, const int* starts, const int* pos,
 int probe_index_read(const int* big, const float* x, float* out, int G,
                      int stride, int device, void* stream) {
   if (G <= 0) return 0;
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   index_read_kernel<<<(G + THREADS - 1) / THREADS, THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(big, x, out, G,
                                                            stride);

@@ -13,10 +13,12 @@ Engine protocol (duck-typed):
 The port has every kind of the reference: ``exact``, ``ivf``, ``hnsw``,
 ``hybrid`` (with its IVF or HNSW backend) and the sharded ones,
 ``sharded_exact``, ``sharded_ivf``, ``sharded_hnsw`` and
-``sharded_hybrid`` (``parallel/``). A sharded kind takes ``mesh``: None
-(one shard on the store's device), an int n (n shards placed together on
-the store's device) or a sequence of devices. Unknown kinds and unknown
-config fields raise ``ValueError``.
+``sharded_hybrid`` (``parallel/``). A sharded kind takes ``mesh``
+(``parallel/sharded.resolve_mesh``): None (every visible card for a CUDA
+store, the reference's ``make_mesh()``; the store's device otherwise), an
+int n (n shards round-robin over those devices) or a sequence of device
+names; shard s lives on ``mesh[s]``. Unknown kinds and unknown config
+fields raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,9 +48,13 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
     ``hnsw`` and ``adaptive`` blocks become ``ivf_config``, ``hnsw_config``
     with ``ann_backend="hnsw"``, and ``adaptive_config``); flat keys pass to
     the engine constructor. A sharded kind resolves as its base kind (the
-    ``sharded_`` prefix stripped, ``quiver_tpu/index/__init__.py:51``).
-    Unknown fields raise ValueError (a REST layer maps it to 400)."""
+    ``sharded_`` prefix stripped, ``quiver_tpu/index/__init__.py:51``) and
+    takes a top-level ``"mesh"`` (None, an int or a list of device names),
+    passed through as the ``mesh`` argument. Unknown fields raise
+    ValueError (a REST layer maps it to 400)."""
     jcfg = dict(jcfg or {})
+    mesh = {"mesh": jcfg.pop("mesh")} if kind.startswith("sharded_") and "mesh" in jcfg else {}
+    _check_mesh(mesh.get("mesh"))
     ns = {k: jcfg.pop(k) for k in _CONFIG_NAMESPACES if isinstance(jcfg.get(k), dict)}
     base = kind.removeprefix("sharded_")
     out: dict = {}
@@ -72,7 +78,7 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
                 from quiver_tpu_torch.index.hybrid import AdaptiveConfig
 
                 out["adaptive_config"] = AdaptiveConfig(**ns["adaptive"])
-            return out
+            return {**out, **mesh}
         stray = [k for k in ns if k != base]
         if stray:
             raise ValueError(f"engine_config namespaces {stray} do not apply to engine {kind!r}")
@@ -88,7 +94,29 @@ def resolve_engine_config(kind: str, jcfg: dict | None) -> dict:
             out = {"config": HNSWConfig(**out)} if out else {}
     except TypeError as e:  # unknown dataclass field
         raise ValueError(f"invalid engine_config for {kind!r}: {e}") from e
-    return out
+    return {**out, **mesh}
+
+
+def _check_mesh(mesh) -> None:
+    """A JSON ``mesh`` is None, a positive int or a non-empty list of
+    device names; anything else raises ValueError."""
+    import torch
+
+    if mesh is None:
+        return
+    if isinstance(mesh, bool) or not isinstance(mesh, (int, list)):
+        raise ValueError(f"mesh must be null, an int or a list of device names, got {mesh!r}")
+    if isinstance(mesh, int):
+        if mesh < 1:
+            raise ValueError(f"mesh of {mesh} shards")
+        return
+    if not mesh:
+        raise ValueError("empty mesh")
+    for dev in mesh:
+        try:
+            torch.device(dev)
+        except (RuntimeError, TypeError) as e:
+            raise ValueError(f"mesh device {dev!r}: {e}") from e
 
 
 def _sharded_hybrid(store, **cfg):
@@ -96,7 +124,9 @@ def _sharded_hybrid(store, **cfg):
     123-167``): the exact side a ``ShardedExactIndex``, the ANN side a
     ``ShardedIVFIndex`` (its IVFConfig knobs: ``ivf_config`` or flat
     overrides) or, when graph knobs are given (``hnsw_config`` or flat
-    HNSW fields) or ``ann_backend="hnsw"``, a ``ShardedHNSWIndex``."""
+    HNSW fields) or ``ann_backend="hnsw"``, a ``ShardedHNSWIndex``. The ANN
+    engine's exact fallback reads the exact side's row mirrors, so the
+    corpus is on the mesh's devices once."""
     from quiver_tpu_torch.index.hybrid import HybridIndex
     from quiver_tpu_torch.parallel.sharded import ShardedExactIndex, resolve_mesh
 
@@ -107,6 +137,7 @@ def _sharded_hybrid(store, **cfg):
     ivf_config = cfg.pop("ivf_config", None)
     hnsw_config = cfg.pop("hnsw_config", None)
     adaptive_config = cfg.pop("adaptive_config", None)
+    exact = ShardedExactIndex(store, mesh, **dtype_kw)
     if backend == "auto":
         hnsw_keys = {
             "m", "m0", "ef_construction", "ef_search", "max_level",
@@ -121,7 +152,7 @@ def _sharded_hybrid(store, **cfg):
             ivf_kw["config"] = ivf_config
 
         def ann_factory(s):
-            return ShardedIVFIndex(s, mesh, **ivf_kw)
+            return ShardedIVFIndex(s, mesh, mirrors_of=exact, **ivf_kw)
     elif backend == "hnsw":
         from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
 
@@ -130,13 +161,13 @@ def _sharded_hybrid(store, **cfg):
             hnsw_kw["config"] = hnsw_config
 
         def ann_factory(s):
-            return ShardedHNSWIndex(s, mesh, **hnsw_kw)
+            return ShardedHNSWIndex(s, mesh, mirrors_of=exact, **hnsw_kw)
     else:
         raise ValueError(f"unknown ann_backend {backend!r}")
     return HybridIndex(
         store,
         adaptive_config=adaptive_config,
-        exact_factory=lambda s: ShardedExactIndex(s, mesh, **dtype_kw),
+        exact_factory=lambda s: exact,
         ann_factory=ann_factory,
     )
 

@@ -23,8 +23,8 @@ The port has the build, the query, the n_probe tuner (``recall_target``,
   there through the ``insert_drift`` router), :meth:`IVFIndex.on_update`
   rewrites a row in place or moves it, :meth:`IVFIndex.on_delete` leaves a
   keep-bit tombstone. The block arrays are written in place by
-  :func:`_scatter_blocks_dev`, which gathers the rows from the store's
-  device copy;
+  :func:`_scatter_blocks_dev`, from rows gathered out of the store's
+  device copy (:meth:`IVFIndex._rows_dev`);
 * the churn tiers (:meth:`IVFIndex._maybe_rebuild`): a re-layout on the
   trained centroids (:meth:`IVFIndex.refresh`, which escalates to
   :meth:`IVFIndex.build` when the centroids no longer fit the corpus) past
@@ -46,6 +46,18 @@ The port has the build, the query, the n_probe tuner (``recall_target``,
 
 ``formulation="einsum"`` raises ``NotImplementedError``: it is a TPU
 lowering fallback the port does not carry (ROADMAP.md).
+
+Placement hooks. Every point where the layout meets a device is a method
+a sharded subclass overrides (``parallel/sharded_ivf.py``), as the
+reference's ``_put_cent_dev`` / ``_put_block_arrays`` / ``_gather_source``
+/ ``_layout_on_device`` are: :meth:`IVFIndex._put_cent_dev` (the
+centroids), :meth:`IVFIndex._kmeans_source` (the rows Lloyd runs on),
+:meth:`IVFIndex._layout_blocks` (the block arrays from the slot map),
+:meth:`IVFIndex._rows_dev` (store rows by slot for the write path, the
+refresh's assignment and the overflow scan), :meth:`IVFIndex._scatter_block_rows`,
+:meth:`IVFIndex._keep_dev`, and the maintenance streams, one per CUDA
+device the layout spans (:meth:`IVFIndex._cuda_devices`). On one device
+they read the store's device view, as before.
 
 Reference workarounds not ported, because their cause is absent here:
 
@@ -74,6 +86,7 @@ Reference workarounds not ported, because their cause is absent here:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -159,30 +172,22 @@ def _nearest_centroid(v, cent, c_ns, live):
     return best, scores.gather(1, best[:, None])[:, 0]
 
 
-def _nearest_centroid_slots(slots, vectors, cent, c_ns, live):
-    """:func:`_nearest_centroid` for store rows addressed by slot: the
-    gather reads the store's device copy, so the write path and refresh
-    upload slot indices, never vector data."""
-    return _nearest_centroid(vectors[slots], cent, c_ns, live)
-
-
 def _scatter_blocks_dev(
     blocks_t, block_ns, block_inv, block_slot,
-    vectors, norms_sq, cent, rows, pos, slots,
+    v, ns, cent, rows, pos, slots,
 ):
-    """A write batch's block-array maintenance, in place: gather the rows
-    from the store's device copy, form residuals and per-row stats, and
-    scatter all four block arrays at (cluster ``rows``, position ``pos``).
-    Index tensors are int64 on the blocks' device, one entry per row.
+    """A write batch's block-array maintenance, in place: from the batch's
+    rows ``v`` f32[m, d] and their squared norms ``ns``, form residuals and
+    per-row stats, and scatter all four block arrays at (cluster ``rows``,
+    position ``pos``), writing ``slots`` into the slot map. Index tensors
+    are int64 on the blocks' device, one entry per row.
 
     ``blocks_t[rows, :, pos]`` is mixed advanced indexing on [K, d, Cmax]:
     the two index tensors are separated by a slice, so the indexed view is
     laid out [m, d] with the advanced dimension first (numpy's rule), and
     each row writes d values of the blocks' dtype at stride Cmax."""
-    v = vectors[slots]
     resid = v - cent[rows]
     rns = torch.sum(resid * resid, dim=1)
-    ns = norms_sq[slots]
     inv = torch.where(ns > 0, torch.rsqrt(torch.clamp(ns, min=1e-30)), 0.0)
     blocks_t[rows, :, pos] = resid.to(blocks_t.dtype)
     block_ns[rows, pos] = rns
@@ -190,10 +195,11 @@ def _scatter_blocks_dev(
     block_slot[rows, pos] = slots.to(block_slot.dtype)
 
 
-def _overflow_topk(q, slots, vectors, norms_sq, *, metric, k):
-    """Exactly score an overflow slot list against a query batch and keep
-    the per-query top-k, on the device."""
-    d = pairwise_distance(q, vectors[slots], metric, v_norms_sq=norms_sq[slots])
+def _overflow_topk(q, slots, rows, rows_ns, *, metric, k):
+    """Exactly score an overflow slot list (its rows f32[m, d] and their
+    squared norms) against a query batch and keep the per-query top-k, on
+    the device."""
+    d = pairwise_distance(q, rows, metric, v_norms_sq=rows_ns)
     out_d, pos = torch.topk(d, min(k, slots.shape[0]), dim=1, largest=False)
     return out_d, torch.where(out_d >= MASKED_DIST, -1, slots[pos])
 
@@ -330,13 +336,20 @@ class IVFIndex:
         self._maint_error: Optional[str] = None
         self._maint_swaps = 0
         self._maint_last_stall_s = 0.0
-        #: the stream the maintenance job's device work runs on (CUDA
-        #: stores; created with the first job)
-        self._maint_stream: Optional[torch.cuda.Stream] = None
+        #: the streams the maintenance job's device work runs on, one per
+        #: CUDA device of the layout (:meth:`_cuda_devices`; created with
+        #: the first job)
+        self._maint_streams: dict = {}
 
     @property
     def size(self) -> int:
         return self.store.size
+
+    @property
+    def _maint_stream(self) -> Optional[torch.cuda.Stream]:
+        """The maintenance stream of the engine's own device (None on the
+        CPU or before the first job)."""
+        return self._maint_streams.get(self.device)
 
     @property
     def n_clusters(self) -> Optional[int]:
@@ -360,10 +373,10 @@ class IVFIndex:
                 return
             K = k or c.n_clusters or self._auto_k(n_live)
             K = min(K, n_live)
-            dev = self.store.device_view()
+            vectors_dev, valid_dev = self._kmeans_source()
             cents, assign = train_kmeans(
                 self.store._np_vectors, valid, K, n_iters=c.kmeans_iters,
-                seed=c.seed, vectors_dev=dev.vectors, valid_dev=dev.valid,
+                seed=c.seed, vectors_dev=vectors_dev, valid_dev=valid_dev,
             )
             # cap clusters by SPLITTING, never by spilling rows far away
             cmax = _cmax_shape(c.cmax_factor * max(n_live, 1) / K)
@@ -404,7 +417,7 @@ class IVFIndex:
         passes and rescore is off, the exact f32 rescore is tried as the
         second axis.
 
-        The oracle is the port's ``ExactIndex`` (f32, TF32 off) at depth
+        The oracle is the engine's exact scan (f32, TF32 off) at depth
         max(4k, k+32), rescored in f64: the k-th of the rescored deeper set
         is the true k-th distance.
 
@@ -428,7 +441,7 @@ class IVFIndex:
                 * rng.standard_normal(base.shape)
             ).astype(np.float32)
             deep = min(max(4 * k, k + 32), len(rows))
-            _, cand = ExactIndex(self.store).search_slots(q, deep)
+            _, cand = self._exact.search_slots(q, deep)
             d_cand = self._host_dist_f64(q, cand)  # +inf for -1 slots
             order = np.argsort(d_cand, axis=1)
             d_sorted = np.take_along_axis(d_cand, order, axis=1)
@@ -664,8 +677,41 @@ class IVFIndex:
         return cents, assign
 
     def _put_cent_dev(self, cents: np.ndarray):
+        """Hook: (centroids f32[K, d], their squared norms) on the engine's
+        device, for the probe and the write path's assignment."""
         cent = torch.from_numpy(np.ascontiguousarray(cents, np.float32)).to(self.device)
         return cent, torch.sum(cent * cent, dim=1)
+
+    def _kmeans_source(self):
+        """Hook: the device rows Lloyd's k-means runs on, as (vectors,
+        valid): the store's view."""
+        view = self.store.device_view()
+        return view.vectors, view.valid
+
+    def _rows_dev(self, slots_np: np.ndarray):
+        """Hook: (vectors f32[m, d], norms_sq f32[m]) of store rows by slot,
+        on the engine's device: gathered from the store's device copy
+        (already synced by the store's writes), so only the slot indices
+        upload."""
+        view = self.store.device_view()
+        idx = torch.from_numpy(np.ascontiguousarray(slots_np, np.int64)).to(self.device)
+        return view.vectors[idx], view.norms_sq[idx]
+
+    def _cuda_devices(self) -> list:
+        """Hook: the CUDA devices the layout spans (a maintenance stream
+        each)."""
+        return [self.device] if self.device.type == "cuda" else []
+
+    def _cent_tensors(self) -> list:
+        """Hook: the centroid tensors on the devices (a staging clone
+        shares them)."""
+        return list(self._cent_dev or ())
+
+    def _layout_tensors(self) -> list:
+        """Hook: every device tensor of the serving layout (a maintenance
+        swap marks them used by the serving streams)."""
+        return [*self._cent_tensors(), self._blocks_t, self._block_slot, self._block_ns,
+                self._block_inv, self._block_keep]
 
     def _live_dev(self) -> Optional[torch.Tensor]:
         """``_cluster_live`` on the device (None: every cluster is live)."""
@@ -693,20 +739,18 @@ class IVFIndex:
 
     def _assign_nearest_slots(self, slots: np.ndarray, chunk: int = 1 << 16):
         """(nearest live-centroid id i64, winning affine score f32) for
-        store rows by slot, in chunks of ``chunk`` rows gathered from the
-        store's device copy: a full-corpus refresh uploads only slot
-        indices."""
-        vectors, _ = self._gather_source()
+        store rows by slot, in chunks of ``chunk`` rows (:meth:`_rows_dev`:
+        on one device a full-corpus refresh uploads only slot indices)."""
         cent, c_ns = self._cent_dev
         live = self._live_dev()
         n = len(slots)
         out = np.empty(n, np.int64)
         scores = np.empty(n, np.float32)
         for at in range(0, n, chunk):
-            s = torch.from_numpy(np.ascontiguousarray(slots[at: at + chunk], np.int64))
-            a, sc = _nearest_centroid_slots(s.to(self.device), vectors, cent, c_ns, live)
-            out[at: at + len(s)] = a.cpu().numpy()
-            scores[at: at + len(s)] = sc.cpu().numpy()
+            sl = slots[at: at + chunk]
+            a, sc = _nearest_centroid(self._rows_dev(sl)[0], cent, c_ns, live)
+            out[at: at + len(sl)] = a.cpu().numpy()
+            scores[at: at + len(sl)] = sc.cpu().numpy()
         return out, scores
 
     # ---------------------------------------------------------------- warmup
@@ -852,8 +896,9 @@ class IVFIndex:
                 else:
                     self._maint_pending = self._maint_pending or kind
                 return
-            if self.device.type == "cuda" and self._maint_stream is None:
-                self._maint_stream = torch.cuda.Stream(device=self.device)
+            for dev in self._cuda_devices():
+                if dev not in self._maint_streams:
+                    self._maint_streams[dev] = torch.cuda.Stream(device=dev)
             t = threading.Thread(
                 target=self._maintenance_job, args=(kind,),
                 name="ivf-maintenance", daemon=True,
@@ -882,15 +927,15 @@ class IVFIndex:
     def _maintenance_job(self, kind: str) -> None:
         ok = False
         try:
-            if self._maint_stream is None:
-                self._run_maintenance(kind)
-            else:
-                with torch.cuda.stream(self._maint_stream):
-                    try:
-                        self._run_maintenance(kind)
-                    finally:
-                        # the job ends when its device work ends
-                        self._maint_stream.synchronize()
+            with contextlib.ExitStack() as stack:
+                for stream in self._maint_streams.values():
+                    stack.enter_context(torch.cuda.stream(stream))
+                try:
+                    self._run_maintenance(kind)
+                finally:
+                    # the job ends when its device work ends
+                    for stream in self._maint_streams.values():
+                        stream.synchronize()
             ok = True
         except Exception as e:  # noqa: BLE001 — background thread boundary
             _log.exception("IVF background maintenance (%s) failed", kind)
@@ -999,10 +1044,11 @@ class IVFIndex:
                 eng._built = self._built
                 for f in self._CLONE_EXTRA:
                     setattr(eng, f, getattr(self, f))
-            if self._maint_stream is not None and eng._cent_dev is not None:
-                # read on this stream: their memory must outlive its reads
-                for t in eng._cent_dev:
-                    t.record_stream(self._maint_stream)
+            if self._maint_streams and eng._cent_dev is not None:
+                # read on these streams: their memory must outlive its reads
+                for t in eng._cent_tensors():
+                    if t.device.type == "cuda":
+                        t.record_stream(self._maint_streams[t.device])
         return eng
 
     def _replay_into(self, eng: "IVFIndex", slots: np.ndarray) -> None:
@@ -1028,21 +1074,21 @@ class IVFIndex:
 
     def _adopt(self, eng: "IVFIndex") -> None:
         """Install a staging clone's layout as the serving layout (caller
-        holds the engine lock). On a CUDA store the device's default stream
-        — where queries, the write path and the store's syncs run — waits
-        for everything the job enqueued so far (its last replay included),
-        and each adopted tensor is marked used by that stream: the staging
-        tensors were allocated on the maintenance stream, whose next job
-        could otherwise be handed their memory while serving kernels are
-        still queued on it."""
+        holds the engine lock). On each CUDA device of the layout the
+        default stream — where queries, the write path and the store's syncs
+        run — waits for everything the job enqueued so far on that device
+        (its last replay included), and each adopted tensor is marked used
+        by its device's default stream: the staging tensors were allocated
+        on a maintenance stream, whose next job could otherwise be handed
+        their memory while serving kernels are still queued on it."""
         for f in self._ADOPT_FIELDS + self._CLONE_EXTRA:
             setattr(self, f, getattr(eng, f))
-        if self._maint_stream is not None:
-            sync = self.store.sync_stream()
-            sync.wait_stream(self._maint_stream)
-            for t in (*self._cent_dev, self._blocks_t, self._block_slot,
-                      self._block_ns, self._block_inv, self._block_keep):
-                t.record_stream(sync)
+        if self._maint_streams:
+            for dev, stream in self._maint_streams.items():
+                torch.cuda.default_stream(dev).wait_stream(stream)
+            for t in self._layout_tensors():
+                if t.device.type == "cuda":
+                    t.record_stream(torch.cuda.default_stream(t.device))
         # the staging tuner ran against the staging config copy; its pick
         # takes effect here, with the layout it was measured on
         if eng._tuned_n_probe is not None:
@@ -1086,7 +1132,7 @@ class IVFIndex:
                 self._overflow.update(int(s) for s in ds)
                 self._drift.update(int(s) for s in ds)
                 slots, assign = slots[~drift], assign[~drift]
-            cmax = self._block_slot.shape[1]
+            cmax = int(self._cmax)
             order = np.argsort(assign, kind="stable")
             sorted_a = assign[order]
             n = len(order)
@@ -1148,21 +1194,12 @@ class IVFIndex:
             self._churn += len(slots)
             self._maybe_rebuild()
 
-    def _gather_source(self):
-        """(vectors, norms_sq) device tensors the write path gathers rows
-        from: the store's view, ready on the current stream."""
-        view = self.store.device_view()
-        return view.vectors, view.norms_sq
-
     def _assign_slots(self, slots_np: np.ndarray):
         """(assign i64, best affine score f64) of the nearest live
-        centroid for store rows by slot, gathered from the store's device
-        copy (already synced by the store's writes): only the slot indices
-        upload and two small vectors download."""
-        vectors, _ = self._gather_source()
+        centroid for store rows by slot (:meth:`_rows_dev`): two small
+        vectors download."""
         cent, c_ns = self._cent_dev
-        s = torch.from_numpy(np.ascontiguousarray(slots_np, np.int64)).to(self.device)
-        a, sc = _nearest_centroid_slots(s, vectors, cent, c_ns, self._live_dev())
+        a, sc = _nearest_centroid(self._rows_dev(slots_np)[0], cent, c_ns, self._live_dev())
         return a.cpu().numpy().astype(np.int64), sc.cpu().numpy().astype(np.float64)
 
     def _drift_mask(self, vectors: np.ndarray, best_s: np.ndarray) -> np.ndarray:
@@ -1177,17 +1214,18 @@ class IVFIndex:
         return resid > f * self._built_resid
 
     def _scatter_block_rows(self, rows_np, pos_np, slots_np) -> None:
-        """Scatter store rows (by slot) into the block arrays at (cluster,
-        position), in place (:func:`_scatter_blocks_dev`): three int64
-        index vectors upload, the vector data is gathered on the device."""
-        vectors, norms = self._gather_source()
+        """Hook: scatter store rows (by slot) into the block arrays at
+        (cluster, position), in place (:func:`_scatter_blocks_dev`): the
+        rows come from :meth:`_rows_dev`, three int64 index vectors
+        upload."""
+        v, ns = self._rows_dev(slots_np)
 
         def idx(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)
 
         _scatter_blocks_dev(
             self._blocks_t, self._block_ns, self._block_inv, self._block_slot,
-            vectors, norms, self._cent_dev[0],
+            v, ns, self._cent_dev[0],
             idx(rows_np), idx(pos_np), idx(slots_np),
         )
 
@@ -1219,8 +1257,9 @@ class IVFIndex:
         self._drift.difference_update(int(s) for s in slots)
 
     def _keep_dev(self):
-        """Apply pending keep-bit scatters (one scatter per query batch at
-        most). Last write wins per position. Caller holds the engine lock."""
+        """Hook: apply pending keep-bit scatters (one scatter per query
+        batch at most). Last write wins per position. Caller holds the
+        engine lock."""
         if self._keep_pending:
             last = {(r, c): v for r, c, v in self._keep_pending}
             rows = torch.tensor([rc[0] for rc in last], dtype=torch.int64)
@@ -1278,7 +1317,7 @@ class IVFIndex:
             return "pairs"
         if form != "fused":
             raise ValueError(f"unknown formulation {form!r}")
-        Cmax = int(self._block_slot.shape[1])
+        Cmax = int(self._cmax)
         S = Cmax // WIN
         if not (
             Cmax % WIN == 0 and R_WIN * S >= k and R_WIN * S <= 128
@@ -1383,11 +1422,10 @@ class IVFIndex:
         if not len(slots):
             return dist, idx
         W = dist.shape[1]
-        view = self.store.device_view()
         d_o, i_o = _overflow_topk(
             torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
             torch.from_numpy(slots).to(self.device),
-            view.vectors, view.norms_sq, metric=self.store.metric, k=W,
+            *self._rows_dev(slots), metric=self.store.metric, k=W,
         )
         cd = np.concatenate([dist, d_o.cpu().numpy()], axis=1)
         ci = np.concatenate([idx, i_o.cpu().numpy().astype(idx.dtype)], axis=1)
@@ -1489,18 +1527,9 @@ class IVFIndex:
         block_slot[sorted_c, pos_in] = order
         slot_pos[order, 0] = sorted_c
         slot_pos[order, 1] = pos_in
-        # blocks hold RESIDUALS v - c_k, gathered from the store's device
-        # copy: only the [K, cmax] slot map uploads
-        view = self.store.device_view()
-        slot_dev = torch.from_numpy(block_slot).to(self.device)
-        (
-            self._blocks_t, self._block_ns, self._block_inv, self._block_keep, rsum,
-        ) = _layout_dev(
-            slot_dev, view.vectors, view.norms_sq, self._cent_dev[0], self.compute_dtype
-        )
+        rsum = self._layout_blocks(block_slot)
         # drift baseline: mean squared residual over the placed rows
-        self._built_resid = float(rsum) / max(n_live, 1)
-        self._block_slot = slot_dev
+        self._built_resid = rsum / max(n_live, 1)
         self._keep_pending = []
         self._fill = fill.astype(np.int64)
         self._slot_pos = slot_pos
@@ -1511,3 +1540,18 @@ class IVFIndex:
         self._churn = 0
         self._cmax = int(cmax)
         self._layout_gen += 1
+
+    def _layout_blocks(self, block_slot: np.ndarray) -> float:
+        """Hook: install the block arrays for the host slot map
+        ``block_slot`` i32[K, cmax]; returns the placed rows' summed squared
+        residual. The blocks hold RESIDUALS v - c_k, gathered from the
+        store's device copy: only the slot map uploads."""
+        view = self.store.device_view()
+        slot_dev = torch.from_numpy(block_slot).to(self.device)
+        (
+            self._blocks_t, self._block_ns, self._block_inv, self._block_keep, rsum,
+        ) = _layout_dev(
+            slot_dev, view.vectors, view.norms_sq, self._cent_dev[0], self.compute_dtype
+        )
+        self._block_slot = slot_dev
+        return float(rsum)

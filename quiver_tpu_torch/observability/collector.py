@@ -73,6 +73,7 @@ class Collector:
         """Measured recall@k of the collection's engine vs the exact oracle,
         using stored vectors (perturbation-free) as queries."""
         from quiver_tpu_torch.index.exact import ExactIndex
+        from quiver_tpu_torch.parallel.sharded import sharded_exact_of
 
         store = collection.store
         if store.size == 0:
@@ -81,7 +82,9 @@ class Collector:
         live = store.live_slots()
         pick = rng.choice(live, size=min(sample, len(live)), replace=False)
         queries = np.stack([store.vector_of_slot(int(s)) for s in pick])
-        oracle = ExactIndex(store)
+        # a sharded engine's own exact scan: ExactIndex would make the
+        # store's whole device view
+        oracle = sharded_exact_of(collection.engine) or ExactIndex(store)
         _, truth = oracle.search_slots(queries, k)
         _, got = collection.engine.search_slots(queries, k)
         hits = sum(

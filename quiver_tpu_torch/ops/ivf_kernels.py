@@ -73,29 +73,49 @@ def _lloyd_iters(x, centroids, valid, n_iters: int):
     """Lloyd's k-means on the device: assignment by row-blocked matmul
     argmax (blocks keep the [N, K] score matrix under 256 MB), update by
     ``index_add_``. Invalid rows park in an extra segment and never
-    contribute. Empty clusters keep their previous centroid."""
-    n, d = x.shape
-    k = centroids.shape[0]
-    bs = max(1, min(n, (1 << 26) // max(k, 1)))
+    contribute. Empty clusters keep their previous centroid.
 
-    def assign_all(c):
+    ``x`` and ``valid`` may be lists of row parts in row order, each on its
+    own device (a sharded engine's row mirrors): each part assigns and sums
+    its rows where they live, and the partial sums and counts add up on the
+    centroids' device (the reference's psum over the mesh). Returns the
+    centroids and the assignment (i64, -1 for invalid rows; a CPU tensor
+    when there are several parts)."""
+    parts = list(zip(x, valid)) if isinstance(x, (list, tuple)) else [(x, valid)]
+    home = centroids.device
+    k, d = centroids.shape
+
+    def assign_all(xp, c):
+        n = xp.shape[0]
+        bs = max(1, min(n, (1 << 26) // max(k, 1)))
         c_ns = torch.sum(c * c, dim=1)
-        out = torch.empty(n, dtype=torch.int64, device=x.device)
+        out = torch.empty(n, dtype=torch.int64, device=xp.device)
         for lo in range(0, n, bs):
             out[lo:lo + bs] = torch.argmax(
-                2.0 * (x[lo:lo + bs] @ c.T) - c_ns[None, :], dim=1
+                2.0 * (xp[lo:lo + bs] @ c.T) - c_ns[None, :], dim=1
             )
         return out
 
     c = centroids
     for _ in range(n_iters):
-        assign = torch.where(valid, assign_all(c), k)  # park invalid rows
-        sums = torch.zeros(k + 1, d, device=x.device).index_add_(0, assign, x)[:k]
-        counts = torch.bincount(assign, minlength=k + 1)[:k].float()
+        partial = []
+        for xp, vp in parts:  # every part's work queued before any copy
+            assign = torch.where(vp, assign_all(xp, c.to(xp.device)), k)  # park invalid rows
+            partial.append((
+                torch.zeros(k + 1, d, device=xp.device).index_add_(0, assign, xp),
+                torch.bincount(assign, minlength=k + 1),
+            ))
+        sums = torch.zeros(k + 1, d, device=home)
+        counts = torch.zeros(k + 1, dtype=torch.int64, device=home)
+        for ps, pc in partial:
+            sums += ps.to(home)
+            counts += pc.to(home)
+        counts = counts[:k].float()
         c = torch.where(
-            counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1.0), c
+            counts[:, None] > 0, sums[:k] / torch.clamp(counts[:, None], min=1.0), c
         )
-    return c, torch.where(valid, assign_all(c), -1)
+    out = [torch.where(vp, assign_all(xp, c.to(xp.device)), -1) for xp, vp in parts]
+    return c, out[0] if len(out) == 1 else torch.cat([a.cpu() for a in out])
 
 
 def train_kmeans(
@@ -110,18 +130,20 @@ def train_kmeans(
 ):
     """K-means over the live rows. Returns (centroids f32[k, d],
     assign i64[n] with -1 for invalid rows), numpy. Lloyd runs on the
-    device copy (``vectors_dev``, ``valid_dev``; the store's view), the
-    host ``vectors`` serve the init and reseed gathers, which draw from the
-    same numpy RNG sequence as the reference, so both packages start from
-    the same centroids."""
+    device copy (``vectors_dev``, ``valid_dev``: the store's view, or a
+    sharded engine's row mirrors as lists of parts, :func:`_lloyd_iters`),
+    the host ``vectors`` serve the init and reseed gathers, which draw from
+    the same numpy RNG sequence as the reference, so both packages start
+    from the same centroids."""
     require_ieee_f32()
     rng = np.random.default_rng(seed)
     live = np.flatnonzero(valid)
     if len(live) < k:
         raise ValueError(f"need at least k={k} live rows, have {len(live)}")
     init = vectors[rng.choice(live, size=k, replace=False)].astype(np.float32)
+    home = (vectors_dev[0] if isinstance(vectors_dev, (list, tuple)) else vectors_dev).device
     cents, assign = _lloyd_iters(
-        vectors_dev, torch.from_numpy(init).to(vectors_dev.device), valid_dev, n_iters
+        vectors_dev, torch.from_numpy(init).to(home), valid_dev, n_iters
     )
     cents = cents.cpu().numpy().copy()
     assign = assign.cpu().numpy().copy()
@@ -410,12 +432,15 @@ def _select_probes(c_scores, P: int, K: int, probe_sel_approx):
     return probe, torch.gather(c_scores, 1, probe)
 
 
-def _epilogue(metric, block_keep, block_rns, block_inv_norms, c_dots, probe):
+def _epilogue(metric, block_keep, block_rns, block_inv_norms, c_dots, probe, pair_dots=None):
     """block_topw epilogue operands of the pairs stage:
-    (scale, sub_cent, col_add, row_add, col_mul)."""
+    (scale, sub_cent, col_add, row_add, col_mul). ``pair_dots`` f32[B, P],
+    when given, is ``c_dots`` gathered at the probes already."""
     if metric == DistanceType.COSINE:
         # (dot + q·c) * (1/|v| masked) + mask bias; row_add per pair
-        row_add = torch.gather(c_dots, 1, probe).reshape(-1).contiguous()
+        if pair_dots is None:
+            pair_dots = torch.gather(c_dots, 1, probe)
+        row_add = pair_dots.reshape(-1).contiguous()
         col_mul = torch.where(block_keep, block_inv_norms, 0.0)
         col_add = torch.where(block_keep, 0.0, NEG_BIG)
         return 1.0, False, col_add, row_add, col_mul
@@ -428,7 +453,7 @@ def _epilogue(metric, block_keep, block_rns, block_inv_norms, c_dots, probe):
 def _pairs_candidates(
     q, centroids, c_dots, caff, probe, order, starts,
     blocks_t, block_rns, block_inv_norms, block_keep,
-    *, metric, k, oversample, seg_width,
+    *, metric, k, oversample, seg_width, pair_dots=None,
 ):
     """Grouped candidate stage, windowed top-2 (``seg_width`` lanes):
     ``block_topw`` scores every pair, keeps the top 2 packed keys per
@@ -459,13 +484,15 @@ def _pairs_candidates(
     never survives. ``best_flat`` is rebuilt from ``probe``, so it indexes
     the GLOBAL [K_global * Cmax] grid in both branches, and the
     reference's ``cluster_offset`` (which its per-pair branch adds to the
-    sorted local ids) has nothing to do here."""
+    sorted local ids) has nothing to do here. ``pair_dots`` (``c_dots``
+    gathered at the probes; then ``c_dots`` may be None) spares a shard on
+    another device the full [B, K] dots."""
     B, d = q.shape
     K, _, Cmax = blocks_t.shape
     P = probe.shape[1]
     BP = B * P
     scale, sub_cent, col_add, row_add, col_mul = _epilogue(
-        metric, block_keep, block_rns, block_inv_norms, c_dots, probe
+        metric, block_keep, block_rns, block_inv_norms, c_dots, probe, pair_dots
     )
     kw = dict(
         P=P, scale=scale, col_add=col_add, row_add=row_add, col_mul=col_mul,

@@ -2,16 +2,19 @@
 counterpart of ``__graft_entry__.dryrun_multichip`` (``__graft_entry__.py:
 70-220``).
 
-It runs, on ``n`` shards placed together on ``device`` (the CPU, or one
-card): a sharded ingest scatter of new rows, a construction kNN round of
-those rows against the sharded corpus (each must find itself first), a
-filtered cosine search with the merge and a negative rerank, then the
-sharded HNSW engine (a build, a search, a write after the first search)
-and the sharded IVF engine (a build, a search, a refresh that keeps the
-cluster ownership). A failed check raises ``AssertionError``.
+It runs, over a mesh of devices (``parallel/sharded.resolve_mesh``: every
+card by default, n shards, or a list such as ``cuda:0,cpu``, as the JAX
+one runs across n chips): a sharded ingest scatter of new rows, a
+construction kNN round of those rows against the sharded corpus (each
+must find itself first), a filtered cosine search with the merge and a
+negative rerank, then the sharded HNSW engine (a build, a search, a write
+after the first search) and the sharded IVF engine (a build, a search, a
+refresh that keeps the cluster ownership). A failed check raises
+``AssertionError``.
 
-Run: ``python -m quiver_tpu_torch.parallel.dryrun [n_shards] [--device cpu]``
-(the card by default).
+Run: ``python -m quiver_tpu_torch.parallel.dryrun [n_shards] [--mesh
+cuda:0,cpu] [--device cpu]`` (every card by default; ``--device`` is the
+stores' device).
 """
 
 from __future__ import annotations
@@ -31,14 +34,17 @@ from quiver_tpu_torch.parallel.sharded import (
 )
 
 
-def dryrun_multichip(n_shards: int = 8, device="cuda") -> dict:
-    """The pipeline step (module doc); returns its checked figures."""
+def dryrun_multichip(mesh=8, device="cuda") -> dict:
+    """The pipeline step (module doc) over ``mesh`` (None, an int or a
+    list of devices; the stores live on ``device``); returns its checked
+    figures."""
     from quiver_tpu_torch.index.ivf import IVFConfig
     from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
     from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
 
     dev = resolve_device(device)
-    mesh = resolve_mesh(n_shards, dev)
+    mesh = resolve_mesh(mesh, dev)
+    n_shards = len(mesh)
     cap = max(1024, 128 * n_shards)
     cap -= cap % n_shards
     d, B, k, new_n = 32, 8, 5, 16
@@ -114,16 +120,19 @@ def dryrun_multichip(n_shards: int = 8, device="cuda") -> dict:
     assert ivf._built and np.array_equal(ivf._cluster_live, live_before)
     _, ii = ivf.search_slots(i_vecs[:8], k=3)
     assert (ii[:, 0] == np.arange(8)).mean() >= 0.8, "post-refresh query broken"
-    return {"n_shards": n_shards, "device": str(dev), "self_hits": self_hits,
+    return {"n_shards": n_shards, "mesh": [str(m) for m in mesh], "self_hits": self_hits,
             "graph_self_hits": g_hits, "ivf_self_hits": i_hits}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("n_shards", type=int, nargs="?", default=8)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("n_shards", type=int, nargs="?", default=None,
+                    help="shards round-robin over the cards (default: one per card)")
+    ap.add_argument("--mesh", default=None, help="comma-separated devices, e.g. cuda:0,cpu")
+    ap.add_argument("--device", default="cuda", help="the stores' device")
     a = ap.parse_args()
-    print(dryrun_multichip(a.n_shards, a.device))
+    mesh = a.mesh.split(",") if a.mesh else a.n_shards
+    print(dryrun_multichip(mesh, a.device))
 
 
 if __name__ == "__main__":

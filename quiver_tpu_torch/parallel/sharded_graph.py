@@ -7,18 +7,26 @@ config's seed plus the shard index), so construction needs no cross-shard
 edges. A query searches every subgraph with the full ``ef`` and merges the
 shards' top k (``parallel/sharded.merge_topk``).
 
-The subgraphs share no edges, so shards placed together on one device run
-as ONE batched descent and beam over their concatenation (:meth:`_stack`):
-each shard's local slots are offset by ``s * Lc`` (Lc the largest
+Placement: shard ``s``'s sub-store and subgraph live on ``mesh[s]``, as
+the reference ``device_put``s each shard's subgraph stack to its chip
+(``sharded_graph.py:343-360, 442-444``).
+
+The subgraphs share no edges, so the shards placed together on one device
+run as ONE batched descent and beam over their concatenation
+(:meth:`_stack`, one per device): each shard's local slots are offset by
+``j * Lc`` (j its place in the device's group, Lc the group's largest
 sub-store capacity), its adjacency rows by the rows before it, and the
-batch is the n x B queries, each started from its own shard's entry point;
-the results split back per shard before the merge. A query only ever
-reaches its own shard's nodes, and the descent and beam treat every query
-row alone, so this equals one call per shard (held in the tests) at
-1/n the launches. A shard that lacks an upper level has no rows there, so
-the descent keeps its entry (the reference's identity routing,
-``sharded_graph.py:78-81``). Every shard lives on the store's device
-(``parallel/sharded.colocated_mesh``); one ``HNSWIndex`` call per shard
+batch is the group's shards x B queries, each started from its own shard's
+entry point; the results split back per shard before the merge. A query
+only ever reaches its own shard's nodes, and the descent and beam treat
+every query row alone, so this equals one call per shard (held in the
+tests) at 1/n the launches. A shard that lacks an upper level has no rows
+there, so the descent keeps its entry (the reference's identity routing,
+``sharded_graph.py:78-81``). Four shards on one card are one beam; four
+cards run four beams, one per card, each from a thread of the engine's
+pool (the beam's done test reads the card), so no card waits on another's
+reads; the workers queue on the caller's current streams, and the merge
+runs on the first device. One ``HNSWIndex`` call per shard
 (``search_device(batched=False)``) stays only as the batched search's
 parity oracle.
 
@@ -40,8 +48,10 @@ exact scan over the main store; the negative rerank runs over the shards
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -54,14 +64,17 @@ from quiver_tpu_torch.ops.scan import MASKED_DIST
 from quiver_tpu_torch.parallel.sharded import (
     MeshLike,
     ShardedExactIndex,
-    colocated_mesh,
+    distinct,
     merge_topk,
+    resolve_mesh,
 )
 
 
 class ShardedHNSWIndex:
     """Engine protocol over per-shard HNSW subgraphs
-    (``sharded_graph.py:137-608``)."""
+    (``sharded_graph.py:137-608``). ``mirrors_of`` names an exact engine
+    over the same store and mesh whose row mirrors the exact fallback reads
+    (a hybrid's exact side)."""
 
     name = "sharded_hnsw"
 
@@ -72,15 +85,20 @@ class ShardedHNSWIndex:
         *,
         config: Optional[HNSWConfig] = None,
         compute_dtype=torch.float32,
+        mirrors_of: Optional[ShardedExactIndex] = None,
         **cfg_overrides,
     ):
         self.store = store
-        self.mesh = colocated_mesh(mesh, store.device, "sharded HNSW")
+        self.mesh = resolve_mesh(mesh, store.device)
+        self.device = self.mesh[0]
         self.n = len(self.mesh)
+        #: device -> the shards on it, in mesh order (one stacked beam each)
+        self._groups = {dev: [s for s in range(self.n) if self.mesh[s] == dev]
+                        for dev in distinct(self.mesh)}
         self.config = config or HNSWConfig(**cfg_overrides)
         self.compute_dtype = compute_dtype
-        self._sub_stores = [VectorStore(store.dim, store.metric, device=store.device)
-                            for _ in self.mesh]
+        self._sub_stores = [VectorStore(store.dim, store.metric, device=dev)
+                            for dev in self.mesh]
         self._subs = [
             HNSWIndex(s, config=dataclasses.replace(self.config, seed=self.config.seed + i),
                       compute_dtype=compute_dtype)
@@ -90,12 +108,18 @@ class ShardedHNSWIndex:
         self._local_slot = np.full(store.capacity, -1, np.int64)
         self._l2g = [np.full(s.capacity, -1, np.int64) for s in self._sub_stores]
         self._rr = 0  # round-robin cursor
-        self._exact = ShardedExactIndex(store, self.mesh, compute_dtype=compute_dtype)
-        self._stacked = None
-        self._stack_sig = None
+        self._exact = ShardedExactIndex(store, self.mesh, compute_dtype=compute_dtype,
+                                        mirrors_of=mirrors_of)
+        # device -> its group's stack and the signature it was made at;
+        # None (or a missing device) restacks
+        self._stacked: Optional[dict] = None
+        self._stack_sig: Optional[dict] = None
         # writes and searches (module doc); reentrant: search_slots holds it
         # across search_device
         self._lock = threading.RLock()
+        # one thread per device group, made at the first search over
+        # several devices (:meth:`_query_batched`)
+        self._pool: Optional[ThreadPoolExecutor] = None
 
     @property
     def size(self) -> int:
@@ -168,77 +192,84 @@ class ShardedHNSWIndex:
 
     # -------------------------------------------------------------- stacking
 
-    def _stack(self):
-        """The subgraphs concatenated on the shared device: (entries i64[n],
-        vectors f32[n*Lc, d], valid bool[n*Lc], l2g i64[n*Lc], upper layers
-        [(adj, pos)] top-down, adj0, pos0); ids offset per shard as the
-        module doc says. Rebuilt when a subgraph or sub-store changed.
-        The caller holds ``_lock``."""
-        views = [s.device_view() for s in self._sub_stores]
+    def _stack(self, dev):
+        """The subgraphs of the shards on ``dev`` concatenated there:
+        (entries i64[g], vectors f32[g*Lc, d], valid bool[g*Lc], l2g
+        i64[g*Lc], upper layers [(adj, pos)] top-down, adj0, pos0) for the
+        group's g shards; ids offset per shard as the module doc says.
+        Rebuilt when a subgraph or sub-store of the group changed. The
+        caller holds ``_lock``."""
+        group = self._groups[dev]
+        subs = [self._subs[s] for s in group]
+        views = [self._sub_stores[s].device_view() for s in group]
+        l2gs = [self._l2g[s] for s in group]
         sig = tuple(
             (sub._graph_version, sub.entry_point, v.generation, v.capacity, len(l2g))
-            for sub, v, l2g in zip(self._subs, views, self._l2g)
+            for sub, v, l2g in zip(subs, views, l2gs)
         )
-        if self._stacked is not None and sig == self._stack_sig:
-            return self._stacked
-        dev = self.mesh[0]
-        n, d = self.n, self.store.dim
+        if self._stacked is None or self._stack_sig is None:
+            self._stacked, self._stack_sig = {}, {}
+        if dev in self._stacked and sig == self._stack_sig[dev]:
+            return self._stacked[dev]
+        g, d = len(group), self.store.dim
         Lc = max(v.capacity for v in views)
-        vecs = torch.zeros(n * Lc, d, device=dev)
-        valid = torch.zeros(n * Lc, dtype=torch.bool, device=dev)
-        l2g = np.full(n * Lc, -1, np.int64)
-        entries = np.full(n, -1, np.int64)
+        vecs = torch.zeros(g * Lc, d, device=dev)
+        valid = torch.zeros(g * Lc, dtype=torch.bool, device=dev)
+        l2g = np.full(g * Lc, -1, np.int64)
+        entries = np.full(g, -1, np.int64)
         graphs = []
-        for s, (sub, v) in enumerate(zip(self._subs, views)):
-            vecs[s * Lc: s * Lc + v.capacity] = v.vectors
-            valid[s * Lc: s * Lc + v.capacity] = v.valid
-            m = min(len(self._l2g[s]), v.capacity)
-            l2g[s * Lc: s * Lc + m] = self._l2g[s][:m]
+        for j, (sub, v, sl2g) in enumerate(zip(subs, views, l2gs)):
+            vecs[j * Lc: j * Lc + v.capacity] = v.vectors
+            valid[j * Lc: j * Lc + v.capacity] = v.valid
+            m = min(len(sl2g), v.capacity)
+            l2g[j * Lc: j * Lc + m] = sl2g[:m]
             if sub.entry_point >= 0:
-                entries[s] = sub.entry_point + s * Lc
+                entries[j] = sub.entry_point + j * Lc
             graphs.append(sub._device_graph() if sub.entry_point >= 0 else ([], None, None))
-        max_level = max(sub.current_max_level for sub in self._subs)
+        max_level = max(sub.current_max_level for sub in subs)
 
         def cat_level(parts):
-            """One level's (adj, pos) over the shards; ``parts[s]`` is the
+            """One level's (adj, pos) over the group; ``parts[j]`` is the
             shard's (adj, pos) or None where it lacks the level."""
             adjs = []
-            pos = torch.full((n * Lc,), -1, dtype=torch.int64, device=dev)
+            pos = torch.full((g * Lc,), -1, dtype=torch.int64, device=dev)
             row0 = 0
-            for s, part in enumerate(parts):
+            for j, part in enumerate(parts):
                 if part is None:
                     continue
                 adj, p = part
-                adjs.append(torch.where(adj >= 0, adj + s * Lc, -1))
-                pos[s * Lc: s * Lc + p.shape[0]] = torch.where(p >= 0, p + row0, -1)
+                adjs.append(torch.where(adj >= 0, adj + j * Lc, -1))
+                pos[j * Lc: j * Lc + p.shape[0]] = torch.where(p >= 0, p + row0, -1)
                 row0 += adj.shape[0]
-            if not adjs:  # no shard has the level (unreachable: max_level)
+            if not adjs:  # no shard of the group has the level
                 adjs.append(torch.full((1, 1), -1, dtype=torch.int32, device=dev))
             return torch.cat(adjs).to(torch.int32), pos
 
         layers = []
         for level in range(max_level, 0, -1):
             layers.append(cat_level([
-                g[0][sub.current_max_level - level]
+                gr[0][sub.current_max_level - level]
                 if sub.entry_point >= 0 and level <= sub.current_max_level else None
-                for sub, g in zip(self._subs, graphs)
+                for sub, gr in zip(subs, graphs)
             ]))
         adj0, pos0 = cat_level([
-            (g[1], g[2]) if g[1] is not None else None for g in graphs
+            (gr[1], gr[2]) if gr[1] is not None else None for gr in graphs
         ])
-        self._stacked = (
+        self._stacked[dev] = (
             torch.from_numpy(entries).to(dev), vecs, valid,
             torch.from_numpy(l2g).to(dev), layers, adj0, pos0,
         )
-        self._stack_sig = sig
-        return self._stacked
+        self._stack_sig[dev] = sig
+        return self._stacked[dev]
 
-    def _query_batched(self, q: torch.Tensor, ef: int, k: int, stats=None):
-        """All shards in one descent + beam over :meth:`_stack`. Returns
-        per-shard ([B, kk] dist, global id) lists."""
-        entries, vecs, valid, l2g, layers, adj0, pos0 = self._stack()
+    def _beam_group(self, dev, q: torch.Tensor, ef: int, k: int, stats=None):
+        """One descent + beam over the stack of the shards on ``dev``.
+        Returns the group's per-shard ([B, kk] dist, global id) lists on
+        ``dev``."""
+        entries, vecs, valid, l2g, layers, adj0, pos0 = self._stack(dev)
         B = q.shape[0]
-        qq = q.repeat(self.n, 1)  # shard-major: rows s*B .. s*B+B-1
+        g = len(self._groups[dev])
+        qq = q.to(dev).repeat(g, 1)  # shard-major: rows j*B .. j*B+B-1
         e = entries.repeat_interleave(B)
         qdt = self._subs[0]._query_dtype()
         for adj, pos in layers:
@@ -255,18 +286,51 @@ class ShardedHNSWIndex:
         bd = torch.where(gi >= 0, bd, MASKED_DIST)
         return list(bd.split(B)), list(gi.split(B))
 
+    def _query_batched(self, q: torch.Tensor, ef: int, k: int, stats=None):
+        """One descent + beam per device group (:meth:`_beam_group`); with
+        several devices each group runs on a thread of the engine's pool,
+        so every device's beam is queued before any is read. Each worker
+        queues its work on the caller's current streams (the query's copy
+        waits for the caller's writes to ``q``; the caller's merge is
+        ordered after the beams). ``stats`` covers the first device's beam
+        only. Returns per-shard ([B, kk] dist, global id) lists in mesh
+        order."""
+        devs = list(self._groups)
+        if len(devs) == 1:
+            parts = [self._beam_group(devs[0], q, ef, k, stats)]
+        else:
+            streams = [torch.cuda.current_stream(d) for d in distinct([q.device, *devs])
+                       if d.type == "cuda"]
+
+            def beam(i, dev):
+                with contextlib.ExitStack() as stack:
+                    for st in streams:
+                        stack.enter_context(torch.cuda.stream(st))
+                    return self._beam_group(dev, q, ef, k, stats if i == 0 else None)
+
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=len(devs),
+                                                thread_name_prefix="sharded-hnsw")
+            futs = [self._pool.submit(beam, i, dev) for i, dev in enumerate(devs)]
+            parts = [f.result() for f in futs]
+        out_d, out_i = [None] * self.n, [None] * self.n
+        for dev, (gd, gi) in zip(devs, parts):
+            for j, s in enumerate(self._groups[dev]):
+                out_d[s], out_i[s] = gd[j], gi[j]
+        return out_d, out_i
+
     def _query_per_shard(self, q: torch.Tensor, ef: int, k: int):
         """One ``HNSWIndex.search_device`` call per shard: the parity
         oracle of :meth:`_query_batched`."""
         kk = min(k, ef)
-        dev = q.device
         out_d, out_i = [], []
         for s, sub in enumerate(self._subs):
+            dev = self.mesh[s]
             if sub.entry_point < 0:
                 out_d.append(torch.full((q.shape[0], kk), MASKED_DIST, device=dev))
                 out_i.append(torch.full((q.shape[0], kk), -1, dtype=torch.int64, device=dev))
                 continue
-            bd, bi = sub.search_device(q, ef)
+            bd, bi = sub.search_device(q.to(dev), ef)
             bd, bi = bd[:, :kk], bi[:, :kk]
             l2g = torch.from_numpy(self._l2g[s]).to(dev)
             gi = torch.where(bi >= 0, l2g[bi.clamp_min(0)], -1)
@@ -277,10 +341,11 @@ class ShardedHNSWIndex:
     def search_device(self, queries: torch.Tensor, ef: int, k: int, *, batched: bool = True,
                       stats=None):
         """The merged graph search: (dist f32[B, k'], global slot i64[B, k'])
-        on the store's device, k' = min(k, n * min(k, ef)). ``batched=False``
-        makes one sub-engine call per shard instead: the parity oracle of
-        the batched search, not a serving path."""
-        q = queries.to(self.store.device)
+        on the first device of the mesh, k' = min(k, n * min(k, ef)).
+        ``stats`` receives the first device's beam statistics.
+        ``batched=False`` makes one sub-engine call per shard instead: the
+        parity oracle of the batched search, not a serving path."""
+        q = queries.to(self.device)
         with self._lock:
             if batched:
                 out_d, out_i = self._query_batched(q, ef, k, stats=stats)
@@ -313,7 +378,7 @@ class ShardedHNSWIndex:
             if graph:
                 retrieve_k = k if negative is None else min(max(2 * k, 30), self.store.size)
                 ef = max(self.config.ef_search, retrieve_k)
-                qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.store.device)
+                qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
                 bd, bi = self.search_device(qd, ef, retrieve_k)
         if not graph:
             return self._exact.search_slots(
@@ -416,4 +481,5 @@ class ShardedHNSWIndex:
             "size": self.size,
             "shards": [sub.get_detailed_metrics() for sub in self._subs],
             "mesh": self.n,
+            "devices": [str(dev) for dev in self.mesh],
         }

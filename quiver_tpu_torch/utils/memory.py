@@ -10,11 +10,12 @@ size. Whole-card figures (allocator caches, scratch inside a call) come
 from ``torch.cuda.max_memory_allocated()`` instead.
 
 Sharded engines (``parallel/``) hold their shards' tensors on the devices
-of their mesh; ``device_bytes`` reports bytes per device, the whole divided
-by the number of distinct devices the tensors live on
-(:func:`_per_chip_nbytes`, the counterpart of ``memory.py:48-63``). Shards
-placed together on one device share it, so there the per-device figure is
-the whole.
+of their mesh. :func:`device_bytes_by_device` reports the bytes on each
+device, so a placement can be checked; ``device_bytes`` reports bytes per
+device, the whole divided by the number of distinct devices the tensors
+live on (:func:`_per_chip_nbytes`, the counterpart of
+``memory.py:48-63``). Shards placed together on one device share it, so
+there the per-device figure is the whole.
 """
 
 from __future__ import annotations
@@ -39,7 +40,14 @@ def _per_chip_nbytes(per_device: dict) -> int:
 
 def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
     """Bytes per device of the tensors reachable from ``obj``'s attributes
-    (:func:`_per_chip_nbytes`; one device: their total).
+    (:func:`_per_chip_nbytes` of :func:`device_bytes_by_device`; one
+    device: their total)."""
+    return _per_chip_nbytes(device_bytes_by_device(obj, skip=skip))
+
+
+def device_bytes_by_device(obj: Any, *, skip: tuple = ()) -> dict:
+    """``{device name: bytes}`` of the tensors reachable from ``obj``'s
+    attributes, on each device they live on.
 
     Follows objects of this package, lists/tuples/sets/dicts; stops at any
     object whose type is in ``skip`` (e.g. VectorStore, so an engine's own
@@ -55,10 +63,12 @@ def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
             return
         if isinstance(x, torch.Tensor):
             storage = x.untyped_storage()
-            key = (x.device, storage.data_ptr())
+            dev = str(x.device)
+            # meta tensors hold no data: every one reports address 0
+            key = (dev, storage.data_ptr() or id(x))
             if key not in seen_bufs:
                 seen_bufs.add(key)
-                per_device[x.device] = per_device.get(x.device, 0) + int(storage.nbytes())
+                per_device[dev] = per_device.get(dev, 0) + int(storage.nbytes())
             return
         if isinstance(x, (str, bytes, int, float, bool, np.ndarray)):
             return
@@ -80,7 +90,7 @@ def device_bytes(obj: Any, *, skip: tuple = ()) -> int:
             walk(v, depth + 1)
 
     walk(obj, 0)
-    return _per_chip_nbytes(per_device)
+    return per_device
 
 
 def store_device_bytes(store) -> int:

@@ -650,3 +650,154 @@ def test_hnsw_build_on_cuda_matches_cpu(cuda):
     rec = [np.mean([len(set(s[b]) & set(truth[b])) / 10 for b in range(len(q))])
            for s in (ig.search_slots(q, 10)[1], ic.search_slots(q, 10)[1])]
     assert abs(rec[0] - rec[1]) <= 0.02 and rec[0] >= 0.9
+
+
+# ------------------------------------------------ meshes of distinct devices
+
+
+def _pairs_call(dev, dtype):
+    """One pairs-stage ``block_topw`` call's operands on ``dev``."""
+    args, kw = chip_smoke.kernel_inputs(
+        torch, dev, B=300, P=3, K=37, Cmax=384, d=100, metric="euclidean",
+        variant="pairs", seed=3, dtype=getattr(torch, dtype),
+    )
+    W, pos_bits, sentinel = chip_smoke.variant_args("pairs", 32, 2, 5, 384)
+    return args, dict(kw, W=W, R=2, pos_bits=pos_bits, sentinel=sentinel)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_block_topw_keeps_the_callers_current_device(cuda, dtype):
+    """A launch leaves the calling thread's current device as it found it
+    (the entry points restore it, ``csrc/device_guard.cuh``), whichever
+    card is current and whichever card the tensors are on; the keys match
+    the plain version's."""
+    n = torch.cuda.device_count()
+    try:
+        for i in range(n):
+            args, wkw = _pairs_call(torch.device("cuda", i), dtype)
+            for cur in range(n):
+                torch.cuda.set_device(cur)
+                got = ivf_cuda.block_topw(*args, **wkw)
+                assert torch.cuda.current_device() == cur
+            torch.cuda.synchronize()
+            chip_smoke.check_call(torch, args, wkw, got)
+    finally:
+        torch.cuda.set_device(0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_block_topw_on_a_second_card_leaves_card_0_current(cuda, dtype):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards: one card cannot tell a kept device from a set one")
+    torch.cuda.set_device(0)
+    args, wkw = _pairs_call(torch.device("cuda", 1), dtype)
+    got = ivf_cuda.block_topw(*args, **wkw)
+    assert torch.cuda.current_device() == 0
+    assert torch.empty(1, device="cuda").device == torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    chip_smoke.check_call(torch, args, wkw, got)
+
+
+MESH_KINDS = ["exact", "ivf_bf16", "ivf_f32", "hnsw"]
+
+
+def _mesh_twins(kind, mesh, twin_mesh, *, n=6000, d=32):
+    """(engine over ``mesh``, its twin over ``twin_mesh``, the store on
+    cuda:0, queries, the rows): one topology, the twin's built and the
+    engine's imported from its sidecar."""
+    from quiver_tpu_torch.benches.common import make_clustered_corpus
+    from quiver_tpu_torch.parallel.sharded import ShardedExactIndex
+    from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
+    from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    vecs, rng = make_clustered_corpus(n, d, seed=11, n_centers=24)
+    store = VectorStore(dim=d, metric="euclidean", device="cuda:0")
+    slots = store.add_batch([f"v{i}" for i in range(n)], vecs)
+    q = (vecs[rng.integers(0, n, 128)] + 0.1 * rng.normal(size=(128, d))).astype(np.float32)
+    if kind == "exact":
+        return ShardedExactIndex(store, mesh), ShardedExactIndex(store, twin_mesh), store, q, vecs
+    if kind == "hnsw":
+        twin = ShardedHNSWIndex(store, twin_mesh, build_batch=1024, ef_search=64,
+                                compute_dtype=torch.float32)
+        eng = ShardedHNSWIndex(store, mesh, build_batch=1024, ef_search=64,
+                               compute_dtype=torch.float32)
+    else:
+        dt = torch.bfloat16 if kind == "ivf_bf16" else torch.float32
+        cfg = dict(n_probe=8, build_threshold=256, rescore=False, background_maintenance=False)
+        twin = ShardedIVFIndex(store, twin_mesh, config=IVFConfig(**cfg), compute_dtype=dt)
+        eng = ShardedIVFIndex(store, mesh, config=IVFConfig(**cfg), compute_dtype=dt)
+    twin.on_insert(slots, vecs)
+    eng.import_topology(twin.export_topology(), np.arange(store.capacity))
+    return eng, twin, store, q, vecs
+
+
+def _mesh_answers(eng, twin, store, q, vecs):
+    """Searches, writes through both engines, searches again, a negative
+    rerank: every answer pair held up to tie swaps; the current device and
+    the store's view checked."""
+    from quiver_tpu_torch.utils.memory import store_device_bytes
+
+    rng = np.random.default_rng(2)
+    with chip_smoke.LiveCheck() as live, chip_smoke.DeviceCheck() as dc:
+        pairs = [(eng.search_slots(q, 10), twin.search_slots(q, 10))]
+        new = (vecs[:64] + 0.01 * rng.normal(size=(64, vecs.shape[1]))).astype(np.float32)
+        slots = store.add_batch([f"n{i}" for i in range(64)], new)
+        moved = (vecs[64:96] + 0.02).astype(np.float32)
+        store.update_batch([f"v{i}" for i in range(64, 96)], moved)
+        gone = np.asarray([store.slot_of(f"v{i}") for i in range(96, 128)])
+        store.delete_batch([f"v{i}" for i in range(96, 128)])
+        for e in (eng, twin):
+            if hasattr(e, "on_insert"):
+                e.on_insert(slots, new)
+                e.on_update(np.arange(64, 96), moved)
+                e.on_delete(gone)
+        pairs.append((eng.search_slots(new, 10), twin.search_slots(new, 10)))
+        neg = q[::-1].copy()
+        pairs.append((eng.search_slots(q, 5, negative=neg, negative_weight=1.0),
+                      twin.search_slots(q, 5, negative=neg, negative_weight=1.0)))
+    dc.verify(torch, "mesh engines")
+    if live.calls:
+        live.verify(torch, "mesh engines")
+    for j, ((de, ie), (dt_, it)) in enumerate(pairs):
+        assert chip_smoke.ids_agree(ie, de, it, dt_, rel=1e-4) == 0
+        assert j == 0 or not np.isin(ie, gone).any()  # searched after the deletes
+    assert store_device_bytes(store) == 0
+
+
+@pytest.mark.parametrize("kind", MESH_KINDS)
+def test_sharded_engine_on_mixed_mesh_matches_colocated_twin(cuda, kind):
+    """A shard on the card and a shard on the CPU (the CPU's runs the plain
+    versions) against two shards on the card, one topology."""
+    eng, twin, store, q, vecs = _mesh_twins(kind, ("cuda:0", "cpu"), ("cuda:0", "cuda:0"))
+    _mesh_answers(eng, twin, store, q, vecs)
+
+
+def test_sharded_hnsw_mixed_mesh_serves_a_side_stream(cuda):
+    """The mixed mesh's two beams run on the engine's pool threads: from a
+    caller on a side stream, they search the query that stream wrote (held
+    back behind a sleep) and answer as from the default stream; the pool is
+    made once."""
+    eng, _, _, q, _ = _mesh_twins("hnsw", ("cuda:0", "cpu"), ("cuda:0", "cuda:0"))
+    want_d, want_i = eng.search_device(torch.from_numpy(q).to("cuda:0"), 64, 10)
+    pool = eng._pool
+    side = torch.cuda.Stream()
+    host = torch.from_numpy(q).pin_memory()
+    with torch.cuda.stream(side):
+        qd = torch.zeros(q.shape, device="cuda:0")
+        torch.cuda._sleep(100_000_000)
+        qd.copy_(host, non_blocking=True)
+        got_d, got_i = eng.search_device(qd, 64, 10)
+    torch.cuda.synchronize()
+    assert eng._pool is pool and pool is not None
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+
+
+@pytest.mark.parametrize("kind", MESH_KINDS)
+def test_sharded_engine_across_every_card_matches_one_card(cuda, kind):
+    """``mesh=None`` (one shard per card) against as many shards on cuda:0."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards: mesh=None is one shard on one card")
+    eng, twin, store, q, vecs = _mesh_twins(kind, None, ("cuda:0",) * n)
+    assert len(eng.mesh) == n and len(set(eng.mesh)) == n
+    _mesh_answers(eng, twin, store, q, vecs)

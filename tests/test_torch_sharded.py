@@ -38,6 +38,7 @@ from quiver_tpu_torch.parallel.sharded import (
     make_mesh,
     merge_topk,
     resolve_mesh,
+    sharded_exact_of,
 )
 from quiver_tpu_torch.parallel.sharded_graph import ShardedHNSWIndex
 
@@ -128,9 +129,10 @@ def test_port_sharded_exact_follows_writes():
 
 def test_port_mesh_rules():
     with pytest.raises(ValueError, match="devices"):
-        make_mesh(99)
+        make_mesh(99, devices=["cpu"])
     assert make_mesh(3, devices=["cpu"] * 4) == (torch.device("cpu"),) * 3
-    assert make_mesh() == (torch.device("cpu"),)  # no card here
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()  # no card here, and the CPU is never picked on its own
     assert resolve_mesh(None, "cpu") == (torch.device("cpu"),)
     assert resolve_mesh(4, "cpu") == (torch.device("cpu"),) * 4
     assert resolve_mesh(["cpu", "cpu"], "cuda") == (torch.device("cpu"),) * 2
@@ -143,11 +145,15 @@ def test_port_mesh_rules():
 
 @pytest.mark.parametrize("kind", ["sharded_exact", "sharded_ivf", "sharded_hnsw", "sharded_hybrid"])
 def test_port_sharded_engines_keep_shards_on_the_store_device(kind):
-    """One placement rule for every sharded engine: its shards share the
-    store's device; shards on distinct cards run one rank per card."""
+    """One placement rule for every sharded engine: shard s lives on
+    ``mesh[s]``, on the store's device or not. A mesh of two distinct
+    devices is accepted, and the exact shards' mirrors are placed on them
+    (``tests/test_torch_sharded_placement.py`` holds each kind's tensors)."""
     st, _, _ = stores(n=100)
-    with pytest.raises(ValueError, match="store's device"):
-        make_engine(kind, st, mesh=["cpu", "meta"])
+    eng = make_engine(kind, st, mesh=["cpu", "meta"])
+    exact = sharded_exact_of(eng)
+    assert exact.mesh == (torch.device("cpu"), torch.device("meta"))
+    assert [sh[0].device.type for sh in exact.shards()] == ["cpu", "meta"]
 
 
 def test_port_merge_keeps_lower_shard_first_on_ties():
@@ -203,16 +209,22 @@ def test_port_registry_builds_every_sharded_kind():
 
 
 def test_port_device_bytes_per_device():
-    from quiver_tpu_torch.utils.memory import _per_chip_nbytes, device_bytes, store_device_bytes
+    from quiver_tpu_torch.utils.memory import (
+        _per_chip_nbytes,
+        device_bytes,
+        device_bytes_by_device,
+        store_device_bytes,
+    )
 
     st, _, _ = stores(n=512)
     eng = ShardedExactIndex(st, N_SHARDS)
     eng.search_slots(np.zeros((1, D), np.float32), 1)
-    # the shards are row slices of the store's device view: no copy
-    assert all(sh[0].untyped_storage().data_ptr() == st.device_view().vectors.data_ptr()
-               for sh in eng.shards())
-    assert device_bytes(eng, skip=(VectorStore,)) == 0
-    assert device_bytes(eng) == store_device_bytes(st) > 0  # shards share the CPU
+    # the mirrors are the only device copy: the store's view is never made,
+    # and the 8 mirrors hold what the view would
+    assert store_device_bytes(st) == 0
+    view_bytes = st.capacity * (4 * D + 1 + 4 + 4)
+    assert device_bytes(eng, skip=(VectorStore,)) == view_bytes  # shards share the CPU
+    assert device_bytes_by_device(eng, skip=(VectorStore,)) == {"cpu": view_bytes}
     assert _per_chip_nbytes({"cuda:0": 100, "cuda:1": 100}) == 100
     assert _per_chip_nbytes({}) == 0
 

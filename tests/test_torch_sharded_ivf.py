@@ -97,7 +97,7 @@ def invariants(eng):
     assert len(live) == N_SHARDS * KL
     for s in range(N_SHARDS):  # each shard's last id is reserved: the pad group
         assert not live[(s + 1) * KL - 1]
-    assert not eng._block_keep.numpy()[~live].any()  # reserved ids hold no rows
+    assert not torch.cat(eng._keep_dev()).numpy()[~live].any()  # reserved ids hold no rows
     pos = eng._slot_pos[eng._slot_pos[:, 0] >= 0]
     assert live[pos[:, 0]].all()
 
@@ -113,7 +113,7 @@ def test_port_sharded_ivf_serves_the_reference_layout(pair):
     np.testing.assert_array_equal(eng._cluster_live, jeng._cluster_live)
     assert eng._k_local == jeng._k_local
     np.testing.assert_array_equal(eng._slot_pos, jeng._slot_pos)
-    np.testing.assert_array_equal(eng._block_slot.numpy(), np.asarray(jeng._block_slot))
+    np.testing.assert_array_equal(torch.cat(eng._block_slot).numpy(), np.asarray(jeng._block_slot))
     invariants(eng)
 
 
@@ -130,11 +130,12 @@ def test_port_sharded_ivf_query_matches_reference(jmesh, pair, B):
     P = 8
     m = jeng._m_pairs(B, P) if B == 64 else 512
     assert m == (eng._m_pairs(B, P) if B == 64 else 512)
-    cent, c_ns = eng._cent_dev
+    shards = list(zip(eng._blocks_t, eng._block_slot, eng._block_ns, eng._block_inv,
+                      eng._keep_dev()))
+    assert len(shards) == N_SHARDS
     dt, it, lt = sharded_ivf_query(
-        torch.from_numpy(q), cent, c_ns, eng._live_dev(), eng._blocks_t,
-        eng._block_slot, eng._block_ns, eng._block_inv, eng._keep_dev(),
-        n_shards=N_SHARDS, metric="euclidean", k=10, n_probe=P, m_pairs=m,
+        torch.from_numpy(q), eng._cent_rep, shards,
+        metric="euclidean", k=10, n_probe=P, m_pairs=m,
         oversample=eng.config.oversample, probe_sel_approx=eng.config.probe_sel_approx,
     )
     jc, jns = jeng._cent_dev
@@ -251,8 +252,9 @@ def test_port_sharded_ivf_construction_rules():
     store = VectorStore(dim=D, metric="euclidean", device="cpu")
     with pytest.raises(ValueError, match="rescore"):
         ShardedIVFIndex(store, N_SHARDS, config=IVFConfig(rescore=True))
-    with pytest.raises(ValueError, match="store's device"):
-        ShardedIVFIndex(store, ["cpu", "meta"])
+    split = ShardedIVFIndex(store, ["cpu", "meta"])  # distinct devices: one per shard
+    assert split.mesh == (torch.device("cpu"), torch.device("meta")) and split.n_shards == 2
+    assert split.device == torch.device("cpu")  # queries in, results out
     eng = make_engine("sharded_ivf", store, mesh=N_SHARDS)
     assert eng.name == "sharded_ivf" and not eng.config.rescore and eng.n_shards == N_SHARDS
 
