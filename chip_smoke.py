@@ -34,9 +34,16 @@ printing any result. Phases, one line each (any failure raises):
    ``IVFIndex.build()`` with ``recall_target=0.96``, so the build tunes
    n_probe; the tuned n_probe, holdout recall and stderr, and
    ``recall_shortfall``; recall@10 at the tuned n_probe against an f64
-   oracle (tie-aware, the rule of ``benches/truth.py``) >= 0.95; then
-   n_probe in {2, 3} x {"pairs", "fused"}: recall and ms per batch / QPS of
-   ``search_slots_device`` at B=65536; a profile of the tuned batch (device
+   oracle (tie-aware, the rule of ``benches/truth.py``) >= 0.95, for
+   "pairs" and "einsum" alike; then n_probe in {2, 3} x {"pairs", "fused",
+   "einsum"} (``FORMULATIONS``): recall and ms per batch / QPS of
+   ``search_slots_device`` at B=65536, and einsum's ``q_cap``, dropped
+   pairs (count and share of B*P) and the batch's peak of allocated card
+   bytes (:func:`einsum_batch`); einsum at the tuned n_probe on the card
+   against the same engine state laid out over a CPU store, 256 oracle
+   queries, ids equal up to ties (:func:`einsum_cpu_twin`; einsum is torch
+   ops, with no kernel to hold); a profile of the tuned batch, einsum's
+   and then pairs' (device
    time by kernel, busy share); ``device_bytes()`` and the peak of
    allocated card memory; one k=100 batch (B=4096, :func:`phase_k100`:
    every slot filled, recall@100 recorded, the call held against the plain
@@ -88,8 +95,9 @@ printing any result. Phases, one line each (any failure raises):
    recall@10 >= 0.95 against the exact f32 scan; the hybrid's split by
    engine recorded) and 512 at k=100 (every slot filled), the collector's
    ``measure_recall`` (gate >= 0.95), then the f32 slice: the hybrid's IVF
-   side at its tuned n_probe, pairs and fused, recall@10 against the f64
-   oracle (gate >= 0.95), ms per B=65536 batch and ``device_bytes()``; (b)
+   side at its tuned n_probe, pairs, fused and einsum, recall@10 against
+   the f64 oracle and against the exact f32 scan (gates >= 0.95), ms per
+   B=65536 batch, einsum's drops and peak bytes, and ``device_bytes()``; (b)
    the persistence round trip at 65,536 rows of the corpus
    (``PERSIST_ROWS``: every insert is journaled as a JSON record), the
    same engine config: 8,192-row ``batch_insert`` calls through the native
@@ -682,27 +690,98 @@ def phase_slice(torch, dev, vecs, *, b_serve, reps):
         return recall_with_ties(slots, queries, vecs, kth, TOP_K)
 
     tuned = eng._tuned_n_probe
-    r = recall_at("pairs", tuned)
-    log(f"slice recall@{TOP_K} pairs at the tuned n_probe={tuned}: {r!r} "
-        f"(holdout gap {eng._tuned_recall - r!r})")
-    if r < RECALL_GATE:
-        raise AssertionError(f"recall@10 {r} < {RECALL_GATE} at the tuned n_probe={tuned}")
-    for form in ("pairs", "fused"):
+    for form in ("pairs", "einsum"):
+        r = recall_at(form, tuned)
+        log(f"slice recall@{TOP_K} {form} at the tuned n_probe={tuned}: {r!r} "
+            f"(holdout gap {eng._tuned_recall - r!r})")
+        if r < RECALL_GATE:
+            raise AssertionError(f"{form} recall@10 {r} < {RECALL_GATE} at the tuned "
+                                 f"n_probe={tuned}")
+    for form in FORMULATIONS:
         for n_probe in (2, 3):
             log(f"slice recall@{TOP_K} {form} n_probe={n_probe}: {recall_at(form, n_probe)!r}")
 
     qdev = torch.from_numpy(qb).to(dev)
-    for form in ("pairs", "fused"):
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    for form in FORMULATIONS:
         for n_probe in sorted({2, 3, tuned}):
             eng.config.formulation, eng.config.n_probe = form, n_probe
             ms = cuda_ms(lambda: eng.search_slots_device(qdev, TOP_K), reps)
             log(f"slice search_slots_device {form} n_probe={n_probe} B={b_serve}: "
                 f"ms_per_batch={ms!r} qps={b_serve / (ms / 1e3)!r}")
-    eng.config.formulation, eng.config.n_probe = "pairs", tuned
+            if form == "einsum":
+                log(f"slice einsum n_probe={n_probe} B={b_serve}: {einsum_batch(torch, eng, qdev)}")
+    eng.config.formulation, eng.config.n_probe = "einsum", tuned
+    einsum_cpu_twin(torch, eng, vecs, queries[:EINSUM_TWIN_QUERIES])
+    slice_profile(torch, eng, qdev)
+    eng.config.formulation = "pairs"
     slice_profile(torch, eng, qdev)
     log(f"slice memory: device_bytes={eng.device_bytes()} "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
+        f"max_memory_allocated={max(build_peak, torch.cuda.max_memory_allocated(dev))}")
     return eng, qdev, queries, kth
+
+
+def einsum_batch(torch, eng, qdev) -> dict:
+    """One ``formulation="einsum"`` batch of ``search_slots_device`` at the
+    engine's n_probe: its ``q_cap``, the pairs it drops (the probes' loads
+    past ``q_cap``; a count and a share of B*P), the clusters' mean and
+    largest load and how many exceed ``q_cap``, and the card's peak of
+    allocated bytes over the batch beside the bytes allocated before it.
+    Resets the peak statistics."""
+    dev = qdev.device
+    B = qdev.shape[0]
+    K = eng._cent_dev[0].shape[0]
+    P = min(eng.config.n_probe, K)
+    q_cap = eng._q_cap(B, P, K)
+    loads = torch.bincount(slice_probe_ids(eng, qdev, P).reshape(-1), minlength=K)
+    dropped = int((loads - q_cap).clamp_min(0).sum())
+    over = int((loads > q_cap).sum())
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist, slots = eng.search_slots_device(qdev, TOP_K)
+    torch.cuda.synchronize(dev)
+    if dist.shape != (B, TOP_K) or not bool(torch.isfinite(dist).all()):
+        raise AssertionError(f"einsum batch: shape {tuple(dist.shape)} or non-finite distances")
+    return {"q_cap": q_cap, "dropped_pairs": dropped, "dropped_share": dropped / (B * P),
+            "mean_load": B * P / K, "max_load": int(loads.max()), "clusters_over_q_cap": over,
+            "peak_allocated": torch.cuda.max_memory_allocated(dev), "allocated_before": base}
+
+
+def einsum_cpu_twin(torch, eng, vecs, queries) -> None:
+    """The einsum stage on the card against the CPU: the engine's state
+    (its exported topology, laid out again over a CPU store of the same
+    rows; the block layout must come out identical) serves ``queries``
+    through einsum on both devices; the ids must be equal up to swaps of
+    tied entries (:func:`ids_agree`). This stage has no kernel, so it
+    stands where a kernel's check against its plain version would."""
+    from dataclasses import replace
+
+    from quiver_tpu_torch import IVFIndex, VectorStore
+
+    n, d = vecs.shape
+    t0 = time.perf_counter()
+    store = VectorStore(dim=d, metric=eng.store.metric, capacity=eng.store.capacity, device="cpu")
+    store.add_batch([f"v{i}" for i in range(n)], vecs)
+    twin = IVFIndex(store, config=replace(eng.config, recall_target=None),
+                    compute_dtype=eng.compute_dtype)
+    twin.import_topology(eng.export_topology(), np.arange(store.capacity))
+    if not torch.equal(twin._block_slot, eng._block_slot.cpu()):
+        raise AssertionError("the CPU twin's block layout differs from the card's")
+    dc, ic = twin.search_slots(queries, TOP_K)
+    dg, ig = eng.search_slots(queries, TOP_K)
+    bad = ids_agree(ig, dg, ic, dc)
+    log(f"slice einsum card against CPU: {len(queries)} queries at n_probe="
+        f"{eng.config.n_probe}, {bad} positions differ beyond ties; max |dist| diff "
+        f"{float(np.abs(dg - dc).max())!r}; wall_s={time.perf_counter() - t0!r}")
+    if bad:
+        raise AssertionError(f"einsum on the card differs from the CPU at {bad} positions")
+
+
+#: phase 4's candidate formulations, and the oracle queries its einsum
+#: card-against-CPU check serves
+FORMULATIONS = ("pairs", "fused", "einsum")
+EINSUM_TWIN_QUERIES = 256
 
 
 def slice_profile(torch, eng, qdev, *, batches=5, top=8):
@@ -711,7 +790,8 @@ def slice_profile(torch, eng, qdev, *, batches=5, top=8):
     by_name, wall = kernel_ms(lambda: eng.search_slots_device(qdev, TOP_K), batches)
     busy = sum(by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    log(f"slice profile (pairs, n_probe={eng.config.n_probe}, B={qdev.shape[0]}, {batches} "
+    log(f"slice profile ({eng.config.formulation}, n_probe={eng.config.n_probe}, "
+        f"B={qdev.shape[0]}, {batches} "
         f"batches): ms_per_batch={wall!r} device_busy_ms={busy!r} busy_share={busy / wall!r}; "
         + "; ".join(f"{name} {ms!r}" for name, ms in rows))
 
@@ -984,15 +1064,18 @@ def phase_db(torch, dev, vecs, qdev, oracle_q, oracle_kth_, *, n_req=2048,
 
     # the f32 slice at full width: the hybrid's IVF side at its tuned n_probe
     tuned, recs = ivf.config.n_probe, {}
-    for form in ("pairs", "fused"):
+    _, exact_truth = exact.search_slots(oracle_q, TOP_K)
+    for form in FORMULATIONS:
         ivf.config.formulation = form
         _, slots = ivf.search_slots(oracle_q, TOP_K)
         r = recall_with_ties(slots, oracle_q, vecs, oracle_kth_, TOP_K)
+        r_exact = recall_at_k(slots, exact_truth, TOP_K)
         ivf.search_slots_device(qdev, TOP_K)  # a held call (LiveCheck)
-        recs[form] = {"recall": r}
-        log(f"db f32 slice {form} n_probe={tuned}: recall@{TOP_K} {r!r} (f64 oracle)")
-        if r < RECALL_GATE:
-            raise AssertionError(f"f32 slice {form} recall@10 {r} < {RECALL_GATE}")
+        recs[form] = {"recall": r, "recall_exact_f32": r_exact}
+        log(f"db f32 slice {form} n_probe={tuned}: recall@{TOP_K} {r!r} (f64 oracle), "
+            f"{r_exact!r} (exact f32 scan)")
+        if min(r, r_exact) < RECALL_GATE:
+            raise AssertionError(f"f32 slice {form} recall@10 {min(r, r_exact)} < {RECALL_GATE}")
     ivf.config.formulation = "pairs"
     recs["device_bytes"] = ivf.device_bytes()
     truth_ids = [[coll.store.id_of(int(s)) for s in row] for row in truth10]
@@ -1001,14 +1084,17 @@ def phase_db(torch, dev, vecs, qdev, oracle_q, oracle_kth_, *, n_req=2048,
 
 
 def time_f32_slice(torch, ivf, qdev, recs, *, reps=10):
-    """ms per B=65536 batch of the f32 slice, both formulations (outside
-    LiveCheck: these calls repeat the held ones' operands)."""
-    for form in ("pairs", "fused"):
+    """ms per B=65536 batch of the f32 slice, each formulation (outside
+    LiveCheck: these calls repeat the held ones' operands); einsum's drops
+    and peak bytes (:func:`einsum_batch`)."""
+    for form in FORMULATIONS:
         ivf.config.formulation = form
         ms = cuda_ms(lambda: ivf.search_slots_device(qdev, TOP_K), reps)
         recs[form]["ms"] = ms
         log(f"db f32 slice search_slots_device {form} n_probe={ivf.config.n_probe} "
             f"B={qdev.shape[0]}: ms_per_batch={ms!r} qps={qdev.shape[0] / (ms / 1e3)!r}")
+    log(f"db f32 slice einsum n_probe={ivf.config.n_probe} B={qdev.shape[0]}: "
+        f"{einsum_batch(torch, ivf, qdev)}")
     ivf.config.formulation = "pairs"
     log(f"db f32 slice memory: device_bytes={recs['device_bytes']}")
 

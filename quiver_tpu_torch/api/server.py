@@ -25,9 +25,6 @@ codes are the reference's, with these differences:
   returns its distances and slots as numpy after one device-to-host copy
   per ``search_batch``, and result vectors come from the store's host
   mirror, so building the JSON reads no CUDA tensor;
-* ``NotImplementedError``, which the port raises for the one engine
-  option it does not carry (IVF's ``formulation="einsum"``, a TPU lowering
-  fallback), maps to 501 with its message; the reference serves it;
 * a request body may hold up to :data:`MAX_BODY_BYTES` (the reference
   keeps aiohttp's 1 MiB, so its ``vectors/batch`` refuses a few hundred
   128-d rows with 413);
@@ -233,8 +230,6 @@ class Server:
                 return _json_error(404, str(e).strip("'\""))
             except ValueError as e:
                 return _json_error(400, str(e))
-            except NotImplementedError as e:  # an engine option not ported
-                return _json_error(501, str(e))
             except Exception as e:  # centralized error handler
                 qlog.error("request failed", path=request.path, error=str(e))
                 return _json_error(500, "internal error")

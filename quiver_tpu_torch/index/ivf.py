@@ -44,8 +44,9 @@ The port has the build, the query, the n_probe tuner (``recall_target``,
   measured and not kept: the job's host steps, not its kernels, hold
   queries back (``PERF.md``, PR 3).
 
-``formulation="einsum"`` raises ``NotImplementedError``: it is a TPU
-lowering fallback the port does not carry (ROADMAP.md).
+``formulation="einsum"`` serves through per-cluster query lists of
+``q_cap`` columns (:meth:`IVFIndex._q_cap`), whose overflow pairs drop as
+the reference's do (``ops/ivf_kernels.py::_einsum_candidates``).
 
 Placement hooks. Every point where the layout meets a device is a method
 a sharded subclass overrides (``parallel/sharded_ivf.py``), as the
@@ -121,9 +122,9 @@ _log = logging.getLogger(__name__)
 _LOCKED_REPLAY_MAX = 8192
 
 
-def _pow2(n: int, lo: int = 8) -> int:
+def _pow2(n: int, lo: int = 8, hi: int = 1 << 30) -> int:
     c = lo
-    while c < n:
+    while c < n and c < hi:
         c *= 2
     return c
 
@@ -225,10 +226,12 @@ class IVFConfig:
     probe_sel_approx: Optional[float] = 0.99
     #: survivors through the low-precision stage, as a multiple of k
     oversample: int = 4
-    #: reference einsum formulation only (not ported)
+    #: einsum formulation only: per-cluster query-list width over the mean
+    #: pairs per cluster (overflow pairs drop)
     q_cap_factor: int = 4
     #: "auto" resolves to "pairs"; "fused" = the reference's fused stage
-    #: shape (128-lane windows, top 4); "einsum" is not ported
+    #: shape (128-lane windows, top 4); "einsum" = per-cluster query lists
+    #: and one batched GEMM
     formulation: str = "auto"
     #: window width of the pairs stage's top-2 reduce
     seg_width: Optional[int] = 32
@@ -1273,6 +1276,14 @@ class IVFIndex:
 
     # ---------------------------------------------------------------- query
 
+    def _q_cap(self, B: int, P: int, K: int) -> int:
+        # expected pairs per cluster = B*P/K, times a skew-headroom factor
+        # (beyond the cap, overflow pairs drop — ivf_query docstring)
+        f = self.config.q_cap_factor
+        return _pow2(
+            max(8, int(np.ceil(f * B * P / K))), lo=8, hi=min(1024, _pow2(B))
+        )
+
     def search_slots_device(self, queries: torch.Tensor, k: int, *, mask=None):
         """Device serving path: f32[B, d] queries on the store's device in,
         (dist f32[B, k], slot i64[B, k]) tensors out. The overflow merge,
@@ -1292,29 +1303,28 @@ class IVFIndex:
                 block_keep = block_keep & mask[self._block_slot.clamp_min(0).long()]
             cent, c_ns = self._cent_dev
             K = cent.shape[0]
+            P = min(self.config.n_probe, K)
+            form = self._resolve_formulation(k)
             return ivf_query(
                 queries, cent, c_ns,
                 self._blocks_t, self._block_slot, self._block_ns,
                 self._block_inv, block_keep, dev.vectors,
-                metric=self.store.metric, k=k,
-                n_probe=min(self.config.n_probe, K),
+                metric=self.store.metric, k=k, n_probe=P,
+                q_cap=self._q_cap(queries.shape[0], P, K) if form == "einsum" else 8,
                 oversample=self.config.oversample,
                 probe_sel_approx=self.config.probe_sel_approx,
-                formulation=self._resolve_formulation(k),
+                formulation=form,
                 seg_width=self.config.seg_width,
                 rescore=self.config.rescore,
             )
 
     def _resolve_formulation(self, k: int) -> str:
-        """"pairs" | "fused"; "auto" resolves to "pairs"."""
+        """"pairs" | "fused" | "einsum"; "auto" resolves to "pairs"."""
         form = self.config.formulation
-        if form == "einsum":
-            raise NotImplementedError(
-                'formulation="einsum" is a TPU lowering fallback that '
-                "quiver_tpu_torch does not port (ROADMAP.md queue 2, C)"
-            )
         if form in ("auto", "pairs"):
             return "pairs"
+        if form == "einsum":
+            return form
         if form != "fused":
             raise ValueError(f"unknown formulation {form!r}")
         Cmax = int(self._cmax)

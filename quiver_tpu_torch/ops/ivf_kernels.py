@@ -11,12 +11,15 @@ block_topw``: grouped block scoring + windowed top-R). Winners re-enter in
 f32 through the per-pair affine constant and either rescore exactly or
 derive their distances from the scores.
 
-Both candidate formulations of the reference go through ``block_topw``:
+Two candidate formulations of the reference go through ``block_topw``:
 ``"pairs"`` (W=32, top 2 per window; its per-pair top-R branch as one
 window spanning the row) and ``"fused"`` (W=128, top 4). With f32 blocks
 the two round the query as the reference does: pairs keeps it f32 (its
 ``ragged_dot`` casts both operands to the compute dtype), fused rounds it
-to bf16 (the Pallas kernel's ``qtile.astype(bf16)``). The
+to bf16 (the Pallas kernel's ``qtile.astype(bf16)``). The third,
+``"einsum"`` (:func:`_einsum_candidates`), is XLA ops in the reference (a
+batched GEMM over per-cluster query lists, gathers, max/argmax passes) and
+torch ops here. The
 probe GEMM, the pair sort, the Lloyd GEMM and every top-k stay torch ops,
 as the reference leaves them to XLA.
 
@@ -38,8 +41,6 @@ Reference workarounds not ported, because their cause is absent here:
   original row.
 * paced Lloyd iterations for background maintenance
   (``ivf_kernels.py:111-124``).
-* ``formulation="einsum"`` (``ivf_kernels.py:762-896``), a TPU lowering
-  fallback; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -266,6 +267,7 @@ def ivf_query(
     metric: DistanceType | str,
     k: int,
     n_probe: int,
+    q_cap: int = 8,
     oversample: int = 3,
     probe_sel_approx: float | None = None,
     formulation: str = "pairs",
@@ -277,11 +279,13 @@ def ivf_query(
 
     Stages: (1) probe — f32 centroid GEMM and top-P selection; (2) a stable
     sort of the (query, probe) pairs by cluster, as CSR offsets; (3) the
-    candidate stage through ``block_topw`` (``formulation`` "pairs" or
-    "fused"); (4) the final top-k: exact f32 rescore of the survivors
-    (``rescore=True``) or distances derived from the stage scores.
-    ``probe_sel_approx`` set selects the packed windowed probe selection
-    (see :func:`_select_probes`)."""
+    candidate stage: through ``block_topw`` (``formulation`` "pairs" or
+    "fused"), or per-cluster query lists of ``q_cap`` columns and one
+    batched GEMM ("einsum": a cluster probed by more than ``q_cap``
+    queries drops the overflow pairs); (4) the final top-k: exact f32
+    rescore of the survivors (``rescore=True``) or distances derived from
+    the stage scores. ``probe_sel_approx`` set selects the packed windowed
+    probe selection (see :func:`_select_probes`)."""
     metric = DistanceType.parse(metric)
     B, d = q.shape
     K, _, Cmax = blocks_t.shape
@@ -310,6 +314,14 @@ def ivf_query(
             q, centroids, c_dots, caff, probe, order, starts,
             blocks_t, block_rns, block_inv_norms, block_keep,
             metric=metric, k=k, oversample=oversample, seg_width=seg_width,
+        )
+    elif formulation == "einsum":
+        order = order.long()
+        best_s, best_flat = _einsum_candidates(
+            q, centroids, c_dots, c_aff, order, flat_c[order], order // P, flat_c,
+            blocks_t, block_rns, block_inv_norms, block_keep,
+            metric=metric, k=k, q_cap=q_cap, oversample=oversample,
+            seg_width=seg_width,
         )
     else:
         raise ValueError(f"unknown formulation {formulation!r}")
@@ -578,3 +590,105 @@ def _fused_candidates(
     n_sur = min(k * oversample, P * R_WIN * S)
     best_s, sel = torch.topk(scores, n_sur, dim=1)
     return best_s, torch.gather(fpos, 1, sel)
+
+
+def _einsum_candidates(
+    q, centroids, c_dots, c_aff, order, sorted_c, b_of, flat_c,
+    blocks_t, block_rns, block_inv_norms, block_keep,
+    *, metric, k, q_cap, oversample, seg_width=None,
+):
+    """The reference's per-cluster query-list candidate stage
+    (``formulation="einsum"``, ``ivf_kernels.py:762-896``), as torch ops:
+    the pairs invert into ``qlist[K, q_cap]`` (a pair's column is its rank
+    within its cluster's run of the stable pair sort; rank >= ``q_cap``
+    drops), one batched GEMM scores every listed query against its
+    cluster's block, and each pair's row returns to its query; then the
+    windowed top-2 (``seg_width``) or, when the reference's own condition
+    does not hold, one top-k over ``[B, P*Cmax]``.
+
+    The GEMM runs in f32 with TF32 off: the reference multiplies in the
+    compute dtype with f32 output, and a product of two bf16 values is
+    exact in f32, so bf16 blocks and the bf16-rounded query residual are
+    upcast, one chunk of clusters at a time. Scores are exact f32 with no
+    lane bits. ``order``, ``sorted_c``, ``b_of`` and ``flat_c`` are i64.
+    Returns ``(best_s, best_flat)`` like :func:`_pairs_candidates`."""
+    require_ieee_f32()
+    metric = DistanceType.parse(metric)
+    B, d = q.shape
+    K, _, Cmax = blocks_t.shape
+    BP = b_of.shape[0]
+    P = BP // B
+    dev = q.device
+    pos = torch.arange(BP, device=dev)
+    is_start = torch.ones(BP, dtype=torch.bool, device=dev)
+    is_start[1:] = sorted_c[1:] != sorted_c[:-1]
+    rank = pos - torch.cummax(torch.where(is_start, pos, 0), 0).values
+    in_cap = rank < q_cap
+    col = torch.where(in_cap, rank, q_cap)
+    # no scatter mode="drop" in torch: column q_cap takes the dropped
+    # pairs and is cut off
+    qlist = torch.full((K, q_cap + 1), -1, dtype=torch.int64, device=dev)
+    qlist[sorted_c, col] = b_of
+    qlist = qlist[:, :q_cap]
+    have_q = qlist >= 0
+    qsel = qlist.clamp_min(0)
+    # f32 per-(cluster, query) constants from the probe stage
+    const = (c_aff if metric in _EUCLID else c_dots)[qsel, torch.arange(K, device=dev)[:, None]]
+
+    scores = torch.empty(K, q_cap, Cmax, device=dev)
+    step = max(1, (1 << 26) // (d * Cmax))  # f32 block copy <= 256 MiB
+    for lo in range(0, K, step):
+        hi = min(K, lo + step)
+        qf = q[qsel[lo:hi]]  # f32[kc, q_cap, d]
+        if metric in _EUCLID:
+            qf = qf - centroids[lo:hi, None, :]  # query residual vs this cluster
+        if blocks_t.dtype != torch.float32:
+            qf = qf.to(blocks_t.dtype).float()
+        s = scores[lo:hi]
+        torch.bmm(qf, blocks_t[lo:hi].float(), out=s)
+        if metric == DistanceType.COSINE:
+            s.add_(const[lo:hi, :, None]).mul_(block_inv_norms[lo:hi, None, :])
+        elif metric == DistanceType.DOT_PRODUCT:
+            s.add_(const[lo:hi, :, None])
+        else:
+            # -|q-v|^2 + |q|^2 = 2(q-c)·(v-c) - |v-c|^2 + (-|q-c|^2 + |q|^2)
+            s.mul_(2.0).sub_(block_rns[lo:hi, None, :]).add_(const[lo:hi, :, None])
+        s.masked_fill_(~(block_keep[lo:hi, None, :] & have_q[lo:hi, :, None]), NEG_BIG)
+
+    # each pair's score row back to its query: pair i reads
+    # scores[flat_c[i], its column]; dropped pairs mask out
+    inv = torch.empty_like(order)
+    inv[order] = pos  # original pair -> sorted position
+    col_orig = col.clamp_max(q_cap - 1)[inv]
+    in_cap_orig = in_cap[inv]
+    W = seg_width
+    S = Cmax // W if W else 0
+    if W and Cmax % W == 0 and S >= k and 2 * P * S >= k * oversample:
+        # windowed top-2: two max/argmax passes over [B, P*S, W]; flat block
+        # positions rebuilt from (cluster, window, lane)
+        probe = flat_c.reshape(B, P)
+        col_b = col_orig.reshape(B, P)
+        rows = torch.empty(B, P, Cmax, device=dev)
+        for j in range(P):  # per-probe regroup
+            rows[:, j] = scores[probe[:, j], col_b[:, j]]
+        del scores
+        rows.masked_fill_(~in_cap_orig.reshape(B, P, 1), NEG_BIG)
+        rows = rows.view(B, P * S, W)
+        a1 = torch.argmax(rows, dim=2, keepdim=True)
+        m1 = torch.gather(rows, 2, a1)
+        rows.scatter_(2, a1, -torch.inf)
+        a2 = torch.argmax(rows, dim=2, keepdim=True)
+        m2 = torch.gather(rows, 2, a2)
+        cand_s = torch.cat([m1, m2], dim=1).squeeze(2)  # [B, 2PS]
+        base = probe.repeat_interleave(S, dim=1) * Cmax + (
+            torch.arange(S, device=dev) * W).repeat(P)
+        cand_f = torch.cat([base + a1.squeeze(2), base + a2.squeeze(2)], dim=1)
+        n_sur = min(k * oversample, 2 * P * S)
+    else:
+        cand_s = scores[flat_c, col_orig]  # [BP, Cmax]
+        del scores
+        cand_s = cand_s.masked_fill_(~in_cap_orig[:, None], NEG_BIG).reshape(B, P * Cmax)
+        cand_f = (flat_c[:, None] * Cmax + torch.arange(Cmax, device=dev)).reshape(B, P * Cmax)
+        n_sur = min(k * oversample, P * Cmax)
+    best_s, sel = torch.topk(cand_s, n_sur, dim=1)
+    return best_s, torch.gather(cand_f, 1, sel)

@@ -20,13 +20,16 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from quiver_tpu_torch.core.store import resolve_device
 from quiver_tpu_torch.parallel.sharded import merge_topk, sharded_scan_topk
 from quiver_tpu_torch.types import DistanceType
 
 
-def init(init_method: str, world_size: int, rank: int, device="cpu") -> None:
-    """Join the process group: gloo for a CPU rank, NCCL for a card."""
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+def init(init_method: str, world_size: int, rank: int, device="cuda") -> None:
+    """Join the process group: NCCL for a card (the default; with no card
+    it raises, as ``core/store.py::resolve_device`` does), gloo for a rank
+    that asks for the CPU."""
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
 
 

@@ -643,3 +643,25 @@ def test_hnsw_engine_is_501_on_the_port(pair):
         assert rt.json()["results"][0]["id"] == rj.json()["results"][0]["id"] == f"v{b}"
     listed = requests.get(f"{servers['torch'].base}/api/v1/collections").json()["collections"]
     assert "sharded" in listed
+
+
+def test_ivf_einsum_collection_on_both_servers(pair):
+    """An IVF collection whose ``engine_config`` selects
+    ``formulation: "einsum"`` (once 501 on the port) answers create (201),
+    insert (201) and search (200) on both servers with the same results."""
+    servers, vecs, queries = pair
+    cfg = {"n_clusters": 16, "n_probe": 3, "build_threshold": 512, "formulation": "einsum"}
+    body = {"name": "einsum", "dimension": D_PAR, "distance_function": "euclidean",
+            "engine": "ivf", "engine_config": cfg}
+    rj, rt = both(servers, "POST", "/api/v1/collections", body)
+    assert rj.status_code == rt.status_code == 201, (rj.text, rt.text)
+    rows = [{"id": f"v{i}", "vector": v.tolist()} for i, v in enumerate(vecs)]
+    rj, rt = both(servers, "POST", "/api/v1/collections/einsum/vectors/batch", {"vectors": rows})
+    assert rj.status_code == rt.status_code == 201
+    for q in queries[:16]:
+        rj, rt = both(servers, "POST", "/api/v1/collections/einsum/search",
+                      {"vector": q.tolist(), "top_k": K})
+        assert rj.status_code == rt.status_code == 200, (rj.text, rt.text)
+        assert_same_results(rj.json()["results"], rt.json()["results"])
+    engine = servers["torch"].server.db.get_collection("einsum").engine
+    assert engine.name == "ivf" and engine._built and engine.config.formulation == "einsum"

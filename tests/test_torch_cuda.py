@@ -14,7 +14,8 @@ unpacked scores, positions equal where scores are separated), ``scatter_rows`` a
 copy and double floats, or add one int to a float); the slice on the card
 against the slice on the CPU; the live index on the card (writes and a
 background refresh on the maintenance stream) against the CPU, and serving
-while a job runs; the HNSW engine's beam search and build on the card
+while a job runs; IVF's einsum formulation (torch ops) on the card against
+the CPU; the HNSW engine's beam search and build on the card
 against the same calls on the CPU.
 """
 
@@ -248,6 +249,34 @@ def test_ivf_index_on_cuda_matches_cpu(cuda, formulation, d):
     ivf_cuda.reset_launch_counts()
     dg, ig = engines[1].search_slots(queries, 10)
     assert sum(ivf_cuda.launch_counts.values()) == 1
+    dc, ic = engines[0].search_slots(queries, 10)
+    np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-4)
+    assert np.mean(ig == ic) >= 0.99
+
+
+@pytest.mark.parametrize("blocks", [torch.bfloat16, torch.float32])
+def test_ivf_einsum_on_cuda_matches_cpu(cuda, blocks):
+    """formulation="einsum" (torch ops: the f32 GEMM over per-cluster query
+    lists) on the card against its CPU twin, at a q_cap that drops pairs;
+    it launches no block_topw."""
+    rng = np.random.default_rng(5)
+    n, d = 20000, 64
+    centers = rng.normal(size=(100, d)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 100, n)] + 0.25 * rng.normal(size=(n, d))).astype(np.float32)
+    queries = (vecs[:256] + 0.1 * rng.normal(size=(256, d))).astype(np.float32)
+    cfg = dict(n_clusters=64, n_probe=4, build_threshold=256, formulation="einsum",
+               q_cap_factor=1)
+    engines = []
+    for dev in ("cpu", cuda):
+        store = VectorStore(dim=d, metric="euclidean", capacity=n, device=dev)
+        store.add_batch([f"v{i}" for i in range(n)], vecs)
+        engines.append(IVFIndex(store, config=IVFConfig(**cfg), compute_dtype=blocks))
+    engines[0].build()
+    engines[1].import_topology(engines[0].export_topology(), np.arange(n))
+    assert engines[1]._blocks_t.dtype == blocks
+    ivf_cuda.reset_launch_counts()
+    dg, ig = engines[1].search_slots(queries, 10)
+    assert sum(ivf_cuda.launch_counts.values()) == 0
     dc, ic = engines[0].search_slots(queries, 10)
     np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-4)
     assert np.mean(ig == ic) >= 0.99

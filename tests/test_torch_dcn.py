@@ -47,3 +47,20 @@ def test_two_process_gloo_scan():
     for p, out in zip(procs, outs):
         assert p.returncode == 0, f"worker failed (rc={p.returncode}):\n{out}"
         assert "seeded_ok=True" in out
+
+
+def test_init_defaults_to_the_card(monkeypatch):
+    """``init`` without a device joins as a card rank: with no card it
+    raises before any process group is made, and never falls back to gloo."""
+    import torch
+
+    from quiver_tpu_torch.parallel import distributed as qd
+
+    joined = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(qd.dist, "init_process_group", lambda *a, **kw: joined.append((a, kw)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        qd.init(f"tcp://127.0.0.1:{_free_port()}", 1, 0)
+    assert joined == []
+    qd.init("tcp://127.0.0.1:1", 1, 0, device="cpu")  # the CPU only when asked
+    assert joined[0][0] == ("gloo",)

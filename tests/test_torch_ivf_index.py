@@ -8,8 +8,8 @@ wherever separated from the k-th; score-derived distances within the
 quantization bound of tests/test_torch_ivf_query.py), including the
 overflow merge, the under-fill supplement and the negative rerank; the
 port's own ``build()`` from the same seed reaches the JAX build's tie-aware
-recall@10 within 0.01; the parts not ported yet (``formulation="einsum"``,
-the registry's other engine kinds) raise.
+recall@10 within 0.01; ``formulation="einsum"`` serves as the reference's
+does, and every engine kind of the registry builds.
 """
 
 import numpy as np
@@ -91,7 +91,7 @@ def test_imported_layout_is_identical(jax_topology):
     np.testing.assert_array_equal(te._slot_pos, je._slot_pos)
 
 
-@pytest.mark.parametrize("formulation", ["pairs", "fused"])
+@pytest.mark.parametrize("formulation", ["pairs", "fused", "einsum"])
 @pytest.mark.parametrize("rescore", [True, False])
 def test_search_slots_matches_jax(jax_topology, formulation, rescore):
     _, queries, _ = jax_topology
@@ -136,6 +136,31 @@ def test_negative_rerank_through_search_matches_jax(jax_topology):
     np.testing.assert_allclose(dt, dj, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("layer", ["overflow", "supplement", "negative"])
+def test_einsum_search_layers_match_jax(jax_topology, layer):
+    """search_slots' host layers over formulation="einsum": the overflow
+    merge, the under-fill supplement and the negative rerank, as the three
+    tests above run them over pairs."""
+    vecs, queries, _ = jax_topology
+    je, te = engines(jax_topology, formulation="einsum")
+    kw = {}
+    if layer == "overflow":
+        moved = np.arange(0, 64, 2)
+        for eng in (je, te):
+            eng._vacate_slots(moved)
+            eng._overflow.update(int(s) for s in moved)
+    elif layer == "supplement":
+        kw["mask"] = np.random.default_rng(3).random(je.store.capacity) < 0.004
+    else:
+        kw.update(negative=vecs[100:164], negative_weight=0.3)
+    dt, it = te.search_slots(queries, KTOP, **kw)
+    agree((dt, it), je.search_slots(queries, KTOP, **kw))
+    if layer == "overflow":
+        assert np.mean(it[moved, 0] == moved) >= 0.9  # served from overflow
+    elif layer == "supplement":
+        assert (it >= 0).sum(1).min() == KTOP and kw["mask"][it].all()
+
+
 def test_exact_routes_match_jax(jax_topology):
     """Small corpora and Manhattan go to the exact scan in both packages;
     an empty batch returns empty arrays."""
@@ -176,12 +201,17 @@ def test_port_build_reaches_jax_recall(jax_topology):
 
 def test_unported_parts_raise(jax_topology):
     from quiver_tpu_torch.index import make_engine, resolve_engine_config
+    from quiver_tpu_torch.ops.ivf_kernels import probe_stage
 
     _, queries, _ = jax_topology
-    _, te = engines(jax_topology)
-    te.config.formulation = "einsum"
-    with pytest.raises(NotImplementedError, match="einsum.*ROADMAP.md"):
-        te.search_slots(queries, KTOP)
+    je, te = engines(jax_topology, formulation="einsum")
+    # einsum is ported: held to the reference, at a q_cap that drops pairs
+    je.config.q_cap_factor = te.config.q_cap_factor = 1
+    cent, c_ns = te._cent_dev
+    probe = probe_stage(torch.from_numpy(queries), cent, c_ns, te.store.metric, 4,
+                        te.config.probe_sel_approx)[2]
+    assert torch.bincount(probe.reshape(-1)).max() > te._q_cap(len(queries), 4, te.n_clusters)
+    agree(te.search_slots(queries, KTOP), je.search_slots(queries, KTOP))
     # the sharded kinds are ported too: each builds and resolves its config
     for kind in ("sharded_exact", "sharded_hnsw", "sharded_ivf", "sharded_hybrid"):
         assert make_engine(kind, te.store).name in (kind, "hybrid")

@@ -6,15 +6,17 @@ The arrays follow the recipe of ``__graft_entry__.py:30-58`` at a small size
 rounded to bf16 by JAX and carried into torch by ``convert.py``; or, at
 ``compute_dtype=float32`` (the database's default), kept as f32 blocks in
 both packages. The JAX side runs with exact top-k (``probe_approx=None``)
-and its fused stage in Pallas interpret mode.
+and its fused stage in Pallas interpret mode; ``formulation="einsum"`` runs
+at ``q_cap=64``, where no pair drops.
 
 Tolerances:
 * ``rescore=True``: exact f32 distances, rtol/atol 1e-4 (summation order);
 * ``rescore=False``: distances derive from the packed stage scores, which
   both packages quantize alike (2^-18 relative at 5 position bits, 2^-12 at
-  11) and sum in different orders, so the derived quantity (d^2 for L2,
-  1 - d for dot/cosine) agrees within two quanta of the score, plus 8 f32
-  ulps of it for the affine identity's rounding, plus 1e-4;
+  11; einsum's f32 scores carry none) and sum in different orders, so the
+  derived quantity (d^2 for L2, 1 - d for dot/cosine) agrees within two
+  quanta of the score, plus 8 f32 ulps of it for the affine identity's
+  rounding, plus 1e-4;
 * ids agree wherever the reference's distances are separated from the k-th
   by more than the tolerance, and the tie-aware recall@k against an f64
   oracle agrees within 0.01.
@@ -58,14 +60,15 @@ def graft_arrays(K=16, Cmax=512, d=32, B=16, seed=0, keep_frac=0.95):
 
 
 def run_both(queries, ops, *, metric, formulation, rescore, n_probe=4, seg_width=32,
-             probe_sel_approx=None, k=KTOP, f32=False):
+             probe_sel_approx=None, k=KTOP, f32=False, q_cap=64):
     """Both packages' ivf_query on the same operands; ``f32``: f32 blocks
-    and ``compute_dtype=float32`` (else bf16 blocks, the JAX default)."""
+    and ``compute_dtype=float32`` (else bf16 blocks, the JAX default).
+    ``q_cap`` (einsum only) 64 holds every pair of the default B*P = 64."""
     jops = [jnp.asarray(o) for o in ops]
     jops[2] = jops[2].astype(jnp.float32 if f32 else jnp.bfloat16)
     dj, ij = jax_ivf_query(
         jnp.asarray(queries), *jops, metric=metric, k=k, n_probe=n_probe,
-        q_cap=64, probe_approx=None, probe_sel_approx=probe_sel_approx,
+        q_cap=q_cap, probe_approx=None, probe_sel_approx=probe_sel_approx,
         formulation=formulation, seg_width=seg_width, rescore=rescore,
         fused_interpret=True, compute_dtype=jnp.float32 if f32 else jnp.bfloat16,
     )
@@ -73,7 +76,7 @@ def run_both(queries, ops, *, metric, formulation, rescore, n_probe=4, seg_width
                                  blocks_dtype=torch.float32 if f32 else torch.bfloat16)
     assert tops[2].dtype == (torch.float32 if f32 else torch.bfloat16)
     dt, it = ivf_query(
-        torch.from_numpy(queries), *tops, metric=metric, k=k, n_probe=n_probe,
+        torch.from_numpy(queries), *tops, metric=metric, k=k, n_probe=n_probe, q_cap=q_cap,
         probe_sel_approx=probe_sel_approx, formulation=formulation,
         seg_width=seg_width, rescore=rescore,
     )
@@ -156,10 +159,12 @@ def check(queries, ops, dj, ij, dt, it, *, metric, rescore, pos_bits, caff=None)
 CASES = [
     (m, f, r)
     for m in ("euclidean", "dot_product", "cosine")
-    for f in ("pairs", "fused")
+    for f in ("pairs", "fused", "einsum")
     for r in (True, False)
     if not (f == "fused" and m == "cosine")
 ]
+#: position bits in each formulation's stage scores (einsum's are plain f32)
+POS_BITS = {"pairs": 5, "fused": 11, "einsum": 0}
 
 
 @pytest.mark.parametrize("metric,formulation,rescore", CASES)
@@ -168,7 +173,7 @@ def test_ivf_query_matches_jax(metric, formulation, rescore):
     dj, ij, dt, it = run_both(
         queries, ops, metric=metric, formulation=formulation, rescore=rescore)
     check(queries, ops, dj, ij, dt, it, metric=metric, rescore=rescore,
-          pos_bits=5 if formulation == "pairs" else 11)
+          pos_bits=POS_BITS[formulation])
 
 
 @pytest.mark.parametrize("metric,formulation,rescore", CASES)
@@ -180,7 +185,7 @@ def test_ivf_query_f32_blocks_matches_jax(metric, formulation, rescore):
     dj, ij, dt, it = run_both(
         queries, ops, metric=metric, formulation=formulation, rescore=rescore, f32=True)
     check(queries, ops, dj, ij, dt, it, metric=metric, rescore=rescore,
-          pos_bits=5 if formulation == "pairs" else 11)
+          pos_bits=POS_BITS[formulation])
 
 
 @pytest.mark.parametrize("k", [10, 100])

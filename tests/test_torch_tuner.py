@@ -165,3 +165,14 @@ def test_tuner_skips_small_corpora():
     eng.build()
     assert eng.tune_n_probe() is None and eng.config.n_probe == 2
     assert not eng.recall_shortfall
+
+
+def test_tune_n_probe_over_einsum_matches_jax():
+    """The tuner's measured check runs through the configured formulation:
+    over einsum (q_cap drops included) both packages pick the same n_probe."""
+    make, cfg = CASES["meets_target"]
+    je, te = engine_pair(make(), formulation="einsum", q_cap_factor=1, **cfg)
+    p_j, p_t = je.tune_n_probe(), te.tune_n_probe()
+    assert p_t is not None and p_t == p_j and te.config.formulation == "einsum"
+    assert te.recall_shortfall == je.recall_shortfall
+    assert abs(te._tuned_recall - je._tuned_recall) <= 0.01
