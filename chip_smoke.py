@@ -16,8 +16,9 @@ printing any result. Phases, one line each (any failure raises):
    Cmax=1280, K=1405, B=65536, P in {2, 3, 4}) and at a 768-d one (B=16384,
    K=1024, P=3), pairs variant (W=32, R=2: L2, dot, cosine; caff re-keyed
    onto the winners for L2 and dot), fused variant (W=128, R=4: L2, dot),
-   row mode (one window per row: R=16, the running top-R; R=100, every
-   key of the row and the wrapper's top-R) and the pairs stage at
+   row mode (one window per row: R in {16, 64, 100, 128}, the running
+   top-R kept in the kernel; R=160 at P=3 only, every key of the row and
+   the wrapper's top-R) and the pairs stage at
    ``seg_width`` 64 and 128 (W=64 and 128, R=2, 6 and 7 position bits, the
    ``_mask_key(W)`` sentinel; at P in {2, 3} only); then the same variants
    over f32 blocks (``csrc/ivf_block_topw_f32.cu``; pairs and row mode on
@@ -287,20 +288,31 @@ WIDE_SHAPE = dict(B=16384, K=1024, Cmax=1280, d=768)
 COLLECTION_ROWS = 262144
 #: (variant name, W, R, position bits, metrics); W = 0 is row mode (one
 #: window of Cmax columns, position bits to hold Cmax). Row mode serves the
-#: per-pair branch, taken when Cmax holds fewer than k windows: R=16 keeps
-#: a running top-R in the kernel, R=100 (the 1M slice at k=100) has the
-#: kernel write every key of the row for the wrapper's top-R.
+#: per-pair branch, taken when Cmax holds fewer than k windows, at R =
+#: min(Cmax, max(16, k)): R=16 (k <= 16: the DB's small collections, the
+#: sharded and mesh legs), R=100 (the 1M slice's and the DB's k=100
+#: requests). Up to R=128 the kernel keeps the running top-R; R=160 is the
+#: band above, where it writes every key of the row for the wrapper's top-R.
 VARIANTS = (
     ("pairs", 32, 2, 5, ("euclidean", "dot_product", "cosine")),
     ("fused", 128, 4, 11, ("euclidean", "dot_product")),
     ("row", 0, 16, 0, ("euclidean", "dot_product", "cosine")),
+    ("row64", 0, 64, 0, ("euclidean",)),
     ("row100", 0, 100, 0, ("euclidean", "dot_product", "cosine")),
+    ("row128", 0, 128, 0, ("euclidean",)),
+    ("row160", 0, 160, 0, ("euclidean",)),
     ("pairs64", 64, 2, 6, ("euclidean", "dot_product", "cosine")),
     ("pairs128", 128, 2, 7, ("euclidean", "dot_product", "cosine")),
 )
 #: the pairs stage at ``seg_width`` 64 and 128 (phase 13c's roofline sweep
 #: launches them): held at the main path's P in {2, 3} and the 768-d shape
 SEG_VARIANTS = {"pairs64": 64, "pairs128": 128}
+#: the largest P phase 3 holds a variant at (the seg_width variants: the
+#: main path's {2, 3}; row mode above the kernel's R: P=3 only)
+VARIANT_MAX_P = {"pairs64": 3, "pairs128": 3, "row160": 3}
+#: variants the kernels line must list (a path launches them every run);
+#: the other row-mode bands are listed when a path launched them
+REQUIRED_VARIANTS = ("pairs", "fused", "row100", "pairs64", "pairs128")
 
 
 #: the probes' times beside ms and plain_ms in the kernels line
@@ -563,7 +575,7 @@ class LiveCheck:
             key = (str(args[4].dtype).split(".")[-1], kw["W"], kw["R"])
             self.worst_by[key] = max(self.worst_by.get(key, 0.0), err)
             wr = (kw["W"], kw["R"])
-            var = wr if wr in ivf_cuda.CUDA_VARIANTS else ivf_cuda.ROW_MODE
+            var = wr if wr in ivf_cuda.CUDA_VARIANTS else ivf_cuda.row_key(kw["R"])
             var = (ivf_cuda.F32, var) if args[4].dtype == torch.float32 else var
             self.worst_by_variant[var] = max(self.worst_by_variant.get(var, 0.0), err)
         log(f"{phase} live check: {len(self.calls)} block_topw calls within tolerance "
@@ -584,7 +596,7 @@ def phase_kernels(torch, dev, *, shape, probes, reps, dtype=None):
     for variant, W, R, pos_bits, metrics in VARIANTS:
         W, pos_bits, sentinel = variant_args(variant, W, R, pos_bits, shape["Cmax"])
         rec = records.setdefault(variant, {"W": W, "R": R, "max_abs_err": 0.0})
-        for P in probes if variant not in SEG_VARIANTS else [p for p in probes if p <= 3]:
+        for P in [p for p in probes if p <= VARIANT_MAX_P.get(variant, p)]:
             for metric in metrics:
                 args, kw = kernel_inputs(
                     torch, dev, P=P, metric=metric, variant=variant,
@@ -594,20 +606,21 @@ def phase_kernels(torch, dev, *, shape, probes, reps, dtype=None):
                 k_kern = ivf_cuda.block_topw(*args, **wkw)
                 err, n_diff = check_call(torch, args, wkw, k_kern)
                 ms = cuda_ms(lambda: ivf_cuda.block_topw(*args, **wkw), reps)
-                plain_ms = cuda_ms(lambda: ivf_cuda.block_topw_reference(*args, **wkw), 1)
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 extra = ""
                 if P == 3 and metric == "euclidean":
+                    # the plain version is timed where its time is recorded
+                    plain_ms = cuda_ms(lambda: ivf_cuda.block_topw_reference(*args, **wkw), 1)
                     rec["ms"], rec["plain_ms"] = ms, plain_ms
                     rec["bound_ms"], rec["bound_by"] = topw_bound(args, wkw, k_kern,
                                                                   card_peaks(torch))
-                    extra = (f" bound_ms={rec['bound_ms']!r} ({rec['bound_by']}) "
-                             f"bound_share={rec['bound_ms'] / ms!r}")
+                    extra = (f" twin_ms={plain_ms!r} bound_ms={rec['bound_ms']!r} "
+                             f"({rec['bound_by']}) bound_share={rec['bound_ms'] / ms!r}")
                 log(
                     f"kernel {variant} {str(dtype).split('.')[-1]} blocks W={W} R={R} "
                     f"{metric} B={shape['B']} P={P} d={shape['d']} "
                     f"BP={shape['B'] * P}: max_abs_err={err!r} pos_diffs={n_diff} "
-                    f"kernel_ms={ms!r} twin_ms={plain_ms!r}{extra}"
+                    f"kernel_ms={ms!r}{extra}"
                 )
                 del args, kw, wkw, k_kern
                 torch.cuda.empty_cache()
@@ -799,8 +812,8 @@ def slice_profile(torch, eng, qdev, *, batches=5, top=8):
 def phase_k100(torch, dev, eng, qb, vecs, *, b=4096, k=100) -> float:
     """Phase 4's k=100 batch: B=4096 serving queries through ``search_slots``
     at the tuned n_probe. Cmax=1280 holds 40 windows of 32 < k, so the
-    per-pair branch serves it (row mode, R=100: every key of each row, then
-    the wrapper's top-R). Every slot must be filled; recall@100 against the
+    per-pair branch serves it (row mode, R=100: the running top-R kept in
+    the kernel). Every slot must be filled; recall@100 against the
     f64 oracle is recorded, not gated; the call is held against the plain
     version. Returns its largest score error."""
     q = qb[:b]
@@ -2782,6 +2795,66 @@ def phase_matrix(torch, dev) -> dict:
     return {"rows": rows, "err": dict(live.worst_by_variant), "launches": launches}
 
 
+#: the TPU code each block_topw variant replaces (row mode: the per-pair
+#: branch)
+TOPW_REPLACES = {"pairs": "quiver_tpu/ops/ivf_kernels.py:633",
+                 "fused": "quiver_tpu/ops/ivf_pallas.py:145",
+                 "pairs64": "quiver_tpu/ops/ivf_kernels.py:660",
+                 "pairs128": "quiver_tpu/ops/ivf_kernels.py:660"}
+ROW_REPLACES = "quiver_tpu/ops/ivf_kernels.py:716"
+
+
+def topw_entries(ivf_cuda, records, records_f32, *, paths, paths_f32, later, errs, db_err):
+    """The kernels line's ``block_topw`` entries, bf16 blocks then f32, from
+    phase 3's records (name -> W, R, max_abs_err, ms, plain_ms, bound_ms,
+    bound_by) and the launch counts of the paths (``(name, counts)``, in
+    order: the main path's first, then ``later``, the paths of both
+    dtypes). An entry's ``launches`` are those of the first path that
+    launched it, named in ``path``. A row-mode band no path launched
+    (R=64, 128, 160 today) is held in phase 3 only and listed nowhere; a
+    variant of REQUIRED_VARIANTS that no path launched raises. ``errs`` (by
+    launch-count key) and, over f32 blocks, ``db_err`` join each entry's
+    error. Each entry carries its launch-count key (``key``)."""
+    kernels = []
+    for tag, recs, own, source in (
+            ("", records, paths, "quiver_tpu_torch/csrc/ivf_block_topw.cu"),
+            ("_f32", records_f32, paths_f32, "quiver_tpu_torch/csrc/ivf_block_topw_f32.cu")):
+        seen = (*own, *later)
+        for variant, rec in recs.items():
+            # the seg_width variants over f32 blocks are on no path
+            if tag and variant in SEG_VARIANTS:
+                continue
+            row = rec["W"] == KERNEL_SHAPE["Cmax"]
+            key = ivf_cuda.row_key(rec["R"]) if row else (rec["W"], rec["R"])
+            if tag:
+                key = (ivf_cuda.F32, key)
+            path, n = next(((name, c[key]) for name, c in seen if c.get(key, 0) > 0), (None, 0))
+            if path is None:
+                if variant in REQUIRED_VARIANTS:
+                    raise AssertionError(f"block_topw{tag} {variant} was not launched by its path")
+                continue
+            err = max(rec["max_abs_err"], *(e.get(key, 0.0) for e in errs),
+                      db_err.get(key, 0.0) if tag else 0.0)
+            kernels.append({
+                "name": f"block_topw{tag}[W={rec['W']},R={rec['R']}] ({variant})",
+                "route": "cuda",
+                "source": source,
+                "replaces": ROW_REPLACES if row else TOPW_REPLACES[variant],
+                "launches": n,
+                "path": path,
+                "max_abs_err": err,
+                "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "bound_share": rec["bound_ms"] / rec["ms"],
+                "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
+                **{f"{name}_launches": c.get(key, 0) for name, c in seen if name != own[0][0]},
+                "key": key,
+            })
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -2884,12 +2957,11 @@ def main() -> int:
     with LiveCheck() as live:
         db9 = phase_db(torch, dev, vecs, qdev, oracle_q, oracle_kth_)
     live.verify(torch, "db")
-    db_worst = dict(live.worst_by)
+    db_worst = dict(live.worst_by_variant)
     with LiveCheck() as live:
         persist_root = phase_persistence(torch, dev, vecs)
     live.verify(torch, "persist")
-    for key, err in live.worst_by.items():
-        db_worst[key] = max(db_worst.get(key, 0.0), err)
+    max_by(db_worst, live.worst_by_variant)
     counts_db = dict(ivf_cuda.launch_counts)
     log(f"db launches: {counts_db}")
     time_f32_slice(torch, db9["ivf"], qdev, db9["records"])
@@ -2903,11 +2975,10 @@ def main() -> int:
     with LiveCheck() as live:
         phase_server(torch, db9["db"], db9["queries"], db9["truth_ids"])
     live.verify(torch, "server")
-    for key, err in live.worst_by.items():
-        db_worst[key] = max(db_worst.get(key, 0.0), err)
+    max_by(db_worst, live.worst_by_variant)
     counts_server = dict(ivf_cuda.launch_counts)
     log(f"server launches: {counts_server}")
-    if counts_server[(ivf_cuda.F32, (32, 2))] <= 0:
+    if counts_server.get((ivf_cuda.F32, (32, 2)), 0) <= 0:
         raise AssertionError("block_topw_f32 was not launched by the server phase")
     db9["db"].close()
     del db9
@@ -3002,55 +3073,22 @@ def main() -> int:
                               pk["bf16"], pk["hbm"]),
         "index_read": bound(8 * read_ops["grid"] + 4, 0.0, pk["bf16"], pk["hbm"]),
     }
-    replaces = {"pairs": "quiver_tpu/ops/ivf_kernels.py:633",
-                "fused": "quiver_tpu/ops/ivf_pallas.py:145",
-                "row100": "quiver_tpu/ops/ivf_kernels.py:716",
-                "pairs64": "quiver_tpu/ops/ivf_kernels.py:660",
-                "pairs128": "quiver_tpu/ops/ivf_kernels.py:660"}
-    kernels, listed = [], set()
-    for tag, recs, launches, source in (
-            ("", records, counts, "quiver_tpu_torch/csrc/ivf_block_topw.cu"),
-            ("_f32", records_f32, counts_db, "quiver_tpu_torch/csrc/ivf_block_topw_f32.cu")):
-        for variant, rec in recs.items():
-            # row mode at R=16 is on no main path, nor the seg_width variants
-            # over f32 blocks
-            if variant not in replaces or (tag and variant in SEG_VARIANTS):
-                continue
-            key = ivf_cuda.ROW_MODE if rec["W"] == KERNEL_SHAPE["Cmax"] else (rec["W"], rec["R"])
-            if tag:
-                key = (ivf_cuda.F32, key)
-                rec["max_abs_err"] = max(rec["max_abs_err"],
-                                         db_worst.get(("float32", rec["W"], rec["R"]), 0.0))
-            rec["max_abs_err"] = max(rec["max_abs_err"], sharded_err.get(key, 0.0),
-                                     scale_err.get(key, 0.0), mesh_err.get(key, 0.0))
-            listed.add(key)
-            # the seg_width variants' path is the roofline sweep (13c)
-            path = roof["launches"] if variant in SEG_VARIANTS else launches
-            if path.get(key, 0) <= 0:
-                raise AssertionError(f"block_topw{tag} {variant} was not launched by the main path")
-            kernels.append({
-                "name": f"block_topw{tag}[W={rec['W']},R={rec['R']}] ({variant})",
-                "route": "cuda",
-                "source": source,
-                "replaces": replaces[variant],
-                "launches": path[key],
-                "max_abs_err": rec["max_abs_err"],
-                "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"],
-                "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"],
-                "bound_share": rec["bound_ms"] / rec["ms"],
-                "library_ms": None,  # no one PyTorch call scores pairs by cluster into windowed winners
-                **({"server_launches": counts_server[key]} if tag else {}),
-                "sharded_launches": sharded_launches.get(key, 0),
-                "scale_launches": scale_launches.get(key, 0),
-                "mesh_launches": mesh_launches.get(key, 0),
-            })
-    for phase, seen in (("12", sharded_launches), ("13", scale_launches),
+    kernels = topw_entries(
+        ivf_cuda, records, records_f32,
+        paths=(("main", counts), ("roofline", roof["launches"])),
+        paths_f32=(("db", counts_db), ("server", counts_server)),
+        later=(("sharded", sharded_launches), ("scale", scale_launches),
+               ("mesh", mesh_launches)),
+        errs=(sharded_err, scale_err, mesh_err), db_err=db_worst)
+    for phase, seen in (("4", counts), ("9", counts_db), ("10a", counts_server),
+                        ("12", sharded_launches), ("13", scale_launches),
                         ("12f", mesh_launches)):
-        if set(seen) - listed:
+        missing = {k for k, n in seen.items() if n} - {e["key"] for e in kernels}
+        if missing:
             raise AssertionError(f"phase {phase} launched variants with no kernels entry: "
-                                 f"{set(seen) - listed}")
+                                 f"{missing}")
+    for e in kernels:
+        del e["key"]
     for name, replaces in (("scatter_rows", "benches/probe_pallas.py:42"),
                            ("index_read", "benches/probe_pallas.py:101")):
         if probe_counts[name] <= 0:

@@ -29,6 +29,10 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+    # each source's kernels compile on all the host's cores: nvcc's front
+    # end over row mode's unrolled merges (csrc/row_topr.cuh) sets the
+    # build's time
+    "--split-compile=0",
 )
 LIB_NAME = "libquiver_tpu_torch_kernels.so"
 

@@ -13,7 +13,9 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -301,3 +303,44 @@ def commit() -> str | None:
     except (OSError, subprocess.SubprocessError):
         return None
     return out or None
+
+
+def ab_main(argv: list[str], script: str, doc: str, *, turns: int | None = None) -> int:
+    """Main of an A/B bench (``benches/*_ab.py``): ``OTHER_ROOT`` is another
+    checkout of the repository, and where ``turns`` is given an optional
+    second argument counts the turns of each checkout (``turns`` by
+    default; else two). Each turn runs ``script --turn ROOT`` in its own
+    process from ROOT, in the order other, this, this, other, repeated; the
+    script's turn imports ``quiver_tpu_torch`` and ``chip_smoke`` from ROOT
+    and prints one JSON record whose ``ms`` maps each measurement to its
+    time. Prints each turn's record, then one line with each measurement's
+    times by checkout in turn order, the first turn of this checkout's
+    other keys, and the card's name and power limit. Returns 1 without
+    CUDA (before any result) or when a turn fails, 2 on bad arguments."""
+    name = Path(script).stem
+    if not torch.cuda.is_available():
+        print(f"{name}: CUDA is not available", file=sys.stderr)
+        return 1
+    if not 1 <= len(argv) <= (2 if turns else 1):
+        print(doc, file=sys.stderr)
+        return 2
+    roots = {"other": os.path.abspath(argv[0]), "this": str(Path(script).resolve().parents[2])}
+    n = int(argv[1]) if len(argv) == 2 else turns or 2
+    pattern = ("other", "this", "this", "other")
+    runs = []
+    for tag in (pattern[i % 4] for i in range(2 * n)):
+        out = subprocess.run([sys.executable, os.path.abspath(script), "--turn", roots[tag]],
+                             capture_output=True, text=True, cwd=roots[tag])
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return 1
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps({"turn": tag, **rec}), flush=True)
+        runs.append((tag, rec))
+    table = {key: {tag: [r["ms"][key] for t, r in runs if t == tag] for tag in roots}
+             for key in runs[0][1]["ms"]}
+    first = next(r for t, r in runs if t == "this")
+    extra = {k: v for k, v in first.items() if k not in ("root", "ms")}
+    print(json.dumps({"order": [t for t, _ in runs], "ms": table, **extra, "card": card()}),
+          flush=True)
+    return 0

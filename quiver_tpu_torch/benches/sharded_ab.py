@@ -23,10 +23,8 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def turn(root: str) -> dict:
@@ -66,41 +64,10 @@ def turn(root: str) -> dict:
     }, "recall": out["recall"], "shard_bytes": out["shard_bytes"]}
 
 
-def main(argv) -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("sharded_ab: CUDA is not available", file=sys.stderr)
-        return 1
-    if len(argv) == 2 and argv[0] == "--turn":
-        print(json.dumps(turn(argv[1])), flush=True)
-        return 0
-    from quiver_tpu_torch.benches.common import card
-
-    if len(argv) not in (1, 2):
-        print(__doc__, file=sys.stderr)
-        return 2
-    other = os.path.abspath(argv[0])
-    turns = int(argv[1]) if len(argv) == 2 else 3
-    pattern = (("other", other), ("this", HERE), ("this", HERE), ("other", other))
-    order = [pattern[i % 4] for i in range(2 * turns)]
-    runs = []
-    for tag, root in order:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],
-                             capture_output=True, text=True, cwd=root)
-        if out.returncode != 0:
-            print(out.stdout + out.stderr, file=sys.stderr)
-            return 1
-        rec = json.loads(out.stdout.strip().splitlines()[-1])
-        print(json.dumps({"turn": tag, **rec}), flush=True)
-        runs.append((tag, rec["ms"]))
-    table = {key: {"other": [ms[key] for tag, ms in runs if tag == "other"],
-                   "this": [ms[key] for tag, ms in runs if tag == "this"]}
-             for key in runs[0][1]}
-    print(json.dumps({"order": [tag for tag, _ in runs], "ms": table, "card": card()}),
-          flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    if sys.argv[1:2] == ["--turn"]:
+        print(json.dumps(turn(sys.argv[2])), flush=True)
+    else:
+        from quiver_tpu_torch.benches.common import ab_main
+
+        sys.exit(ab_main(sys.argv[1:], __file__, __doc__, turns=3))

@@ -21,11 +21,8 @@ Without CUDA it exits 1 before printing a result.
 from __future__ import annotations
 
 import json
-import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 #: (shape name, chip_smoke shape attribute, P values)
 SHAPES = (("d128", "KERNEL_SHAPE", (2, 3)), ("d768", "WIDE_SHAPE", (3,)))
 
@@ -72,39 +69,10 @@ def turn(root: str) -> dict:
     return {"root": root, "ms": times}
 
 
-def main(argv) -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("topw_f32_ab: CUDA is not available", file=sys.stderr)
-        return 1
-    if len(argv) == 2 and argv[0] == "--turn":
-        print(json.dumps(turn(argv[1])), flush=True)
-        return 0
-    from quiver_tpu_torch.benches.common import card
-
-    if len(argv) != 1:
-        print(__doc__, file=sys.stderr)
-        return 2
-    other = os.path.abspath(argv[0])
-    order = (("other", other), ("this", HERE), ("this", HERE), ("other", other))
-    runs = []
-    for tag, root in order:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],
-                             capture_output=True, text=True, cwd=root)
-        if out.returncode != 0:
-            print(out.stdout + out.stderr, file=sys.stderr)
-            return 1
-        rec = json.loads(out.stdout.strip().splitlines()[-1])
-        print(json.dumps({"turn": tag, **rec}), flush=True)
-        runs.append((tag, rec["ms"]))
-    table = {key: {"other": [ms[key] for tag, ms in runs if tag == "other"],
-                   "this": [ms[key] for tag, ms in runs if tag == "this"]}
-             for key in runs[0][1]}
-    print(json.dumps({"order": [tag for tag, _ in runs], "ms": table, "card": card()}),
-          flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    if sys.argv[1:2] == ["--turn"]:
+        print(json.dumps(turn(sys.argv[2])), flush=True)
+    else:
+        from quiver_tpu_torch.benches.common import ab_main
+
+        sys.exit(ab_main(sys.argv[1:], __file__, __doc__))

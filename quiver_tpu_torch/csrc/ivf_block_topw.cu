@@ -10,9 +10,9 @@
 // packs (score | column) into a monotone int32 key and keeps the top R keys
 // of every W-column window, written straight to the pair's original row in
 // lane r*S + w (S = Cmax / W), each optionally re-keyed with a per-pair f32
-// constant (win_add). W = 0 selects one window spanning the whole row: the
-// running top-R (R <= 32) in the kernel, or every key of the row for the
-// wrapper's top-R (R > 32).
+// constant (win_add). W = 0 selects one window spanning the whole row, row
+// mode: the running top R <= 128 kept in the kernel (csrc/row_topr.cuh), or,
+// for R > 128 (still to do), every key of the row for the wrapper's top-R.
 //
 // What bounds it on an H100 (SXM, 700 W: 3.35 TB/s, 989 TFLOP/s bf16
 // dense). At the serving shape (B=65536, n_probe=3, K=1405, Cmax=1280,
@@ -49,8 +49,15 @@
 // one quad of threads, so each thread keeps its top R of its W/4 values,
 // two xor-shuffle rounds merge the quad, and the quad stores the window
 // winners straight to the pair's row. Row mode stages each slab's keys in
-// shared memory per warp (a warp's 16 rows are its own) and merges them
-// into a running top-R, or copies them out whole.
+// shared memory per warp (a warp's 16 rows are its own), releases the ring
+// stage, and merges them into each row's running top-R in shared memory
+// behind a threshold filter (csrc/row_topr.cuh, shared with the f32 kernel);
+// for R > 128 it copies them out whole. The merge is bound by the latency
+// of its shuffle chains, so blocks per SM set its pace; its lists and
+// staged rows cost shared memory: R <= 32 keeps the windowed variants'
+// 3-stage ring with two blocks per SM, lists of 64 and 112 entries (R <=
+// 64, R <= 112) take a 2-stage ring to keep two, and R <= 128 (a 32 KB
+// list) runs one block per SM on a 3-stage ring.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -58,6 +65,7 @@
 #include <stdint.h>
 
 #include "tma.cuh"
+#include "row_topr.cuh"
 #include "device_guard.cuh"
 
 namespace {
@@ -65,7 +73,6 @@ namespace {
 constexpr int TQ = 64;              // pair rows per tile (block): the wgmma M
 constexpr int SLAB = 128;           // block columns per slab: the wgmma N
 constexpr int DK = 64;              // d per ring stage: one 128-byte bf16 row
-constexpr int STAGES = 3;           // ring depth
 constexpr int MIN_BLOCKS = 3;       // windowed variants: blocks per SM, for the registers
 constexpr int GATHER_ROWS = 8;      // prologue: sorted pairs per warp
 constexpr int THREADS = 128 + 32;   // the consumer warpgroup, then the producer warp
@@ -73,9 +80,28 @@ constexpr int CHUNK = 64 * DK * 2;  // 8 KB: the tile's query chunk, or half a s
 // the query tile stays resident when d needs at most this many chunks
 // (d <= 128); otherwise each stage brings its chunk too
 constexpr int A_RES_KC = 2;
-constexpr int ROW_RMAX = 32;        // row mode: running winners, one per lane
-constexpr int STG = SLAB + 8;       // row mode: staging row stride (ints)
-constexpr int ROW_SMEM = TQ * STG + TQ * ROW_RMAX + TQ;  // row mode: ints
+constexpr int STG = SLAB;           // row mode: staging row stride (ints)
+// row mode's ints: the staged slab, the running lists of C entries, each
+// row's original pair
+constexpr int row_smem(int C) { return TQ * STG + TQ * C + TQ; }
+
+// Row mode stages column c of a row at this position of its staged row: a
+// 16-lane phase of the epilogue's int2 stores (rows g..g+3, four column
+// pairs each) lands in 32 distinct banks. An involution on [0, 128); the
+// merge takes the keys in any order.
+__device__ __forceinline__ int stg_pos(int row, int c) { return c ^ ((row & 3) << 3); }
+// the barriers' bytes (full and empty per stage, afull), so that row mode's
+// staged rows after them start on 16 bytes for their int4 reads
+constexpr int BARS = 64;
+
+// ring depth; row mode (W = 0, R the list's C entries) takes 2 stages at
+// C = 64 and 112 to keep two blocks per SM
+template <int W, int R>
+__host__ __device__ constexpr int stages() { return W == 0 && (R == 64 || R == 112) ? 2 : 3; }
+// blocks per SM the registers are capped for
+template <int W, int R>
+__host__ __device__ constexpr int min_blocks() { return W > 0 ? MIN_BLOCKS : R <= 112 ? 2 : 1; }
+static_assert((2 * 3 + 1) * 8 <= BARS, "barriers");
 
 // One ring stage: the tile's query chunk (unless resident), the slab's two
 // 64-column halves, then the slab's col_add and col_mul rows.
@@ -189,9 +215,10 @@ __global__ void __launch_bounds__(256) gather_queries(
 }
 
 // W > 0: top R per W-column window (W in {32, 64, 128}). W == 0: row mode,
-// the running top r_keep (<= 32) of the row, or every key when r_keep > 32.
+// the running top r_keep of the row in lists of C = R entries (r_keep <= R
+// <= ROW_RMAX), or every key of the row when r_keep > ROW_RMAX.
 template <int W, int R, bool AR>
-__global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_kernel(
+__global__ void __launch_bounds__(THREADS, min_blocks<W, R>()) block_topw_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
     const int* __restrict__ starts, const int* __restrict__ tile_start,
     const int* __restrict__ order, const float* __restrict__ row_add,
@@ -206,6 +233,7 @@ __global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_ke
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   using St = Stage<AR>;
+  constexpr int STAGES = stages<W, R>();
   // the ring, the resident query tile (AR), the barriers, row mode's rows
   unsigned char* ares = smem + STAGES * St::BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(ares + (AR ? n_kc * CHUNK : 0));
@@ -263,9 +291,11 @@ __global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_ke
   const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
   const int rl = warp * 16 + (lane >> 2);  // this thread's rows: rl, rl + 8
   const int pm = (1 << pos_bits) - 1;
-  int* stg = reinterpret_cast<int*>(afull + 1);  // [TQ][STG] keys of the slab (row mode)
-  int* run = stg + TQ * STG;                     // [TQ][ROW_RMAX] running winners
-  int* s_orig = run + TQ * ROW_RMAX;             // [TQ] original pair of each row
+  int* stg = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(full) + BARS);
+  // row mode: stg [TQ][STG] keys of the slab; run [TQ][R] running lists;
+  // s_orig [TQ] original pair of each row
+  int* run = stg + TQ * STG;
+  int* s_orig = run + TQ * R;
   const bool whole = r_keep > ROW_RMAX;
   const int n_rows = min(TQ, starts[c + 1] - row0);
   int orow[2];
@@ -282,8 +312,7 @@ __global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_ke
       const int r = warp * 16 + lane;
       s_orig[r] = r < n_rows ? order[row0 + r] : -1;
     }
-    for (int e = lane; e < 16 * ROW_RMAX; e += 32) run[warp * 16 * ROW_RMAX + e] = sentinel;
-    __syncwarp();
+    row_init<R>(run + warp * 16 * R, 16, sentinel, lane);
   }
   float acc[64];
 #pragma unroll
@@ -397,41 +426,39 @@ __global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_ke
             s = __fadd_rn(s, j ? ca.y : ca.x);
             kv[j] = col < Cmax ? (to_key(s) & ~pm) | ((col + j) & pm) : sentinel;
           }
-          *reinterpret_cast<int2*>(stg + (rl + 8 * h) * STG + 8 * i + 2 * quad) =
+          const int row = rl + 8 * h;
+          *reinterpret_cast<int2*>(stg + row * STG + stg_pos(row, 8 * i + 2 * quad)) =
               make_int2(kv[0], kv[1]);
         }
       }
       release(&empty[last], lane);  // syncs the warp: its staged rows are written
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = warp * 16 + rr;
-        if (r >= n_rows) break;
-        if (whole) {
+      if (whole) {
+        for (int rr = 0; rr < 16; ++rr) {
+          const int r = warp * 16 + rr;
+          if (r >= n_rows) break;
 #pragma unroll
           for (int e = 0; e < SLAB / 32; ++e) {
             const int col = col0 + e * 32 + lane;
             if (col < Cmax)
-              out[static_cast<size_t>(s_orig[r]) * Cmax + col] = stg[r * STG + e * 32 + lane];
+              out[static_cast<size_t>(s_orig[r]) * Cmax + col] =
+                  stg[r * STG + stg_pos(r, e * 32 + lane)];
           }
-          continue;
         }
-        // merge the slab into the running top r_keep; pass p's winner
-        // lands in lane p
-        int v[SLAB / 32 + 1];
+      } else {
+        // 2 * ROW_NR rows at a time, ROW_NR per half-warp (a row past
+        // n_rows merges into its own unused list)
+        for (int rr = 0; rr < 16 && warp * 16 + rr < n_rows; rr += 2 * ROW_NR) {
+          int* keys[ROW_NR];
+          int* lists[ROW_NR];
 #pragma unroll
-        for (int e = 0; e < SLAB / 32; ++e) v[e] = stg[r * STG + e * 32 + lane];
-        v[SLAB / 32] = run[r * ROW_RMAX + lane];
-        int mine = sentinel;
-        for (int p = 0; p < r_keep; ++p) {
-          int m = v[0];
-#pragma unroll
-          for (int e = 1; e <= SLAB / 32; ++e) m = max(m, v[e]);
-          m = __reduce_max_sync(0xFFFFFFFFu, m);
-#pragma unroll
-          for (int e = 0; e <= SLAB / 32; ++e)
-            if (v[e] == m) v[e] = sentinel;
-          if (lane == p) mine = m;
+          for (int q = 0; q < ROW_NR; ++q) {
+            const int r = warp * 16 + rr + 2 * q + (lane >> 4);
+            keys[q] = stg + r * STG;
+            lists[q] = run + r * R;
+          }
+          row_merge<R / 16>(keys, lists, r_keep, sentinel, col0 == 0,
+                            row_ins_max(R / 16, false), lane);
         }
-        run[r * ROW_RMAX + lane] = mine;
       }
     }
   }
@@ -442,8 +469,7 @@ __global__ void __launch_bounds__(THREADS, W > 0 ? MIN_BLOCKS : 1) block_topw_ke
       for (int rr = 0; rr < 16; ++rr) {
         const int r = warp * 16 + rr;
         if (r >= n_rows) break;
-        if (lane < r_keep)
-          out[static_cast<size_t>(s_orig[r]) * r_keep + lane] = run[r * ROW_RMAX + lane];
+        row_store(out + static_cast<size_t>(s_orig[r]) * r_keep, run + r * R, r_keep, lane);
       }
     }
   }
@@ -457,10 +483,9 @@ cudaError_t launch_ar(const CUtensorMap& map_a, const CUtensorMap& map_b, const 
                       const float* col_mul, const float* col_add, const float* win_add,
                       int* out, int K, int n_kc, int Cmax, int n_tiles, float scale,
                       int pos_bits, int sentinel, int r_keep, cudaStream_t stream) {
-  const size_t smem = 1024 + static_cast<size_t>(STAGES) * Stage<AR>::BYTES +
-                      (AR ? static_cast<size_t>(n_kc) * CHUNK : 0) +
-                      (2 * STAGES + 1) * sizeof(uint64_t) +
-                      (W == 0 ? ROW_SMEM * sizeof(int) : 0);
+  const size_t smem = 1024 + static_cast<size_t>(stages<W, R>()) * Stage<AR>::BYTES +
+                      (AR ? static_cast<size_t>(n_kc) * CHUNK : 0) + BARS +
+                      (W == 0 ? row_smem(R) * sizeof(int) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       block_topw_kernel<W, R, AR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -508,8 +533,9 @@ const char* ivf_cuda_error_string(int err) {
 // scratch of M x d_pad bf16 (d_pad = d rounded up to 64). tile_start[K+1]
 // counts each cluster's tiles of TQ sorted pairs; n_tiles, the grid, is an
 // upper bound on their count.
-// W = 0 is row mode: the top R <= 32 of the whole row, or every key of the
-// row (an out of [B*P, Cmax]) when R > 32. The library links its own CUDA runtime,
+// W = 0 is row mode: the top R <= ROW_RMAX (128) of the whole row, or every
+// key of the row (an out of [B*P, Cmax]) when R > 128; row mode takes the
+// KEY_MIN sentinel (below every key). The library links its own CUDA runtime,
 // whose current device is set here (csrc/device_guard.cuh) and restored on return.
 int ivf_block_topw(const float* q, const float* cents, const int* starts,
                    const int* tile_start, const int* order, const void* blocks, void* qa,
@@ -550,10 +576,19 @@ int ivf_block_topw(const float* q, const float* cents, const int* starts,
   QV_CASE(128, 2)
   QV_CASE(128, 4)
 #undef QV_CASE
-  if (W == 0 && R >= 1 && R <= Cmax)
-    return (int)launch<0, ROW_RMAX>(map_a, map_b, starts, tile_start, order, row_add,
-                                    col_mul, col_add, win_add, out, K, n_kc, Cmax, n_tiles,
-                                    scale, pos_bits, sentinel, R, s);
+#define QV_ROW(CC)                                                                          \
+  return (int)launch<0, CC>(map_a, map_b, starts, tile_start, order, row_add, col_mul,      \
+                            col_add, win_add, out, K, n_kc, Cmax, n_tiles, scale, pos_bits, \
+                            sentinel, R, s);
+  if (W == 0 && R >= 1 && R <= Cmax) {
+    // lists of 32, 64, 112 or 128 entries; above ROW_RMAX the whole row
+    // (no list)
+    if (R > ROW_RMAX || row_epl(R) == 2) { QV_ROW(32) }
+    if (row_epl(R) == 4) { QV_ROW(64) }
+    if (row_epl(R) == 7) { QV_ROW(112) }
+    QV_ROW(128)
+  }
+#undef QV_ROW
   return (int)cudaErrorInvalidValue;
 }
 

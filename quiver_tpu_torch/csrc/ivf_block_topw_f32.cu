@@ -16,8 +16,9 @@
 // epilogue s = (scale * dot + row_add[pair]) * col_mul[c, j] + col_add[c, j],
 // packed (score | column) int32 keys, the top R of every W-column window in
 // lane r*S + w of the pair's original row (S = Cmax / W), re-keyed with
-// win_add; W = 0 is row mode (the running top-R for R <= 32, every key of
-// the row above that for the wrapper's top-R).
+// win_add; W = 0 is row mode: the running top R <= 128 kept in the kernel
+// (csrc/row_topr.cuh, shared with the bf16 kernel), or, for R > 128 (still
+// to do), every key of the row for the wrapper's top-R.
 //
 // Products in 3xTF32. TF32 keeps 10 of f32's 23 mantissa bits, so one TF32
 // product strays ~2^-11 relative from the reference's true f32, thousands
@@ -77,9 +78,15 @@
 // thread keeps the top R of its share of each window, xor shuffles merge
 // the threads of a window, and they store the winners straight to the
 // pair's row. Row mode stages each slab's keys in shared memory per warp
-// (a warp's 16 rows are its own) and merges them into a running top-R, or
-// copies them out whole. Every output row belongs to exactly one block: no
-// atomics.
+// (a warp's 16 rows are its own), releases the ring stage, and merges them
+// into each row's running top-R in shared memory behind a threshold filter
+// (csrc/row_topr.cuh); for R > 128 it copies them out whole. The merge is
+// bound by the latency of its shuffle chains, so blocks per SM set its
+// pace. On a 2-stage ring the lists leave room for two blocks per SM at
+// R <= 32 with the resident query tile (32 KB at d <= 128), and at R <= 64
+// and R <= 112 with the query chunk brought by each stage instead; R <= 128
+// (a 32 KB list) runs one block per SM. Every output row belongs to exactly
+// one block: no atomics.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -87,6 +94,7 @@
 #include <stdint.h>
 
 #include "tma.cuh"
+#include "row_topr.cuh"
 #include "device_guard.cuh"
 
 namespace {
@@ -95,7 +103,7 @@ constexpr int TQ = 64;                  // sorted pairs per tile (block)
 constexpr int SLAB = 128;               // block columns per slab
 constexpr int DK = 32;                  // d per ring stage: one 128-byte f32 row
 // ring depth: 3 stages for the windowed variants; row mode's staged rows
-// (43 KB) leave room for 2, so that two blocks still share an SM
+// and lists (41-66 KB) leave room for 2
 template <int W>
 __host__ __device__ constexpr int stages() { return W > 0 ? 3 : 2; }
 constexpr int MIN_BLOCKS = 2;           // blocks per SM, for the registers
@@ -106,9 +114,21 @@ constexpr int A_CHUNK = TQ * DK * 4;    // 8 KB: the tile's query chunk
 // the query tile stays resident when d needs at most this many chunks
 // (d <= 128); otherwise each stage brings its chunk too
 constexpr int A_RES_KC = 4;
-constexpr int ROW_RMAX = 32;            // row mode: running winners, one per lane
-constexpr int STG = SLAB + 8;           // row mode: staging row stride (ints)
-constexpr int ROW_SMEM = TQ * STG + TQ * ROW_RMAX + TQ;  // row mode: ints
+constexpr int STG = SLAB;               // row mode: staging row stride (ints)
+// row mode's ints: the staged slab, the running lists of C entries, each
+// row's original pair
+constexpr int row_smem(int C) { return TQ * STG + TQ * C + TQ; }
+// row mode's lists of C entries with the query tile resident: at C = 64 and
+// 112 it streams with the slab instead, to keep two blocks per SM
+constexpr bool row_resident(int C) { return C != 64 && C != 112; }
+
+// Row mode stages column c of a row at this position of its staged row: a
+// quarter-warp of the epilogue's int4 stores (rows g, g+1, the four
+// threads' 32-column spans) lands in 32 distinct banks. An involution on
+// [0, 128); the merge takes the keys in any order.
+__device__ __forceinline__ int stg_pos(int row, int c) {
+  return c ^ (((c >> 5) | ((row & 1) << 2)) << 2);
+}
 // the barriers' bytes (full and empty per stage, afull), so that row mode's
 // staged rows after them start on 16 bytes for their int4 stores
 constexpr int BARS = 64;
@@ -211,7 +231,8 @@ __global__ void __launch_bounds__(256) gather_queries_f32(
 }
 
 // W > 0: top R per W-column window (W in {32, 64, 128}). W == 0: row mode,
-// the running top r_keep (<= 32) of the row, or every key when r_keep > 32.
+// the running top r_keep of the row in lists of C = R entries (r_keep <= R
+// <= ROW_RMAX), or every key of the row when r_keep > ROW_RMAX.
 // AR: the query tile resident. SPLIT: the query is f32 (three products);
 // otherwise bf16-rounded, exact in TF32 (two).
 template <int W, int R, bool AR, bool SPLIT>
@@ -288,9 +309,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) block_topw_f32_kernel(
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, quad = lane & 3;
   const int rl = warp * 16 + g;  // this thread's rows: rl, rl + 8
   const int pm = (1 << pos_bits) - 1;
-  int* stg = reinterpret_cast<int*>(full) + BARS / 4;  // [TQ][STG] keys of the slab (row mode)
-  int* run = stg + TQ * STG;                     // [TQ][ROW_RMAX] running winners
-  int* s_orig = run + TQ * ROW_RMAX;             // [TQ] original pair of each row
+  // row mode: stg [TQ][STG] keys of the slab; run [TQ][R] running lists;
+  // s_orig [TQ] original pair of each row
+  int* stg = reinterpret_cast<int*>(full) + BARS / 4;
+  int* run = stg + TQ * STG;
+  int* s_orig = run + TQ * R;
   const bool whole = r_keep > ROW_RMAX;
   const int n_rows = min(TQ, starts[c + 1] - row0);
   int orow[2];
@@ -307,8 +330,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) block_topw_f32_kernel(
       const int r = warp * 16 + lane;
       s_orig[r] = r < n_rows ? order[row0 + r] : -1;
     }
-    for (int e = lane; e < 16 * ROW_RMAX; e += 32) run[warp * 16 * ROW_RMAX + e] = sentinel;
-    __syncwarp();
+    row_init<R>(run + warp * 16 * R, 16, sentinel, lane);
   }
   // Shared-memory offsets of this thread's fragments in a 32-deep chunk
   // (128-byte swizzle: 16-byte chunk j of row r sits at chunk j ^ (r % 8)).
@@ -463,45 +485,39 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) block_topw_f32_kernel(
             s = __fadd_rn(s, cav[e]);
             kv[e] = col < Cmax ? (to_key(s) & ~pm) | ((col + e) & pm) : sentinel;
           }
-          *reinterpret_cast<int4*>(stg + (rl + 8 * h) * STG + 32 * quad + 4 * m4) =
+          const int row = rl + 8 * h;
+          *reinterpret_cast<int4*>(stg + row * STG + stg_pos(row, 32 * quad + 4 * m4)) =
               make_int4(kv[0], kv[1], kv[2], kv[3]);
         }
       }
       release(&empty[last], lane);  // syncs the warp: its staged rows are written
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = warp * 16 + rr;
-        if (r >= n_rows) break;
-        if (whole) {
+      if (whole) {
+        for (int rr = 0; rr < 16; ++rr) {
+          const int r = warp * 16 + rr;
+          if (r >= n_rows) break;
 #pragma unroll
           for (int e = 0; e < SLAB / 32; ++e) {
             const int col = col0 + e * 32 + lane;
             if (col < Cmax)
-              out[static_cast<size_t>(s_orig[r]) * Cmax + col] = stg[r * STG + e * 32 + lane];
+              out[static_cast<size_t>(s_orig[r]) * Cmax + col] =
+                  stg[r * STG + stg_pos(r, e * 32 + lane)];
           }
-          continue;
         }
-        // merge the slab into the running top r_keep (lane p holds the
-        // p-th best): only keys above the r_keep-th best enter, the best
-        // first, each inserted with one shift of the lanes below it
-        int mine = run[r * ROW_RMAX + lane];
-        int thr = __shfl_sync(0xFFFFFFFFu, mine, r_keep - 1);
-        int v[SLAB / 32];
+      } else {
+        // 2 * ROW_NR rows at a time, ROW_NR per half-warp (a row past
+        // n_rows merges into its own unused list)
+        for (int rr = 0; rr < 16 && warp * 16 + rr < n_rows; rr += 2 * ROW_NR) {
+          int* keys[ROW_NR];
+          int* lists[ROW_NR];
 #pragma unroll
-        for (int e = 0; e < SLAB / 32; ++e) v[e] = stg[r * STG + e * 32 + lane];
-        for (;;) {
-          int m = sentinel;
-#pragma unroll
-          for (int e = 0; e < SLAB / 32; ++e) m = v[e] > thr ? max(m, v[e]) : m;
-          m = __reduce_max_sync(0xFFFFFFFFu, m);
-          if (m == sentinel) break;  // no key of the slab is above thr
-#pragma unroll
-          for (int e = 0; e < SLAB / 32; ++e)
-            if (v[e] == m) v[e] = sentinel;
-          const int up = __shfl_up_sync(0xFFFFFFFFu, mine, 1);
-          mine = mine > m ? mine : (lane == 0 || up > m ? m : up);
-          thr = __shfl_sync(0xFFFFFFFFu, mine, r_keep - 1);
+          for (int q = 0; q < ROW_NR; ++q) {
+            const int r = warp * 16 + rr + 2 * q + (lane >> 4);
+            keys[q] = stg + r * STG;
+            lists[q] = run + r * R;
+          }
+          row_merge<R / 16>(keys, lists, r_keep, sentinel, col0 == 0,
+                            row_ins_max(R / 16, true), lane);
         }
-        run[r * ROW_RMAX + lane] = mine;
       }
     }
   }
@@ -512,8 +528,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) block_topw_f32_kernel(
       for (int rr = 0; rr < 16; ++rr) {
         const int r = warp * 16 + rr;
         if (r >= n_rows) break;
-        if (lane < r_keep)
-          out[static_cast<size_t>(s_orig[r]) * r_keep + lane] = run[r * ROW_RMAX + lane];
+        row_store(out + static_cast<size_t>(s_orig[r]) * r_keep, run + r * R, r_keep, lane);
       }
     }
   }
@@ -529,7 +544,7 @@ cudaError_t launch_ar(const CUtensorMap& map_a, const CUtensorMap& map_b, const 
                       int pos_bits, int sentinel, int r_keep, cudaStream_t stream) {
   const size_t smem = 1024 + static_cast<size_t>(stages<W>()) * Stage<AR>::BYTES +
                       (AR ? static_cast<size_t>(n_kc) * A_CHUNK : 0) +
-                      BARS + (W == 0 ? ROW_SMEM * sizeof(int) : 0);
+                      BARS + (W == 0 ? row_smem(R) * sizeof(int) : 0);
   cudaError_t err = cudaFuncSetAttribute(block_topw_f32_kernel<W, R, AR, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -539,8 +554,9 @@ cudaError_t launch_ar(const CUtensorMap& map_a, const CUtensorMap& map_b, const 
   return cudaGetLastError();
 }
 
-// the query tile resident when d needs at most A_RES_KC chunks; the f32
-// query split unless it was rounded to bf16
+// the query tile resident when d needs at most A_RES_KC chunks (and row
+// mode's lists leave room: row_resident); the f32 query split unless it was
+// rounded to bf16
 template <int W, int R>
 cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const int* starts,
                    const int* tile_start, const int* order, const float* row_add,
@@ -551,8 +567,10 @@ cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const int
   return launch_ar<W, R, AR, SPLIT>(map_a, map_b, starts, tile_start, order, row_add,      \
                                     col_mul, col_add, win_add, out, K, n_kc, Cmax, n_tiles, \
                                     scale, pos_bits, sentinel, r_keep, stream);
-  if (n_kc <= A_RES_KC) {
-    if (round_query) { QV_AR(true, false) } else { QV_AR(true, true) }
+  if constexpr (W > 0 || row_resident(R)) {
+    if (n_kc <= A_RES_KC) {
+      if (round_query) { QV_AR(true, false) } else { QV_AR(true, true) }
+    }
   }
   if (round_query) { QV_AR(false, false) } else { QV_AR(false, true) }
 #undef QV_AR
@@ -577,8 +595,9 @@ int ivf_block_topw_f32_row_max() { return ROW_RMAX; }
 // multiple of 16 bytes), 16-byte aligned, as are col_add and col_mul. qa is
 // scratch of M x d_pad f32 (d_pad = d rounded up to 32). tile_start[K+1]
 // counts each cluster's tiles of TQ sorted pairs; n_tiles, the grid, is an
-// upper bound on their count. W = 0 is row mode: the top R <= 32 of the
-// whole row, or every key of the row (an out of [B*P, Cmax]) when R > 32. The library
+// upper bound on their count. W = 0 is row mode: the top R <= ROW_RMAX
+// (128) of the whole row, or every key of the row (an out of [B*P, Cmax])
+// when R > 128; row mode takes the KEY_MIN sentinel. The library
 // links its own CUDA runtime, whose current device is set here
 // (csrc/device_guard.cuh) and restored on return.
 int ivf_block_topw_f32(const float* q, const float* cents, const int* starts,
@@ -621,10 +640,19 @@ int ivf_block_topw_f32(const float* q, const float* cents, const int* starts,
   QV_CASE(128, 2)
   QV_CASE(128, 4)
 #undef QV_CASE
-  if (W == 0 && R >= 1 && R <= Cmax)
-    return (int)launch<0, ROW_RMAX>(map_a, map_b, starts, tile_start, order, row_add,
-                                    col_mul, col_add, win_add, out, K, n_kc, Cmax, n_tiles,
-                                    scale, round_query, pos_bits, sentinel, R, s);
+#define QV_ROW(CC)                                                                          \
+  return (int)launch<0, CC>(map_a, map_b, starts, tile_start, order, row_add, col_mul,      \
+                            col_add, win_add, out, K, n_kc, Cmax, n_tiles, scale,           \
+                            round_query, pos_bits, sentinel, R, s);
+  if (W == 0 && R >= 1 && R <= Cmax) {
+    // lists of 32, 64, 112 or 128 entries; above ROW_RMAX the whole row
+    // (no list)
+    if (R > ROW_RMAX || row_epl(R) == 2) { QV_ROW(32) }
+    if (row_epl(R) == 4) { QV_ROW(64) }
+    if (row_epl(R) == 7) { QV_ROW(112) }
+    QV_ROW(128)
+  }
+#undef QV_ROW
   return (int)cudaErrorInvalidValue;
 }
 

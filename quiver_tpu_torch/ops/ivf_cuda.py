@@ -65,16 +65,27 @@ ROW_MODE = "row"
 #: launch-count key prefix of the f32-block kernel
 F32 = "f32"
 
-#: Launches of block_topw in this process by (W, R), or ROW_MODE for the
-#: row mode, of the bf16-block kernel, and by (F32, (W, R)) or (F32,
-#: ROW_MODE) of the f32-block kernel; counted where a kernel is launched and
-#: nowhere else (the CPU twin does not count).
-launch_counts = {k: 0 for v in (*CUDA_VARIANTS, ROW_MODE) for k in (v, (F32, v))}
+
+def row_key(R: int) -> tuple:
+    """Launch-count key of row mode at R winners: ``(ROW_MODE, R)``."""
+    return (ROW_MODE, int(R))
+
+
+#: Launches of block_topw in this process by (W, R), or by ``row_key(R)``
+#: for row mode, of the bf16-block kernel, and by (F32, (W, R)) or (F32,
+#: row_key(R)) of the f32-block kernel; counted where a kernel is launched
+#: and nowhere else (the CPU twin does not count). Row-mode keys appear at
+#: their first launch.
+launch_counts = {k: 0 for v in CUDA_VARIANTS for k in (v, (F32, v))}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _count(key) -> None:
+    launch_counts[key] = launch_counts.get(key, 0) + 1
 
 
 # ------------------------------------------------------------------ keys
@@ -256,9 +267,12 @@ def block_topw(
         bits replaced by the block column (W <= 2**pos_bits); sentinel:
         the key a removed winner is replaced by.
 
-    On CUDA, row mode (W = Cmax outside ``CUDA_VARIANTS``) keeps a running
-    top-R in the kernel for R <= 32; above that the kernel writes every
-    packed key of each pair's row (i32[B*P, Cmax], 671 MB at B=65536, P=2,
+    On CUDA, row mode (W = Cmax outside ``CUDA_VARIANTS``) takes the
+    ``KEY_MIN`` sentinel and keeps each row's running top R in the kernel
+    for R <= 128 (the library's row max: a threshold filter, then a merge
+    for the keys above it, ``csrc/row_topr.cuh``), writing only the
+    i32[B*P, R] winners. Above 128 (still to do) the kernel writes every
+    packed key of each pair's row (i32[B*P, Cmax], 1.0 GB at B=65536, P=3,
     Cmax=1280) and ``torch.topk`` takes the R best, as the reference takes
     ``lax.top_k`` outside any kernel.
     """
@@ -305,14 +319,19 @@ def block_topw(
     return _launch_cuda(q, centroids, starts, order, blocks_t, **kw)
 
 
-def _variant(lib_row_max, W, R, Cmax, win_add):
+def _variant(lib_row_max, W, R, Cmax, win_add, sentinel):
     """(launch-count variant, W argument of the C entry, whether row mode
-    writes every key of the row) of one CUDA launch."""
+    writes every key of the row) of one CUDA launch. Row mode keeps the
+    running top R in the kernel up to ``lib_row_max`` and writes the whole
+    row above it: chosen by R alone, never on a failure."""
     if (W, R) in CUDA_VARIANTS:
         return (W, R), W, False
     if W == Cmax and win_add is None:
-        # row mode: the running top-R, or every key of the row above the max
-        return ROW_MODE, 0, R > lib_row_max
+        if int(sentinel) != KEY_MIN:
+            # the running top-R admits only keys above its R-th best, which
+            # equals the reference's passes when the sentinel is below every key
+            raise ValueError("block_topw: row mode takes the KEY_MIN sentinel on CUDA")
+        return row_key(R), 0, R > lib_row_max
     raise ValueError(
         f"block_topw: no CUDA variant for W={W}, R={R}"
         f"{'' if win_add is None else ' with win_add'} (built: {CUDA_VARIANTS}, "
@@ -356,7 +375,8 @@ def _launch_cuda(
             # TMA and bulk copies read from 16-byte aligned addresses
             raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
     lib = load_library()
-    variant, w_arg, whole = _variant(lib.ivf_block_topw_row_max(), W, R, Cmax, win_add)
+    variant, w_arg, whole = _variant(lib.ivf_block_topw_row_max(), W, R, Cmax, win_add,
+                                     sentinel)
     BP, M = B * P, order.shape[0]
     out = _out_rows(BP, M, Cmax if whole else (Cmax // W) * R, sentinel, q.device)
     if M == 0:
@@ -379,7 +399,7 @@ def _launch_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "block_topw", lib)
-    launch_counts[variant] += 1
+    _count(variant)
     if whole:
         out = torch.topk(out, R, dim=1).values  # keys are distinct in a row
     return out
@@ -403,11 +423,8 @@ def _launch_cuda_f32(
             # bulk copies read from 16-byte aligned addresses
             raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
     lib = load_library()
-    variant, w_arg, whole = _variant(lib.ivf_block_topw_f32_row_max(), W, R, Cmax, win_add)
-    if variant == ROW_MODE and int(sentinel) != KEY_MIN:
-        # the running top-R admits only keys above its R-th best, which
-        # equals the reference's passes when the sentinel is below every key
-        raise ValueError("block_topw: f32 row mode takes the KEY_MIN sentinel on CUDA")
+    variant, w_arg, whole = _variant(lib.ivf_block_topw_f32_row_max(), W, R, Cmax, win_add,
+                                     sentinel)
     BP, M = B * P, order.shape[0]
     out = _out_rows(BP, M, Cmax if whole else (Cmax // W) * R, sentinel, q.device)
     if M == 0:
@@ -430,7 +447,7 @@ def _launch_cuda_f32(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "block_topw", lib)
-    launch_counts[(F32, variant)] += 1
+    _count((F32, variant))
     if whole:
         out = torch.topk(out, R, dim=1).values  # keys are distinct in a row
     return out

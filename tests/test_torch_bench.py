@@ -122,6 +122,7 @@ def test_churn_runs_small_on_cpu():
     "quiver_tpu_torch.benches.churn",
     "quiver_tpu_torch.benches.topw_f32_ab",
     "quiver_tpu_torch.benches.sharded_ab",
+    "quiver_tpu_torch.benches.row_topr_ab",
     "quiver_tpu_torch.benches.bench_api",
     "quiver_tpu_torch.benches.bench_filtered",
     "quiver_tpu_torch.benches.bench_persistence",

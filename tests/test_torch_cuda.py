@@ -56,10 +56,10 @@ def test_block_topw_kernel_matches_twin(cuda, variant, W, R, pos_bits, metric, P
         torch, cuda, B=300, P=P, K=37, Cmax=384, d=d, metric=metric,
         variant=variant, seed=7,
     )
-    count_key = ivf_cuda.ROW_MODE if W == 0 else (W, R)
+    count_key = ivf_cuda.row_key(R) if W == 0 else (W, R)
     W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, 384)
     wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
-    before = ivf_cuda.launch_counts[count_key]
+    before = ivf_cuda.launch_counts.get(count_key, 0)
     got = ivf_cuda.block_topw(*args, **wkw)
     assert ivf_cuda.launch_counts[count_key] == before + 1
     torch.cuda.synchronize()
@@ -78,8 +78,9 @@ def _f32_cases():
     {33, 100, 128, 768}; then the edges of its tiling (``edges``: clusters
     of EDGE_COUNTS pairs, P=1) at d in {8, 100, 129} (not a multiple of the
     32-deep stage) and 768, with the windowed variants at Cmax=1280 (ten
-    slabs) and row mode at Cmax=132 (a slab and a partial 32-column box)
-    and Cmax=8 (less than one box; R=8 keeps the row)."""
+    slabs) and row mode at Cmax=132 (a slab and a partial 32-column box;
+    R=160 becomes R = Cmax = 132, above the kernel's list) and Cmax=8 (less
+    than one box; R=8 keeps the row)."""
     cases = []
     for v, w, r, pb, ms in chip_smoke.VARIANTS:
         for m in ms:
@@ -87,7 +88,7 @@ def _f32_cases():
             for d in (8, 100, 129, 768):
                 cases.append((v, w, r, pb, m, 1, d, 1280, True))
                 if w == 0:
-                    cases.append((v, w, r, pb, m, 1, d, 132, True))
+                    cases.append((v, w, min(r, 132), pb, m, 1, d, 132, True))
                     if r == 16:
                         cases.append((v, w, 8, pb, m, 1, d, 8, True))
     return cases
@@ -112,12 +113,12 @@ def test_block_topw_f32_kernel_matches_twin(cuda, variant, W, R, pos_bits, metri
         args = (*args[:2], starts, order.to(cuda, torch.int32), args[4])
     assert args[4].dtype == torch.float32
     assert kw.get("round_query", True) == (variant == "fused")
-    count_key = (ivf_cuda.F32, ivf_cuda.ROW_MODE if W == 0 else (W, R))
+    count_key = (ivf_cuda.F32, ivf_cuda.row_key(R) if W == 0 else (W, R))
     W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, Cmax)
     wkw = dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
     before = dict(ivf_cuda.launch_counts)
     got = ivf_cuda.block_topw(*args, **wkw)
-    assert ivf_cuda.launch_counts[count_key] == before[count_key] + 1
+    assert ivf_cuda.launch_counts[count_key] == before.get(count_key, 0) + 1
     assert sum(ivf_cuda.launch_counts.values()) == sum(before.values()) + 1
     torch.cuda.synchronize()
     chip_smoke.check_call(torch, args, wkw, got)
@@ -154,7 +155,7 @@ def test_block_topw_truncated_pairs_kernel_matches_twin(cuda, variant, W, R, pos
         torch, cuda, B=300, P=3, K=37, Cmax=384, d=100, metric=metric,
         variant=variant, seed=13, dtype=dt,
     )
-    count_key = ivf_cuda.ROW_MODE if W == 0 else (W, R)
+    count_key = ivf_cuda.row_key(R) if W == 0 else (W, R)
     if dt == torch.float32:
         count_key = (ivf_cuda.F32, count_key)
     W, pos_bits, sentinel = chip_smoke.variant_args(variant, W, R, pos_bits, 384)
@@ -163,7 +164,7 @@ def test_block_topw_truncated_pairs_kernel_matches_twin(cuda, variant, W, R, pos
     M = sargs[3].shape[0]
     assert 0 < M < 300 * 3
     assert sargs[4].data_ptr() == args[4].data_ptr() + 12 * 100 * 384 * sargs[4].element_size()
-    before = ivf_cuda.launch_counts[count_key]
+    before = ivf_cuda.launch_counts.get(count_key, 0)
     got = ivf_cuda.block_topw(*sargs, **skw)
     assert ivf_cuda.launch_counts[count_key] == before + 1
     torch.cuda.synchronize()
@@ -178,8 +179,7 @@ def test_block_topw_truncated_pairs_kernel_matches_twin(cuda, variant, W, R, pos
 def test_per_pair_row_mode_on_cuda_matches_cpu(cuda, k):
     """Cmax=64 leaves 2 windows < k: ivf_query takes the per-pair top-R
     branch, on the card through block_topw's row mode (R = min(Cmax,
-    max(16, k)): a running top-R in the kernel up to 32, every key of the
-    row and torch.topk above)."""
+    max(16, k)) <= 64: the running top-R kept in the kernel)."""
     from quiver_tpu_torch.convert import ivf_arrays_from_numpy
     from quiver_tpu_torch.ops.ivf_kernels import ivf_query
 
@@ -195,7 +195,7 @@ def test_per_pair_row_mode_on_cuda_matches_cpu(cuda, k):
         tops = ivf_arrays_from_numpy(*ops, device=dev)
         out.append(ivf_query(torch.from_numpy(q).to(dev), *tops, metric="euclidean",
                              k=k, n_probe=4, rescore=True))
-    assert ivf_cuda.launch_counts[ivf_cuda.ROW_MODE] > 0
+    assert ivf_cuda.launch_counts[ivf_cuda.row_key(min(64, max(16, k)))] > 0
     np.testing.assert_allclose(out[1][0].cpu().numpy(), out[0][0].numpy(), rtol=1e-4, atol=1e-4)
     assert np.mean(out[1][1].cpu().numpy() == out[0][1].numpy()) >= 0.98
 
@@ -203,7 +203,7 @@ def test_per_pair_row_mode_on_cuda_matches_cpu(cuda, k):
 @pytest.mark.parametrize("k", [10, 100])
 def test_per_pair_row_mode_f32_on_cuda_matches_cpu(cuda, k):
     """The per-pair branch over f32 blocks (row mode of the f32 kernel on the
-    card: the running top-R at k=10, every key of the row at k=100)."""
+    card: the running top-R, R=16 at k=10 and R = Cmax = 64 at k=100)."""
     from quiver_tpu_torch.convert import ivf_arrays_from_numpy
     from quiver_tpu_torch.ops.ivf_kernels import ivf_query
 
@@ -215,8 +215,8 @@ def test_per_pair_row_mode_f32_on_cuda_matches_cpu(cuda, k):
            rng.normal(size=(K * Cmax, d)))
     q = rng.normal(size=(16, d)).astype(np.float32)
     out = []
-    key = (ivf_cuda.F32, ivf_cuda.ROW_MODE)
-    before = ivf_cuda.launch_counts[key]
+    key = (ivf_cuda.F32, ivf_cuda.row_key(min(64, max(16, k))))
+    before = ivf_cuda.launch_counts.get(key, 0)
     for dev in ("cpu", cuda):
         tops = ivf_arrays_from_numpy(*ops, device=dev, blocks_dtype=torch.float32)
         out.append(ivf_query(torch.from_numpy(q).to(dev), *tops, metric="euclidean",
@@ -224,6 +224,123 @@ def test_per_pair_row_mode_f32_on_cuda_matches_cpu(cuda, k):
     assert ivf_cuda.launch_counts[key] == before + 1
     np.testing.assert_allclose(out[1][0].cpu().numpy(), out[0][0].numpy(), rtol=1e-4, atol=1e-4)
     assert np.mean(out[1][1].cpu().numpy() == out[0][1].numpy()) >= 0.98
+
+
+#: row mode's R bands: the kernels' lists of 32 (R <= 32), 64, 112 and 128
+#: entries and their edges, then the whole row above 128
+ROW_RS = (16, 32, 33, 64, 100, 112, 113, 128, 129)
+
+
+def _row_call(cuda, dtype, *, R, Cmax=384, d=100, B=300, P=3, K=37, seed=17):
+    """Operands of one row-mode call (kernel_inputs' L2 epilogue) and its
+    keywords at W = Cmax."""
+    args, kw = chip_smoke.kernel_inputs(
+        torch, cuda, B=B, P=P, K=K, Cmax=Cmax, d=d, metric="euclidean", variant="row",
+        seed=seed, dtype=getattr(torch, dtype))
+    W, pos_bits, sentinel = chip_smoke.variant_args("row", 0, R, 0, Cmax)
+    return args, dict(kw, W=W, R=R, pos_bits=pos_bits, sentinel=sentinel)
+
+
+@pytest.mark.parametrize("d", [100, 768])
+@pytest.mark.parametrize("R", ROW_RS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_mode_r_bands_match_twin(cuda, dtype, R, d):
+    """Row mode at each band of R against block_topw_reference: the
+    running top-R in the kernel up to 128 (lists of 32, 64, 112 and 128
+    entries and their edges), the whole row and torch.topk at 129; the keys
+    of each row in descending order, one launch counted under row_key(R)."""
+    args, wkw = _row_call(cuda, dtype, R=R, d=d)
+    key = ivf_cuda.row_key(R) if dtype == "bfloat16" else (ivf_cuda.F32, ivf_cuda.row_key(R))
+    before = ivf_cuda.launch_counts.get(key, 0)
+    got = ivf_cuda.block_topw(*args, **wkw)
+    assert ivf_cuda.launch_counts[key] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (300 * 3, R)
+    assert bool((got[:, 1:] < got[:, :-1]).all())  # distinct keys, descending
+    chip_smoke.check_call(torch, args, wkw, got)
+
+
+@pytest.mark.parametrize("R", ROW_RS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_mode_truncated_pairs_match_twin(cuda, dtype, R):
+    """A shard's truncated pair list in row mode: the rows no sorted pair
+    reaches hold the sentinel in every lane, the others the plain
+    version's keys."""
+    args, wkw = _row_call(cuda, dtype, R=R, seed=19)
+    sargs, skw = _shard_of(torch, args, wkw, 12, 16)
+    got = ivf_cuda.block_topw(*sargs, **skw)
+    torch.cuda.synchronize()
+    chip_smoke.check_call(torch, sargs, skw, got)
+    hit = torch.zeros(300 * 3, dtype=torch.bool, device=cuda)
+    hit[sargs[3].long()] = True
+    assert bool((got[~hit] == ivf_cuda.KEY_MIN).all())
+
+
+@pytest.mark.parametrize("R", [8, 16, 128, 160])
+@pytest.mark.parametrize("dtype,Cmax", [("bfloat16", 8), ("bfloat16", 136), ("float32", 8),
+                                        ("float32", 132)])
+def test_row_mode_cmax_edges_match_twin(cuda, dtype, Cmax, R):
+    """Row mode at the Cmax edges: one slab of 8 columns, and a slab and a
+    partial one (136 for bf16 blocks, whose rows need Cmax % 8 == 0; 132
+    for f32 ones); R past Cmax becomes R = Cmax (above 128: the whole
+    row)."""
+    R = min(R, Cmax)
+    args, wkw = _row_call(cuda, dtype, R=R, Cmax=Cmax)
+    got = ivf_cuda.block_topw(*args, **wkw)
+    torch.cuda.synchronize()
+    chip_smoke.check_call(torch, args, wkw, got)
+
+
+@pytest.mark.parametrize("R", [16, 100, 128, 160])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_mode_allocates_no_whole_row(cuda, dtype, R):
+    """Up to R=128 a row-mode call allocates no i32[B*P, Cmax]: its peak of
+    allocated card bytes stays below that tensor's size. Above 128 the
+    kernel writes the whole row, and the same measure sees it."""
+    B, P, Cmax = 4096, 3, 1280
+    args, wkw = _row_call(cuda, dtype, R=R, Cmax=Cmax, d=128, B=B, P=P, K=256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    got = ivf_cuda.block_topw(*args, **wkw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    whole = B * P * Cmax * 4
+    assert got.shape == (B * P, R)
+    assert (peak >= whole) == (R > 128), (peak, whole)
+
+
+@pytest.mark.parametrize("k", [10, 48, 100, 128, 160])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_per_pair_branch_large_k_on_cuda_matches_cpu(cuda, dtype, k):
+    """ivf_query's per-pair branch at Cmax=256 (8 windows < k) on the card
+    against the CPU copy of the same engine state: R = min(Cmax, max(16,
+    k)) spans the kernel's list bands (16, 48, 100, 128) and the whole row
+    (160). Distances agree (rescored, f32) and ids agree up to ties."""
+    from quiver_tpu_torch.convert import ivf_arrays_from_numpy
+    from quiver_tpu_torch.ops.ivf_kernels import ivf_query
+
+    rng = np.random.default_rng(3)
+    K, Cmax, d = 16, 256, 32
+    ops = (rng.normal(size=(K, d)), rng.random(K), 0.3 * rng.normal(size=(K, d, Cmax)),
+           rng.permutation(K * Cmax).reshape(K, Cmax), rng.random((K, Cmax)),
+           rng.random((K, Cmax)), rng.random((K, Cmax)) > 0.05,
+           rng.normal(size=(K * Cmax, d)))
+    q = rng.normal(size=(16, d)).astype(np.float32)
+    out = []
+    key = ivf_cuda.row_key(min(Cmax, max(16, k)))
+    key = key if dtype == "bfloat16" else (ivf_cuda.F32, key)
+    before = ivf_cuda.launch_counts.get(key, 0)
+    for dev in ("cpu", cuda):
+        tops = ivf_arrays_from_numpy(*ops, device=dev, blocks_dtype=getattr(torch, dtype))
+        out.append(ivf_query(torch.from_numpy(q).to(dev), *tops, metric="euclidean",
+                             k=k, n_probe=4, rescore=True))
+    assert ivf_cuda.launch_counts[key] == before + 1
+    dg, ig = out[1][0].cpu().numpy(), out[1][1].cpu().numpy()
+    dc, ic = out[0][0].numpy(), out[0][1].numpy()
+    assert dg.shape == (16, k)
+    np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-4)
+    assert chip_smoke.ids_agree(ig, dg, ic, dc, rel=1e-4) == 0
 
 
 @pytest.mark.parametrize("d", [64, 768])
@@ -321,12 +438,13 @@ def test_block_topw_f32_rejects_unaligned_cmax(cuda):
     assert ivf_cuda.launch_counts == before
 
 
-def test_block_topw_f32_row_mode_rejects_other_sentinels(cuda):
-    """The f32 kernel's running top-R admits only keys above its R-th best,
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_topw_f32_row_mode_rejects_other_sentinels(cuda, dtype):
+    """Both kernels' running top-R admits only keys above its R-th best,
     which is the reference's passes only under the KEY_MIN sentinel."""
     args, kw = chip_smoke.kernel_inputs(
         torch, cuda, B=8, P=1, K=4, Cmax=64, d=16, metric="euclidean",
-        variant="row", seed=3, dtype=torch.float32,
+        variant="row", seed=3, dtype=getattr(torch, dtype),
     )
     before = dict(ivf_cuda.launch_counts)
     with pytest.raises(ValueError, match="KEY_MIN"):

@@ -33,6 +33,7 @@ MODULES = [
     "quiver_tpu_torch.benches.churn",
     "quiver_tpu_torch.benches.topw_f32_ab",
     "quiver_tpu_torch.benches.sharded_ab",
+    "quiver_tpu_torch.benches.row_topr_ab",
     "quiver_tpu_torch.index",
     "quiver_tpu_torch.core.collection",
     "quiver_tpu_torch.facets.filters",

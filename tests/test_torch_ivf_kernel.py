@@ -330,7 +330,8 @@ def test_pairs_survivors_bit_exact_against_pairs_candidates(metric):
 
 def test_row_mode_keys_are_the_per_row_top_r():
     """W = Cmax (one window per row, not a power of two here): the R best
-    packed keys of each pair's row, in descending order."""
+    packed keys of each pair's row, in descending order, at R=16 and at
+    R=128 (the largest R the CUDA kernels keep in their running lists)."""
     q, cents, _, keep, _, inv, probe = _case(7)
     Cm = 384
     rng = np.random.default_rng(7)
@@ -339,13 +340,33 @@ def test_row_mode_keys_are_the_per_row_top_r():
     order, starts = _csr(probe)
     args = (_t(q), _t(cents), _t(starts), _t(order), _t(blocks))
     kw = dict(P=P, scale=1.0, col_add=_t(col_add), sub_cent=False)
-    keys = tc.block_topw(*args, W=Cm, R=16, pos_bits=9, sentinel=tc.KEY_MIN, **kw).numpy()
     s = tc.pair_scores_reference(*args, **kw).numpy()
     b = s.view(np.int32)
     packed = (b ^ ((b >> 31) & 0x7FFFFFFF)) & ~511 | np.arange(Cm)
-    want = np.empty_like(keys)
-    want[order] = -np.sort(-packed, axis=1)[:, :16]
-    np.testing.assert_array_equal(keys, want)
+    for R in (16, 128):
+        keys = tc.block_topw(*args, W=Cm, R=R, pos_bits=9, sentinel=tc.KEY_MIN, **kw).numpy()
+        want = np.empty_like(keys)
+        want[order] = -np.sort(-packed, axis=1)[:, :R]
+        np.testing.assert_array_equal(keys, want)
+
+
+@pytest.mark.parametrize("R,whole", [(1, False), (16, False), (100, False), (128, False),
+                                     (129, True), (160, True)])
+def test_variant_routes_row_mode_by_r(R, whole):
+    """``_variant``'s routing of a CUDA launch (a stub in place of the
+    library's row max, 128): row mode keeps the running top R in the kernel
+    up to the row max, writes the whole row above it, counts each launch
+    under ``row_key(R)``, and takes only the KEY_MIN sentinel; the windowed
+    variants keep their (W, R) keys."""
+    row_max = 128  # ivf_block_topw_row_max() of csrc/row_topr.cuh
+    assert tc._variant(row_max, 1280, R, 1280, None, tc.KEY_MIN) == (tc.row_key(R), 0, whole)
+    # the same routing at a smaller row max: the cut follows the library
+    assert tc._variant(R - 1, 1280, R, 1280, None, tc.KEY_MIN)[2]
+    assert tc._variant(32, 32, 2, 1280, None, tc._mask_key(32)) == ((32, 2), 32, False)
+    with pytest.raises(ValueError, match="KEY_MIN"):
+        tc._variant(row_max, 1280, R, 1280, None, int(tc._mask_key(32)))
+    with pytest.raises(ValueError, match="no CUDA variant"):
+        tc._variant(row_max, 1280, R, 1280, torch.zeros(1), tc.KEY_MIN)
 
 
 def test_key_helpers_bit_exact():

@@ -210,18 +210,20 @@ def test_ivf_query_per_pair_fallback_matches_jax(metric):
     check(queries, ops, dj, ij, dt, it, metric=metric, rescore=False, pos_bits=6)
 
 
-@pytest.mark.parametrize("k", [48, 100])
+@pytest.mark.parametrize("k", [48, 100, 128, 160])
 @pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
 def test_ivf_query_per_pair_large_k_matches_jax(metric, k):
-    """The per-pair branch at k=48 (R=48) and k=100 (R=Cmax=64): above the
-    32 winners the kernel keeps in its running top-R, so on the card it
-    writes every key of the row and the wrapper takes the top R."""
-    queries, ops = graft_arrays(K=32, Cmax=64, seed=1)
+    """The per-pair branch at k=48 (R=48) and k=100 (R=Cmax=64), and over
+    Cmax=256 at k=128 (R=128, the largest R the CUDA kernels keep in their
+    running lists) and k=160 (R=160, above it: the whole row and
+    torch.topk on the card), both sides of the cut."""
+    Cmax = 64 if k <= 100 else 256
+    queries, ops = graft_arrays(K=32 if Cmax == 64 else 8, Cmax=Cmax, seed=1)
     dj, ij, dt, it = run_both(
         queries, ops, metric=metric, formulation="pairs", rescore=False, k=k)
     assert dt.shape == (len(queries), k)
-    check(queries, ops, dj, ij, dt, it, metric=metric, rescore=False, pos_bits=6,
-          caff=caff_of(queries, ops, ij, metric))
+    check(queries, ops, dj, ij, dt, it, metric=metric, rescore=False,
+          pos_bits=(Cmax - 1).bit_length(), caff=caff_of(queries, ops, ij, metric))
 
 
 @pytest.mark.parametrize("d", [100, 768])
