@@ -5,7 +5,9 @@ with a plain C interface, loaded with ctypes: one ``nvcc`` per source, all
 started together, then one link. The build runs at first use,
 into ``quiver_tpu_torch/_build/<hash>/`` (git-ignored), keyed by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one
-loads the library already built. Nothing here runs at import time.
+loads the library already built. A build is a ``kernels.build`` span and
+one info line of the port's logger (library, sources, seconds). Nothing
+here runs at import time.
 
 Run ``python -m quiver_tpu_torch._build`` to build ahead of use; it prints
 the library path and the build seconds.
@@ -20,8 +22,10 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
+
+from quiver_tpu_torch.observability.logging import info
+from quiver_tpu_torch.utils.profiling import trace_span
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -71,7 +75,14 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
+    with trace_span("kernels.build", len(_sources())) as span:
+        _compile(out_dir, lib, verbose)
+    info("kernels built", library=str(lib), sources=[src.name for src in _sources()],
+         seconds=round(span.seconds, 1))
+    return lib, span.seconds
+
+
+def _compile(out_dir: Path, lib: Path, verbose: bool) -> None:
     nvcc = _nvcc()
     # build into a private directory, then rename the library: concurrent
     # build processes never load a half-written one
@@ -100,7 +111,6 @@ def build(verbose: bool = False) -> tuple[Path, float]:
         os.replace(so, lib)
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)
-    return lib, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

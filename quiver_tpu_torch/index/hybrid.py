@@ -267,21 +267,25 @@ class HybridIndex:
         # build the graph only once the corpus could plausibly use it.
         self._graph_built = False
         self._pending: list = []
+        #: serializes the buffer's hand-over to the graph: concurrent
+        #: searches each force it, and an insert may append meanwhile
+        self._pending_lock = threading.RLock()
 
     def _build_threshold(self) -> int:
         return max(self.selector.exact_threshold // 2, 256)
 
     def _ensure_graph(self, force: bool = False) -> None:
-        if self._pending and (
-            force
-            or self._graph_built
-            or self.store.size >= self._build_threshold()
-        ):
-            slots = np.concatenate([s for s, _ in self._pending])
-            vecs = np.concatenate([v for _, v in self._pending])
-            self._pending.clear()
-            self.ann.on_insert(slots, vecs)
-            self._graph_built = True
+        with self._pending_lock:
+            if self._pending and (
+                force
+                or self._graph_built
+                or self.store.size >= self._build_threshold()
+            ):
+                pending, self._pending = self._pending, []
+                slots = np.concatenate([s for s, _ in pending])
+                vecs = np.concatenate([v for _, v in pending])
+                self.ann.on_insert(slots, vecs)
+                self._graph_built = True
 
     @property
     def size(self) -> int:
@@ -290,10 +294,11 @@ class HybridIndex:
     # ---------------------------------------------------------------- write
 
     def on_insert(self, slots, vectors) -> None:
-        self._pending.append(
-            (np.asarray(slots, np.int64), np.asarray(vectors, np.float32))
-        )
-        self._ensure_graph()
+        with self._pending_lock:
+            self._pending.append(
+                (np.asarray(slots, np.int64), np.asarray(vectors, np.float32))
+            )
+            self._ensure_graph()
 
     def on_update(self, slots, vectors) -> None:
         slots = np.asarray(slots)

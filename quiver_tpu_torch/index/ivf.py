@@ -113,6 +113,7 @@ from quiver_tpu_torch.ops.ivf_kernels import (
 )
 from quiver_tpu_torch.ops.scan import MASKED_DIST, negative_rerank
 from quiver_tpu_torch.types import DistanceType
+from quiver_tpu_torch.utils.profiling import trace_span
 
 _log = logging.getLogger(__name__)
 
@@ -120,6 +121,10 @@ _log = logging.getLogger(__name__)
 #: engine lock first (catch-up loop), so the final locked replay — the only
 #: write/query stall the swap imposes — stays small and bounded
 _LOCKED_REPLAY_MAX = 8192
+
+#: :meth:`IVFIndex.search_slots`' counters (``get_detailed_metrics()["search"]``)
+_SEARCH_COUNTERS = ("calls", "queries", "exact_route_calls", "underfill_calls",
+                    "underfill_rows", "overflow_merges")
 
 
 def _pow2(n: int, lo: int = 8, hi: int = 1 << 30) -> int:
@@ -327,6 +332,9 @@ class IVFIndex:
         self._tuned_recall: Optional[float] = None  # its measured recall@k
         self._tuned_stderr: Optional[float] = None  # holdout sampling stderr
         self._last_rebuild_s = 0.0
+        #: search_slots' counters since the last build (_SEARCH_COUNTERS)
+        self._search_counts = dict.fromkeys(_SEARCH_COUNTERS, 0)
+        self._counts_lock = threading.Lock()
         # --- background maintenance: the engine lock serializes writes,
         # layout swaps and the query path's host preamble; a staging clone
         # (same class, same store) builds the next layout off-thread and
@@ -368,38 +376,40 @@ class IVFIndex:
         """(Re)train k-means over live rows and lay out the block tensor;
         with ``config.recall_target`` set, then tune ``n_probe``."""
         with self._lock:
-            t0 = time.perf_counter()
-            c = self.config
-            valid = self.store._np_valid
-            n_live = int(valid.sum())
-            if n_live < 16:
-                return
-            K = k or c.n_clusters or self._auto_k(n_live)
-            K = min(K, n_live)
-            vectors_dev, valid_dev = self._kmeans_source()
-            cents, assign = train_kmeans(
-                self.store._np_vectors, valid, K, n_iters=c.kmeans_iters,
-                seed=c.seed, vectors_dev=vectors_dev, valid_dev=valid_dev,
-            )
-            # cap clusters by SPLITTING, never by spilling rows far away
-            cmax = _cmax_shape(c.cmax_factor * max(n_live, 1) / K)
-            cents, assign = split_oversized(
-                self.store._np_vectors, cents, np.asarray(assign, np.int64),
-                cmax, seed=c.seed,
-            )
-            # de-correlate cluster ids from space, so the windowed probe
-            # selection's 128-id windows are a random partition of space
-            perm = np.random.default_rng(c.seed + 1).permutation(len(cents))
-            cents = cents[np.argsort(perm)]
-            assign = np.where(assign >= 0, perm[assign], -1)
-            cents, assign = self._prepare_clusters(cents, assign)
-            self._centroids = cents
-            self._cent_dev = self._put_cent_dev(cents)
-            self._layout_from_assign(assign, len(cents), cmax=cmax)
-            self._n_retrains += 1
-            if c.recall_target is not None:
-                self.tune_n_probe()
-            self._last_rebuild_s = time.perf_counter() - t0
+            with trace_span("ivf.build") as span:
+                c = self.config
+                valid = self.store._np_valid
+                span.n = n_live = int(valid.sum())
+                if n_live < 16:
+                    return
+                K = k or c.n_clusters or self._auto_k(n_live)
+                K = min(K, n_live)
+                vectors_dev, valid_dev = self._kmeans_source()
+                cents, assign = train_kmeans(
+                    self.store._np_vectors, valid, K, n_iters=c.kmeans_iters,
+                    seed=c.seed, vectors_dev=vectors_dev, valid_dev=valid_dev,
+                )
+                # cap clusters by SPLITTING, never by spilling rows far away
+                cmax = _cmax_shape(c.cmax_factor * max(n_live, 1) / K)
+                cents, assign = split_oversized(
+                    self.store._np_vectors, cents, np.asarray(assign, np.int64),
+                    cmax, seed=c.seed,
+                )
+                # de-correlate cluster ids from space, so the windowed probe
+                # selection's 128-id windows are a random partition of space
+                perm = np.random.default_rng(c.seed + 1).permutation(len(cents))
+                cents = cents[np.argsort(perm)]
+                assign = np.where(assign >= 0, perm[assign], -1)
+                cents, assign = self._prepare_clusters(cents, assign)
+                self._centroids = cents
+                self._cent_dev = self._put_cent_dev(cents)
+                self._layout_from_assign(assign, len(cents), cmax=cmax)
+                self._n_retrains += 1
+                if c.recall_target is not None:
+                    self.tune_n_probe()
+            self._last_rebuild_s = span.seconds
+            with self._counts_lock:
+                self._search_counts = dict.fromkeys(_SEARCH_COUNTERS, 0)
 
     # --------------------------------------------------------- n_probe tuner
 
@@ -625,7 +635,13 @@ class IVFIndex:
             raise ValueError(f"immutable or unknown parameters: {sorted(unknown)}")
 
     def get_detailed_metrics(self) -> dict:
-        """The reference's keys (``quiver_tpu/index/ivf.py:1809-1843``)."""
+        """The reference's keys (``quiver_tpu/index/ivf.py:1809-1843``), and
+        ``search``: :meth:`search_slots`' counters since the last build
+        (calls, queries, calls routed whole to the exact scan, calls with
+        under-filled rows and those rows, calls that merged the overflow
+        set)."""
+        with self._counts_lock:
+            search = dict(self._search_counts)
         with self._lock:
             inflight = (
                 self._maint_thread is not None and self._maint_thread.is_alive()
@@ -640,6 +656,7 @@ class IVFIndex:
                 "retrains": self._n_retrains,
                 "refreshes": self._n_refreshes,
                 "last_retrain_s": round(self._last_rebuild_s, 3),
+                "search": search,
                 "tuned_n_probe": self._tuned_n_probe,
                 "tuned_recall": (
                     None if self._tuned_recall is None else round(self._tuned_recall, 4)
@@ -657,6 +674,11 @@ class IVFIndex:
                 "device_bytes": self.device_bytes(),
                 "config": self.get_optimization_parameters(),
             }
+
+    def _count(self, **counts: int) -> None:
+        with self._counts_lock:
+            for key, v in counts.items():
+                self._search_counts[key] += v
 
     def device_bytes(self) -> dict:
         """Card footprint: the engine's own tensors (blocks, centroids,
@@ -1356,56 +1378,79 @@ class IVFIndex:
     ):
         """Batched top-k over slots: (dist f32[B, k], slots i64[B, k])
         numpy arrays, -1 for empty. Small corpora, Manhattan, per-query
-        masks and ``exact=True`` go to the exact scan."""
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[0] == 0:
-            return np.zeros((0, k), np.float32), np.full((0, k), -1, np.int64)
-        per_query_mask = mask is not None and np.asarray(mask).ndim == 2
-        if (
-            exact
-            or not self._built
-            or per_query_mask
-            or self.store.metric == DistanceType.MANHATTAN
-            or self.store.size < self.config.build_threshold // 4
-        ):
-            return self._exact.search_slots(
-                q, k, mask=mask, negative=negative,
-                negative_weight=negative_weight,
-            )
-        retrieve_k = k if negative is None else min(max(2 * k, 30), self.store.size)
-        with self._lock:
-            dist, idx = self.search_slots_device(
-                torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
-                retrieve_k,
-                mask=None if mask is None else torch.as_tensor(
-                    np.asarray(mask, bool), device=self.device
-                ),
-            )
-            # snapshot the overflow set with the dispatch
-            overflow = sorted(self._overflow) if self._overflow else None
-        dist, idx = dist.cpu().numpy(), idx.cpu().numpy()
-        if overflow:
-            slot_keep = self.store._np_valid.copy()
-            if mask is not None:
-                slot_keep &= np.asarray(mask, bool)
-            dist, idx = self._merge_overflow(q, dist, idx, slot_keep, retrieve_k, overflow)
-        if negative is not None:
-            dist, idx = self._rerank_negative(q, dist, idx, negative, negative_weight, k)
-        dist, idx = dist[:, :k], idx[:, :k]
-        # under-fill supplement: probed clusters may not hold k live rows
-        found = (idx >= 0).sum(axis=1)
-        want = min(k, self.store.size)
-        if (found < want).any():
-            e_dist, e_idx = self._exact.search_slots(
-                q, k, mask=mask, negative=negative,
-                negative_weight=negative_weight,
-            )
-            dist, idx = dist.copy(), idx.copy()
-            for b in np.flatnonzero(found < want):
-                dist[b], idx[b] = _merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
-        return dist, idx
+        masks and ``exact=True`` go to the exact scan.
+
+        Its phases are spans (``utils/profiling.trace_span``), one after
+        the other under ``ivf.search``: ``ivf.copy_in`` (the queries and
+        the mask to the device), ``ivf.query`` (the device path enqueued
+        under the engine lock), ``ivf.results`` (the wait for the device
+        and both copies out), ``ivf.finish`` (the host's merges and the
+        under-fill supplement); ``ivf.exact`` wherever the exact scan
+        answers for the engine, ``n`` being the rows it answered."""
+        with trace_span("ivf.search") as span:
+            with trace_span("ivf.copy_in") as copy_in:
+                q = np.asarray(queries, np.float32)
+                if q.ndim == 1:
+                    q = q[None, :]
+                span.n = copy_in.n = B = q.shape[0]
+                per_query_mask = mask is not None and np.asarray(mask).ndim == 2
+                routed = (
+                    exact
+                    or not self._built
+                    or per_query_mask
+                    or self.store.metric == DistanceType.MANHATTAN
+                    or self.store.size < self.config.build_threshold // 4
+                )
+                if B and not routed:
+                    q_dev = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+                    mask_dev = None if mask is None else torch.as_tensor(
+                        np.asarray(mask, bool), device=self.device
+                    )
+            if B == 0:
+                return np.zeros((0, k), np.float32), np.full((0, k), -1, np.int64)
+            if routed:
+                self._count(calls=1, queries=B, exact_route_calls=1)
+                with trace_span("ivf.exact", B):
+                    return self._exact.search_slots(
+                        q, k, mask=mask, negative=negative,
+                        negative_weight=negative_weight,
+                    )
+            retrieve_k = k if negative is None else min(max(2 * k, 30), self.store.size)
+            with trace_span("ivf.query", B), self._lock:
+                dist, idx = self.search_slots_device(q_dev, retrieve_k, mask=mask_dev)
+                # snapshot the overflow set with the dispatch
+                overflow = sorted(self._overflow) if self._overflow else None
+            with trace_span("ivf.results", B):
+                dist, idx = dist.cpu().numpy(), idx.cpu().numpy()
+            with trace_span("ivf.finish", B):
+                if overflow:
+                    slot_keep = self.store._np_valid.copy()
+                    if mask is not None:
+                        slot_keep &= np.asarray(mask, bool)
+                    dist, idx = self._merge_overflow(
+                        q, dist, idx, slot_keep, retrieve_k, overflow
+                    )
+                if negative is not None:
+                    dist, idx = self._rerank_negative(
+                        q, dist, idx, negative, negative_weight, k
+                    )
+                dist, idx = dist[:, :k], idx[:, :k]
+                # under-fill supplement: probed clusters may not hold k live rows
+                short = np.flatnonzero((idx >= 0).sum(axis=1) < min(k, self.store.size))
+                if len(short):
+                    with trace_span("ivf.exact", len(short)):
+                        e_dist, e_idx = self._exact.search_slots(
+                            q, k, mask=mask, negative=negative,
+                            negative_weight=negative_weight,
+                        )
+                    dist, idx = dist.copy(), idx.copy()
+                    for b in short:
+                        dist[b], idx[b] = _merge_rows(
+                            dist[b], idx[b], e_dist[b], e_idx[b], k
+                        )
+            self._count(calls=1, queries=B, underfill_calls=int(len(short) > 0),
+                        underfill_rows=len(short), overflow_merges=int(bool(overflow)))
+            return dist, idx
 
     def _rerank_negative(self, q, dist, idx, negative, weight, k):
         """Negative-example rerank of retrieved candidates

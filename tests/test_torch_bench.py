@@ -203,7 +203,11 @@ def test_device_bytes_matches_jax():
     assert te.device_bytes() == je.device_bytes()
     m = te.get_detailed_metrics()
     mj = je.get_detailed_metrics()
-    assert set(m) == set(mj) and set(m["maintenance"]) == set(mj["maintenance"])
+    # the reference's keys, and the port's own search counters beside them
+    assert set(m) == set(mj) | {"search"} and set(m["maintenance"]) == set(mj["maintenance"])
+    assert m["search"] == dict.fromkeys(("calls", "queries", "exact_route_calls",
+                                         "underfill_calls", "underfill_rows",
+                                         "overflow_merges"), 0)
     assert m["device_bytes"] == mj["device_bytes"]
     assert m["retrains"] == 0 and m["churn_since_build"] == 0
     assert te.get_optimization_parameters() == je.get_optimization_parameters()

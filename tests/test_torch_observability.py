@@ -3,8 +3,9 @@
 tests/test_observability.py run through both packages on the same inputs:
 the latency ring's percentiles and its window, search counts and QPS, the
 Prometheus text, the disable gate, the JSON log record, span nesting and
-timing (with the port's ``trace_span`` / ``annotate``, which also mark a
-``torch.profiler`` range), and idempotent logger handlers.
+timing (with the port's ``trace_span``, which also marks a
+``torch.profiler`` range while a profiler runs, and costs no range and no
+uuid when nothing listens), and idempotent logger handlers.
 
 The two packages must give equal stats dicts and equal Prometheus sample
 sets (names, labels, values; the clock-dependent QPS and time fields
@@ -133,15 +134,35 @@ def test_port_tracer_spans_nest_and_time(pkg):
 
 
 def test_port_trace_span_marks_a_profiler_range():
-    @tprof.annotate("quiver_annotated")
     def work():
-        return torch.ones(4).sum()
+        with tprof.trace_span("quiver_inner"):
+            return torch.ones(4).sum()
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with tprof.trace_span("quiver_outer", n=1):
             work()
     names = {e.name for e in prof.events()}
-    assert {"quiver_outer", "quiver_annotated"} <= names
+    assert {"quiver_outer", "quiver_inner"} <= names
+
+
+def test_port_trace_span_makes_no_range_and_no_uuid_when_nothing_listens(monkeypatch):
+    import uuid
+
+    def refuse(*a, **kw):
+        raise AssertionError("called with the tracer off and no profiler")
+
+    monkeypatch.setattr(uuid, "uuid4", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(tlog, "_range", refuse)
+    assert not tlog.global_tracer().enabled and not torch.autograd._profiler_enabled()
+    with tprof.trace_span("quiver_quiet", 3) as outer:
+        with tprof.trace_span("quiver_quiet_inner", collection="docs"):
+            pass
+    assert outer.end() >= 0.0
+    got = tlog.global_tracer().spans(names=["quiver_quiet", "quiver_quiet_inner"],
+                                     lo=outer.start)
+    assert list(got["name"]) == ["quiver_quiet_inner", "quiver_quiet"]
 
 
 @pytest.mark.parametrize("pkg", PKGS)
