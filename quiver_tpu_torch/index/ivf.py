@@ -124,7 +124,7 @@ _LOCKED_REPLAY_MAX = 8192
 
 #: :meth:`IVFIndex.search_slots`' counters (``get_detailed_metrics()["search"]``)
 _SEARCH_COUNTERS = ("calls", "queries", "exact_route_calls", "underfill_calls",
-                    "underfill_rows", "overflow_merges")
+                    "underfill_rows", "overflow_merges", "fill_host_checks")
 
 
 def _pow2(n: int, lo: int = 8, hi: int = 1 << 30) -> int:
@@ -639,7 +639,7 @@ class IVFIndex:
         ``search``: :meth:`search_slots`' counters since the last build
         (calls, queries, calls routed whole to the exact scan, calls with
         under-filled rows and those rows, calls that merged the overflow
-        set)."""
+        set, calls whose under-fill test counted the rows on the host)."""
         with self._counts_lock:
             search = dict(self._search_counts)
         with self._lock:
@@ -1383,9 +1383,10 @@ class IVFIndex:
         Its phases are spans (``utils/profiling.trace_span``), one after
         the other under ``ivf.search``: ``ivf.copy_in`` (the queries and
         the mask to the device), ``ivf.query`` (the device path enqueued
-        under the engine lock), ``ivf.results`` (the wait for the device
-        and both copies out), ``ivf.finish`` (the host's merges and the
-        under-fill supplement); ``ivf.exact`` wherever the exact scan
+        under the engine lock, with each row's live count where no merge
+        or rerank follows), ``ivf.results`` (the wait for the device and
+        the copies out), ``ivf.finish`` (the host's merges, the under-fill
+        test and supplement); ``ivf.exact`` wherever the exact scan
         answers for the engine, ``n`` being the rows it answered."""
         with trace_span("ivf.search") as span:
             with trace_span("ivf.copy_in") as copy_in:
@@ -1420,8 +1421,18 @@ class IVFIndex:
                 dist, idx = self.search_slots_device(q_dev, retrieve_k, mask=mask_dev)
                 # snapshot the overflow set with the dispatch
                 overflow = sorted(self._overflow) if self._overflow else None
+                # each row's live entries, counted on the device where the
+                # host keeps the device's rows (no merge or rerank rewrites
+                # them): the under-fill test then reads B counts, not B*k
+                # slots, and holds wherever a row's empty slots sit
+                fill = (
+                    None if overflow or negative is not None
+                    else (idx[:, :k] >= 0).sum(1, dtype=torch.int32)
+                )
             with trace_span("ivf.results", B):
                 dist, idx = dist.cpu().numpy(), idx.cpu().numpy()
+                if fill is not None:
+                    fill = fill.cpu().numpy()
             with trace_span("ivf.finish", B):
                 if overflow:
                     slot_keep = self.store._np_valid.copy()
@@ -1436,7 +1447,10 @@ class IVFIndex:
                     )
                 dist, idx = dist[:, :k], idx[:, :k]
                 # under-fill supplement: probed clusters may not hold k live rows
-                short = np.flatnonzero((idx >= 0).sum(axis=1) < min(k, self.store.size))
+                host_fill = fill is None
+                if host_fill:
+                    fill = (idx >= 0).sum(axis=1)
+                short = np.flatnonzero(fill < min(k, self.store.size))
                 if len(short):
                     with trace_span("ivf.exact", len(short)):
                         e_dist, e_idx = self._exact.search_slots(
@@ -1449,7 +1463,8 @@ class IVFIndex:
                             dist[b], idx[b], e_dist[b], e_idx[b], k
                         )
             self._count(calls=1, queries=B, underfill_calls=int(len(short) > 0),
-                        underfill_rows=len(short), overflow_merges=int(bool(overflow)))
+                        underfill_rows=len(short), overflow_merges=int(bool(overflow)),
+                        fill_host_checks=int(host_fill))
             return dist, idx
 
     def _rerank_negative(self, q, dist, idx, negative, weight, k):

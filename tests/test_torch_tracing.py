@@ -163,7 +163,7 @@ def test_search_is_one_root_with_its_four_phases_in_order(tracer):
     assert not by_name(spans, "ivf.exact")
     assert eng.get_detailed_metrics()["search"] == dict(
         calls=1, queries=37, exact_route_calls=0, underfill_calls=0, underfill_rows=0,
-        overflow_merges=0)
+        overflow_merges=0, fill_host_checks=0)
 
 
 def test_build_is_a_span_that_last_retrain_reads(tracer):
@@ -200,7 +200,7 @@ def test_the_exact_scan_spans_carry_the_rows_it_answered(tracer):
     assert ex["n"] == 37 and ex["parent"] == finish["id"]
     assert tiny.get_detailed_metrics()["search"] == dict(
         calls=1, queries=37, exact_route_calls=0, underfill_calls=1, underfill_rows=37,
-        overflow_merges=0)
+        overflow_merges=0, fill_host_checks=0)
 
 
 def test_the_overflow_merge_is_counted(tracer):
