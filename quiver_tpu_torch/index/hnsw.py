@@ -15,7 +15,10 @@ build and query (PyTorch port of ``quiver_tpu/index/hnsw.py``).
   a node the same level;
 * deletes are tombstones (the store's valid mask) with entry-point
   re-election; queries that come back short are supplemented from the
-  exact scan.
+  exact scan;
+* the phases of a search and the stages of a build are spans of the
+  port's tracer (``utils/profiling.trace_span``), and ``search_slots``
+  keeps counters (``get_detailed_metrics()["search"]``).
 
 The topology sidecar (:meth:`HNSWIndex.export_topology` /
 :meth:`HNSWIndex.import_topology`) has the reference's format, so either
@@ -68,6 +71,11 @@ from quiver_tpu_torch.ops.scan import (
     flat_scan_topk,
     negative_rerank,
 )
+from quiver_tpu_torch.utils.profiling import trace_span
+
+#: :meth:`HNSWIndex.search_slots`' counters (``get_detailed_metrics()["search"]``)
+_SEARCH_COUNTERS = ("calls", "queries", "exact_route_calls", "underfill_calls",
+                    "underfill_rows", "beam_loops", "beam_iters")
 
 
 def _pad_rows_to(arr: np.ndarray, rows: int, fill: int = -1) -> np.ndarray:
@@ -84,6 +92,13 @@ def _pow2(n: int, lo: int = 8) -> int:
     while c < n:
         c *= 2
     return c
+
+
+def _wait(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op off CUDA), so that a
+    build stage's span holds the device time of its own work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _fused_build_step(
@@ -103,7 +118,10 @@ def _fused_build_step(
     connected level, an exact masked scan of the level's nodes for
     candidates (depth ~3x the degree), the occlusion selection, and the
     forward/reverse commit with the overflow re-selection
-    (``connect_level``). Returns (adjs, fills, spill i64[] on the device,
+    (``connect_level``). Each stage of each level is a span under the
+    caller's ``hnsw.build``: ``hnsw.build.scan``, ``hnsw.build.select``,
+    ``hnsw.build.connect``, ``n`` the level's members, each ending in a wait
+    for the device. Returns (adjs, fills, spill i64[] on the device,
     changed-row masks)."""
     order = torch.argsort(-levels, stable=True)
     q_s, slots_s, levels_s = q[order], slots[order], levels[order]
@@ -113,24 +131,30 @@ def _fused_build_step(
         q_l, slots_l = q_s[:b_l], slots_s[:b_l]
         deg = adj.shape[1]
         kc = min(max(efc, deg), _pow2(3 * deg, lo=32))
-        eligible = (pos >= 0) & view.valid
-        cand_d, cand_i = flat_scan_topk(
-            q_l, view.vectors, eligible, None, view.norms_sq, view.inv_norms,
-            metric=metric, k=kc + 1, tile=tile, compute_dtype=compute_dtype,
-        )
-        self_hit = cand_i == slots_l[:, None]
-        cand_d = torch.where(self_hit, MASKED_DIST, cand_d)
-        cand_i = torch.where(self_hit, -1, cand_i)
-        sel_i, _ = select_neighbors(
-            q_l, cand_i, cand_d, view.vectors, metric=metric, m=deg,
-            compute_dtype=compute_dtype, keep_pruned=keep_pruned,
-        )
-        connect = torch.ones(b_l, dtype=torch.bool, device=q.device)
-        adj, fill, sp, changed = connect_level(
-            adj, fill, pos, view.vectors, slots_l, connect, sel_i,
-            metric=metric, u_budget=u_b, e_budget=e_budget,
-            compute_dtype=compute_dtype, keep_pruned=keep_pruned,
-        )
+        with trace_span("hnsw.build.scan", b_l):
+            eligible = (pos >= 0) & view.valid
+            cand_d, cand_i = flat_scan_topk(
+                q_l, view.vectors, eligible, None, view.norms_sq, view.inv_norms,
+                metric=metric, k=kc + 1, tile=tile, compute_dtype=compute_dtype,
+            )
+            self_hit = cand_i == slots_l[:, None]
+            cand_d = torch.where(self_hit, MASKED_DIST, cand_d)
+            cand_i = torch.where(self_hit, -1, cand_i)
+            _wait(q.device)
+        with trace_span("hnsw.build.select", b_l):
+            sel_i, _ = select_neighbors(
+                q_l, cand_i, cand_d, view.vectors, metric=metric, m=deg,
+                compute_dtype=compute_dtype, keep_pruned=keep_pruned,
+            )
+            _wait(q.device)
+        with trace_span("hnsw.build.connect", b_l):
+            connect = torch.ones(b_l, dtype=torch.bool, device=q.device)
+            adj, fill, sp, changed = connect_level(
+                adj, fill, pos, view.vectors, slots_l, connect, sel_i,
+                metric=metric, u_budget=u_b, e_budget=e_budget,
+                compute_dtype=compute_dtype, keep_pruned=keep_pruned,
+            )
+            _wait(q.device)
         out_adjs.append(adj)
         out_fills.append(fill)
         out_changed.append(changed)
@@ -359,6 +383,8 @@ class HNSWIndex:
         #: device running count of reverse edges dropped past the connect
         #: budgets (read only by get_detailed_metrics)
         self._spill_dev: Optional[torch.Tensor] = None
+        self._search_counts = dict.fromkeys(_SEARCH_COUNTERS, 0)
+        self._counts_lock = threading.Lock()
 
     # ------------------------------------------------------------ properties
 
@@ -375,7 +401,9 @@ class HNSWIndex:
     # ------------------------------------------------------------- write API
 
     def on_insert(self, slots: np.ndarray, vectors: np.ndarray) -> None:
-        with self._lock:
+        """Index new rows, ``build_batch`` a round: one ``hnsw.build`` span
+        (``n`` the rows) over the stage spans of every round and level."""
+        with self._lock, trace_span("hnsw.build", len(slots)):
             self._grow_capacity()
             bb = self.config.build_batch
             for i in range(0, len(slots), bb):
@@ -537,23 +565,28 @@ class HNSWIndex:
             n = len(members)
             if n <= 1:
                 continue
-            m_vecs = torch.from_numpy(vecs[levels >= l]).to(self.device)
-            dist = pairwise_block(m_vecs, m_vecs, self._metric(), self.compute_dtype)
-            dist = dist + torch.where(
-                torch.eye(n, dtype=torch.bool, device=self.device), MASKED_DIST, 0.0
-            )
-            kk = min(layer.deg + 8, n - 1)
-            # lax.top_k's tie order: the lower index first
-            cand_d, idx_local = torch.sort(dist, dim=1, stable=True)
-            cand_d, idx_local = cand_d[:, :kk], idx_local[:, :kk]
-            cand_i = torch.from_numpy(members).to(self.device)[idx_local]
-            sel_i, _ = select_neighbors(
-                m_vecs, cand_i, cand_d, view.vectors, metric=self._metric(), m=layer.deg,
-                compute_dtype=self.compute_dtype, keep_pruned=self.config.keep_pruned,
-            )
-            layer.device(self.store.capacity)
-            layer.write_rows_dev(layer.pos[members], sel_i,
-                                 (sel_i >= 0).sum(dim=1).cpu().numpy())
+            with trace_span("hnsw.build.scan", n):
+                m_vecs = torch.from_numpy(vecs[levels >= l]).to(self.device)
+                dist = pairwise_block(m_vecs, m_vecs, self._metric(), self.compute_dtype)
+                dist = dist + torch.where(
+                    torch.eye(n, dtype=torch.bool, device=self.device), MASKED_DIST, 0.0
+                )
+                kk = min(layer.deg + 8, n - 1)
+                # lax.top_k's tie order: the lower index first
+                cand_d, idx_local = torch.sort(dist, dim=1, stable=True)
+                cand_d, idx_local = cand_d[:, :kk], idx_local[:, :kk]
+                cand_i = torch.from_numpy(members).to(self.device)[idx_local]
+                _wait(self.device)
+            with trace_span("hnsw.build.select", n):
+                sel_i, _ = select_neighbors(
+                    m_vecs, cand_i, cand_d, view.vectors, metric=self._metric(), m=layer.deg,
+                    compute_dtype=self.compute_dtype, keep_pruned=self.config.keep_pruned,
+                )
+                _wait(self.device)
+            with trace_span("hnsw.build.connect", n):
+                layer.device(self.store.capacity)
+                layer.write_rows_dev(layer.pos[members], sel_i,
+                                     (sel_i >= 0).sum(dim=1).cpu().numpy())
         self.entry_point = int(slots[int(np.argmax(levels))])
         self.current_max_level = int(levels.max(initial=0))
 
@@ -610,7 +643,14 @@ class HNSWIndex:
             raise ValueError(f"immutable or unknown parameters: {sorted(unknown)}")
 
     def get_detailed_metrics(self) -> dict:
-        """(reference GetDetailedMetrics, adapter.go:312-334)."""
+        """The reference's keys (GetDetailedMetrics, adapter.go:312-334),
+        and ``search``: :meth:`search_slots`' counters since the engine was
+        made (calls, queries, calls routed whole to the exact scan, calls
+        with under-filled rows and those rows, the beam's loop iterations,
+        and its useful work: each query's iterations while it was active,
+        summed)."""
+        with self._counts_lock:
+            search = dict(self._search_counts)
         return {
             "size": self.size,
             "entry_point": self.entry_point,
@@ -618,9 +658,15 @@ class HNSWIndex:
             "layer_nodes": [len(self.layer0.nodes)] + [len(l.nodes) for l in self.layers],
             "reverse_edges_spilled": 0 if self._spill_dev is None else int(self._spill_dev),
             "compactions": self._n_compactions,
+            "search": search,
             "device_bytes": self.device_bytes(),
             "config": self.get_optimization_parameters(),
         }
+
+    def _count(self, **counts: int) -> None:
+        with self._counts_lock:
+            for key, v in counts.items():
+                self._search_counts[key] += v
 
     def device_bytes(self) -> dict:
         """Device footprint: the adjacency layers, their pos maps and fill
@@ -712,25 +758,32 @@ class HNSWIndex:
         """Device serving path: f32[B, d] queries on the store's device in,
         the layer-0 beam (dist f32[B, ef], slot i64[B, ef]) out, after the
         greedy descent through the upper layers. Needs a non-empty graph.
-        ``stats`` as in ``beam_search``."""
+        Two spans: ``hnsw.descent`` (``n`` the queries) and ``hnsw.beam``
+        (``n`` the beam's loop iterations). ``stats``, when given, receives
+        ``beam_search``'s counters."""
         if queries.device != self.device:
             raise ValueError(f"queries on {queries.device}, index on {self.device}")
+        stats = {} if stats is None else stats
         with self._lock:
-            view = self.store.device_view()
-            entries = torch.full((queries.shape[0],), self.entry_point, dtype=torch.int64,
-                                 device=self.device)
-            layers, adj0, pos0 = self._device_graph()
-            qdt = self._query_dtype()
-            for adj, pos in layers:
-                _, entries = greedy_descent(
-                    queries, entries, view.vectors, view.valid, adj, pos,
-                    metric=self._metric(), compute_dtype=qdt,
+            with trace_span("hnsw.descent", queries.shape[0]):
+                view = self.store.device_view()
+                entries = torch.full((queries.shape[0],), self.entry_point, dtype=torch.int64,
+                                     device=self.device)
+                layers, adj0, pos0 = self._device_graph()
+                qdt = self._query_dtype()
+                for adj, pos in layers:
+                    _, entries = greedy_descent(
+                        queries, entries, view.vectors, view.valid, adj, pos,
+                        metric=self._metric(), compute_dtype=qdt,
+                    )
+            with trace_span("hnsw.beam") as beam:
+                out = beam_search(
+                    queries, entries, view.vectors, view.valid, adj0, pos0,
+                    metric=self._metric(), ef=ef, max_iters=int(1.5 * ef) + 8,
+                    compute_dtype=qdt, visited=self.config.visited, stats=stats,
                 )
-            return beam_search(
-                queries, entries, view.vectors, view.valid, adj0, pos0,
-                metric=self._metric(), ef=ef, max_iters=int(1.5 * ef) + 8,
-                compute_dtype=qdt, visited=self.config.visited, stats=stats,
-            )
+                beam.n = stats["loops"]
+            return out
 
     def search_slots(
         self,
@@ -743,42 +796,72 @@ class HNSWIndex:
         exact: bool = False,
     ):
         """Batched ANN query. Masked, forced-exact and small-store searches
-        delegate to the exact scan over the same store."""
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if (
-            exact
-            or mask is not None
-            or self.entry_point < 0
-            or self.store.size <= max(self.config.m0, 2 * k)
-        ):
-            return self._exact.search_slots(
-                q, k, mask=mask, negative=negative, negative_weight=negative_weight,
-            )
-        retrieve_k = k if negative is None else min(max(2 * k, 30), self.store.size)
-        ef = max(self.config.ef_search, retrieve_k)
-        bd, bi = self.search_device(torch.from_numpy(np.ascontiguousarray(q)).to(self.device), ef)
-        if negative is not None:
-            neg = torch.as_tensor(np.asarray(negative, np.float32), device=self.device)
-            if neg.dim() == 1:
-                neg = neg[None, :].expand(q.shape[0], -1)
-            bd, bi = negative_rerank(
-                bd[:, :retrieve_k], bi[:, :retrieve_k], self.store.device_view().vectors, neg,
-                metric=self._metric(), k=k, weight=negative_weight,
-            )
-        dist, idx = bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
-        # under-fill supplement (hnsw.go:676-710): fewer than k live results
-        # (deletes can disconnect the graph) merge in an exact scan
-        found = (idx >= 0).sum(axis=1)
-        want = min(k, self.store.size)
-        if (found < want).any():
-            e_dist, e_idx = self._exact.search_slots(
-                q, k, negative=negative, negative_weight=negative_weight
-            )
-            for b in np.flatnonzero(found < want):
-                dist[b], idx[b] = _merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
-        return dist, idx
+        delegate to the exact scan over the same store.
+
+        Its phases are spans (``utils/profiling.trace_span``), one after
+        the other under ``hnsw.search``: ``hnsw.copy_in`` (the queries to
+        the device), ``hnsw.descent`` and ``hnsw.beam`` (:meth:`search_device`),
+        ``hnsw.results`` (the wait for the device and the copies out; ``n``
+        the beam's useful work, each query's iterations while it was
+        active, summed on the device and copied out after the results),
+        ``hnsw.finish`` (the negative rerank, the under-fill test and
+        supplement); ``hnsw.exact`` wherever the exact scan answers for the
+        engine, ``n`` being the rows it answered."""
+        with trace_span("hnsw.search") as span:
+            with trace_span("hnsw.copy_in") as copy_in:
+                q = np.asarray(queries, np.float32)
+                if q.ndim == 1:
+                    q = q[None, :]
+                span.n = copy_in.n = B = q.shape[0]
+                routed = (
+                    exact
+                    or mask is not None
+                    or self.entry_point < 0
+                    or self.store.size <= max(self.config.m0, 2 * k)
+                )
+                if not routed:
+                    q_dev = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+            if routed:
+                self._count(calls=1, queries=B, exact_route_calls=1)
+                with trace_span("hnsw.exact", B):
+                    return self._exact.search_slots(
+                        q, k, mask=mask, negative=negative, negative_weight=negative_weight,
+                    )
+            retrieve_k = k if negative is None else min(max(2 * k, 30), self.store.size)
+            ef = max(self.config.ef_search, retrieve_k)
+            stats = {}
+            bd, bi = self.search_device(q_dev, ef, stats=stats)
+            with trace_span("hnsw.results", B) as results:
+                iters = stats["iters"].sum()
+                if negative is None:
+                    dist, idx = bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
+                results.n = beam_iters = int(iters)
+            with trace_span("hnsw.finish", B):
+                if negative is not None:
+                    neg = torch.as_tensor(np.asarray(negative, np.float32), device=self.device)
+                    if neg.dim() == 1:
+                        neg = neg[None, :].expand(B, -1)
+                    bd, bi = negative_rerank(
+                        bd[:, :retrieve_k], bi[:, :retrieve_k], self.store.device_view().vectors,
+                        neg, metric=self._metric(), k=k, weight=negative_weight,
+                    )
+                    dist, idx = bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
+                # under-fill supplement (hnsw.go:676-710): fewer than k live
+                # results (deletes can disconnect the graph) merge in an
+                # exact scan
+                found = (idx >= 0).sum(axis=1)
+                short = np.flatnonzero(found < min(k, self.store.size))
+                if len(short):
+                    with trace_span("hnsw.exact", len(short)):
+                        e_dist, e_idx = self._exact.search_slots(
+                            q, k, negative=negative, negative_weight=negative_weight
+                        )
+                    for b in short:
+                        dist[b], idx[b] = _merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
+            self._count(calls=1, queries=B, underfill_calls=int(len(short) > 0),
+                        underfill_rows=len(short), beam_loops=stats["loops"],
+                        beam_iters=beam_iters)
+            return dist, idx
 
 
 def _merge_rows(d1, i1, d2, i2, k):

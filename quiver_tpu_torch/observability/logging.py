@@ -102,12 +102,14 @@ _range = torch._C._profiler._RecordFunctionFast
 RING_SPANS = 131_072
 #: the ring's columns: (name, array typecode, initial value); 60 bytes a
 #: span. ``seq`` (the order spans ended in) is written last, so a row is
-#: whole once its ``seq`` is set
+#: whole once its ``seq`` is set; ``n`` is 32 bits and keeps at most
+#: :data:`N_MAX`
 _COLUMNS = (
     ("id", "q", 0), ("parent", "q", -1), ("root", "q", 0),
     ("start", "d", 0.0), ("end", "d", 0.0),
     ("name", "i", 0), ("thread", "i", 0), ("n", "i", 0), ("seq", "q", -1),
 )
+N_MAX = 2**31 - 1
 
 
 class Span:
@@ -191,7 +193,7 @@ class Span:
         ring.end[i] = stop
         ring.name[i] = nid
         ring.thread[i] = opened.thread
-        ring.n[i] = self.n
+        ring.n[i] = self.n if self.n <= N_MAX else N_MAX
         ring.seq[i] = seq
         if tr.enabled:
             debug(

@@ -2,14 +2,14 @@
 spans and counters of the IVF engine (``index/ivf.py``).
 
 The ring: parent and root ids of nested spans, two threads' spans kept
-apart, the wrap-around and its ``dropped`` count, the ends of a span
-against ``time.perf_counter()`` read inside it, the start filter. The
-engine: one ``search_slots`` call is an ``ivf.search`` span with its four
-phases in order beneath it, one root for all; the exact scan's spans
-(routed whole, or the under-fill supplement) carry the rows they answered
-and move ``get_detailed_metrics()["search"]``; ``build`` is an
-``ivf.build`` span that ``last_retrain_s`` reads; under a profiler the
-phases are ``torch.profiler`` ranges.
+apart, the wrap-around and its ``dropped`` count, an ``n`` past 32 bits,
+the ends of a span against ``time.perf_counter()`` read inside it, the
+start filter. The engine: one ``search_slots`` call is an ``ivf.search``
+span with its four phases in order beneath it, one root for all; the
+exact scan's spans (routed whole, or the under-fill supplement) carry the
+rows they answered and move ``get_detailed_metrics()["search"]``;
+``build`` is an ``ivf.build`` span that ``last_retrain_s`` reads; under a
+profiler the phases are ``torch.profiler`` ranges.
 """
 
 import threading
@@ -113,6 +113,16 @@ def test_the_ring_wraps_and_counts_what_it_dropped():
     assert list(t.spans()["name"]) == ["after"]
     g = tlog.global_tracer()
     assert g.capacity == 131_072 and g.nbytes <= 8_000_000
+
+
+def test_an_n_past_32_bits_is_kept_as_the_largest():
+    """The ring's ``n`` column is 32 bits: a larger count (an HNSW call's
+    beam work at millions of queries) is kept as ``N_MAX``, not raised."""
+    t = tlog.Tracer(capacity=8)
+    for n in (tlog.N_MAX, tlog.N_MAX + 1, 10**12):
+        with t.span("big", n):
+            pass
+    assert list(t.spans()["n"]) == [tlog.N_MAX] * 3
 
 
 def test_a_span_brackets_the_clock_read_inside_it():
