@@ -136,8 +136,8 @@ printing any result. Phases, one line each (any failure raises):
    rows; SIGTERM: exit 0 within the shutdown timeout plus the flush (its
    seconds logged); ``info`` then counts 65,536 + 1,024; ``backup``, then
    ``restore`` into a fresh directory, whose ``info`` matches;
-11. HNSW (torch ops, no hand-written kernel, so the kernels line does not
-   change): (a) ``HNSWIndex`` built over the 1M corpus as
+11. HNSW (the layer-0 beam is the kernel ``csrc/hnsw_beam.cu``, whose
+   entry joins the kernels line; the rest are torch ops): (a) ``HNSWIndex`` built over the 1M corpus as
    ``benches/bench_hnsw.py`` builds it (M=16, m0=32, efC=200, bf16
    construction products, ``build_batch`` 8192): wall seconds, inserts/s,
    the spill count, each layer's graph checked on the card
@@ -148,9 +148,17 @@ printing any result. Phases, one line each (any failure raises):
    oracle (gate: tie-aware >= 0.90 at ef=400; the first ef reaching 0.95
    is logged as a finding), ms per batch of ``search_device`` at B in
    {128, 2048, 65536} at ef=100, the beam's iterations (mean and max per
-   query, the loop's count), one B=2048 search's kernel launches and the
-   card's busy share from a profiler trace, each HNSW program's card ms
-   and launches at the phase's shapes (:func:`hnsw_programs`); gate: 256
+   query, the loop's count; gate: that one ``search_device`` call
+   launches the beam kernel once), one B=2048 search's kernel launches
+   and the card's busy share from a profiler trace (gate: one beam kernel
+   among them), the card ms and launches of each HNSW program written as
+   torch ops at the phase's shapes (:func:`hnsw_programs`); the beam
+   kernel against its plain version ``_beam_rows`` on the card at B=256,
+   ef=100 and at ``sift1m-hnsw.batch2k``'s shape, B=2048, ef=320
+   (``bench_hnsw.beam_row``; gates at both: no result slot differs beyond
+   a swap of entries within 1e-5, no distance differs by more than that
+   1e-5 plus the f32 rounding of the L2 expansion), both timed beside the
+   bytes bound of the beam's useful work; gate: 256
    queries at ef=100 return the same ids on the card as on a CPU index
    holding the same graph, up to swaps of entries tied within 1e-5
    (:func:`ids_agree`); then the HNSW leg of ``benches/streaming.py``
@@ -1601,13 +1609,14 @@ def hnsw_invariants(torch, idx) -> list:
     return out
 
 
-def hnsw_programs(torch, idx, qd, *, ef=100, reps=3) -> dict:
+def hnsw_programs(torch, idx, qd, *, reps=3) -> dict:
     """Card ms (CUDA events) and kernel launches of one call of each HNSW
-    program at phase 11's shapes: the layer-0 beam at ef=100 and the
-    greedy descent of level 1 (the largest upper layer) at ``qd``'s batch; the selection
+    program written as torch ops at phase 11's shapes: the greedy descent
+    of level 1 (the largest upper layer) at ``qd``'s batch; the selection
     and the level-0 connect at the build's (the last ``build_batch``
     inserted rows as a batch that selects its current rows again; the
-    connect returns new tensors and leaves the graph as it is)."""
+    connect returns new tensors and leaves the graph as it is). The
+    layer-0 beam is one kernel, timed by ``bench_hnsw.beam_row``."""
     from quiver_tpu_torch.benches.common import launch_trace
     from quiver_tpu_torch.index.hnsw import _pow2
     from quiver_tpu_torch.ops import hnsw_kernels as hk
@@ -1627,9 +1636,6 @@ def hnsw_programs(torch, idx, qd, *, ef=100, reps=3) -> dict:
                                     view.inv_norms, metric=metric, k=kc + 1,
                                     compute_dtype=idx.compute_dtype)
     calls = {
-        "beam_search": lambda: hk.beam_search(
-            qd, entries, view.vectors, view.valid, adj0, pos0, metric=metric, ef=ef,
-            max_iters=int(1.5 * ef) + 8),
         "greedy_descent": lambda: hk.greedy_descent(
             qd, entries, view.vectors, view.valid, *layers[-1], metric=metric),
         "select_neighbors": lambda: hk.select_neighbors(
@@ -1661,6 +1667,7 @@ def phase_hnsw(torch, dev, vecs, *, n=HNSW_ROWS, n_q=2048, efs=HNSW_EFS,
     from quiver_tpu_torch.benches.common import launch_trace, oracle_topk
     from quiver_tpu_torch.convert import hnsw_from_topology
     from quiver_tpu_torch.core.store import VectorStore
+    from quiver_tpu_torch.ops import hnsw_cuda
 
     cuda = dev.type == "cuda"
     rows = vecs[:n]
@@ -1698,7 +1705,12 @@ def phase_hnsw(torch, dev, vecs, *, n=HNSW_ROWS, n_q=2048, efs=HNSW_EFS,
     for r in out["batches"]:
         log(f"hnsw search_device ef=100 B={r['B']}: ms_per_batch={r['ms']!r} qps={r['qps']!r}")
     stats = {}
+    hnsw_cuda.reset_launch_counts()
     idx.search_device(qd, 100, stats=stats)
+    out["launches"] = hnsw_cuda.launch_counts["hnsw_beam"]
+    if out["launches"] != int(cuda):
+        raise AssertionError(f"hnsw: one search_device call launched the beam kernel "
+                             f"{out['launches']} times on {dev.type}, not {int(cuda)}")
     it = stats["iters"].cpu().numpy()
     out["iters"] = {"mean": float(it.mean()), "max": int(it.max()), "loops": stats["loops"],
                     "max_iters": int(1.5 * 100) + 8}
@@ -1709,11 +1721,29 @@ def phase_hnsw(torch, dev, vecs, *, n=HNSW_ROWS, n_q=2048, efs=HNSW_EFS,
         wall = cuda_ms(lambda: idx.search_device(qd, 100), reps)
         tr.update(wall_ms=wall, busy_share=tr["kernel_ms"] / wall)
         out["trace"] = tr
+        beam = [n for n in tr["names"] if "beam_kernel" in n]
         log(f"hnsw trace ef=100 B={n_q}: launches_per_search={tr['launches']} "
             f"kernel_ms={tr['kernel_ms']!r} wall_ms={wall!r} (traced {tr['traced_wall_ms']!r}) "
-            f"busy_share={tr['busy_share']!r}")
+            f"busy_share={tr['busy_share']!r}; the beam kernel among them: {beam}")
+        if len(beam) != 1:
+            raise AssertionError(f"hnsw trace: {len(beam)} beam kernels in one search, not 1")
 
         out["programs"] = hnsw_programs(torch, idx, qd, reps=reps)
+        small = bench_hnsw.beam_row(idx, rows, b=256, ef=100, reps=reps)
+        big = bench_hnsw.beam_row(idx, rows, reps=reps)
+        out["beam_kernel"] = dict(big, max_abs_err=max(small["max_abs_err"], big["max_abs_err"]),
+                                  mismatches_small=small["mismatches"])
+        for r in (small, big):
+            log(f"hnsw beam kernel B={r['B']} ef={r['ef']} against its plain version: "
+                f"mismatches {r['mismatches']} dist_errors {r['dist_errors']} max_abs_err "
+                f"{r['max_abs_err']!r}; ms={r['ms']!r} plain_ms={r['plain_ms']!r} bound_ms="
+                f"{r['bound_ms']!r} bound_share={r['bound_share']!r} work={r['work']} "
+                f"accepted={r['accepted']} loops={r['loops']}")
+            if r["mismatches"] or r["dist_errors"]:
+                raise AssertionError(
+                    f"hnsw beam kernel at B={r['B']} ef={r['ef']}: {r['mismatches']} result "
+                    f"slots differ from its plain version beyond a tie swap, {r['dist_errors']} "
+                    f"distances beyond the f32 rounding bound")
 
     # the same graph on the CPU: the card's answer held to it
     t0 = time.perf_counter()
@@ -2985,12 +3015,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(persist_root)
 
-    # phase 11: the HNSW engine (torch ops, no hand-written kernel): its
-    # build and search on the shared corpus, then through the stack
+    # phase 11: the HNSW engine (the layer-0 beam's kernel, torch ops
+    # besides): its build and search on the shared corpus, then through the
+    # stack; the beam kernel's launches are those of one search_device call
     torch.cuda.empty_cache()
     t11 = time.perf_counter()
-    phase_hnsw(torch, dev, vecs, stream=HNSW_STREAM)
-    log(f"phase 11a-b wall (the streaming leg included): {time.perf_counter() - t11!r} s")
+    hnsw11 = phase_hnsw(torch, dev, vecs, stream=HNSW_STREAM)
+    log(f"phase 11a-b wall (the streaming leg included): {time.perf_counter() - t11!r} s; "
+        f"beam kernel launches of one search_device call {hnsw11['launches']}")
     torch.cuda.empty_cache()
     phase_hnsw_stack(torch, dev, vecs)
 
@@ -3110,6 +3142,25 @@ def main() -> int:
             "library_ms": None,  # none: no one PyTorch call does what either probe does
             **{k: t[k] for k in PROBE_EXTRAS[name]},
         })
+    beam = hnsw11["beam_kernel"]
+    kernels.append({
+        "name": "hnsw_beam",
+        "route": "cuda",
+        "source": "quiver_tpu_torch/csrc/hnsw_beam.cu",
+        "replaces": "none: quiver_tpu/ops/hnsw_kernels.py:102 is an XLA while_loop",
+        "launches": hnsw11["launches"],
+        "path": "hnsw",
+        "max_abs_err": beam["max_abs_err"],
+        "ms": beam["ms"],
+        "plain_ms": beam["plain_ms"],
+        "bound_ms": beam["bound_ms"],
+        "bound_by": "bytes",
+        "bound_share": beam["bound_share"],
+        "library_ms": None,  # no one PyTorch call runs a graph's beam search
+        "B": beam["B"],
+        "ef": beam["ef"],
+        "mismatches": beam["mismatches"] + beam["mismatches_small"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke total: {time.perf_counter() - _T0!r} s")
     print(card_line, flush=True)

@@ -117,11 +117,11 @@ def _compile(out_dir: Path, lib: Path, verbose: bool) -> None:
 def load_library() -> ctypes.CDLL:
     """The kernel library, built if needed and bound (argtypes set by each
     ops module for its own entries)."""
-    from quiver_tpu_torch.ops import ivf_cuda, probe_cuda
+    from quiver_tpu_torch.ops import hnsw_cuda, ivf_cuda, probe_cuda
 
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    for mod in (ivf_cuda, probe_cuda):
+    for mod in (ivf_cuda, probe_cuda, hnsw_cuda):
         mod.bind(lib)
     return lib
 

@@ -163,23 +163,25 @@ def kernel_ms(fn, calls: int) -> tuple[dict, float]:
 
 def launch_trace(fn) -> dict:
     """One call of ``fn`` after a warm-up call, under ``torch.profiler``
-    with CUDA activity: the kernels it launched (memory copies and sets
-    apart), their summed device ms, and the call's wall ms by CUDA events
-    around it under the profiler."""
+    with CPU and CUDA activity (with CUDA alone, the kernels launched
+    through ctypes, which no PyTorch op encloses, are left out): the
+    kernels it launched (memory copies and sets apart), their names and
+    summed device ms, and the call's wall ms by CUDA events around it under
+    the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         e0.record()
         fn()
         e1.record()
         torch.cuda.synchronize()
     kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
                and not ev.name.startswith(("Memcpy", "Memset"))]
-    return {"launches": len(kernels),
+    return {"launches": len(kernels), "names": [ev.name for ev in kernels],
             "kernel_ms": sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3,
             "traced_wall_ms": e0.elapsed_time(e1)}
 

@@ -4,10 +4,13 @@ and the level connect (PyTorch port of ``quiver_tpu/ops/hnsw_kernels.py``).
 Queries are a leading batch dimension: each iteration of the beam expands
 the ``expand`` nearest unexpanded beam entries of every query at once (a
 gather of neighbour rows, one batched distance, a sorted merge into the
-beam). Every function takes its device from its inputs and runs as torch
-ops; the reference's are XLA programs (``lax.while_loop``, ``lax.scan``,
-``lax.cond``), none of them Pallas, and no kernel is written by hand for
-them yet.
+beam). Every function takes its device from its inputs. The reference's
+are XLA programs (``lax.while_loop``, ``lax.scan``, ``lax.cond``), none of
+them Pallas. On CUDA tensors :func:`beam_search` launches one hand-written
+kernel (``ops/hnsw_cuda.py``, ``csrc/hnsw_beam.cu``: a CTA per query, each
+looping on the card until it is done); on CPU tensors it runs the plain
+version :func:`_beam_rows`, which the kernel computes step for step. The
+other programs run as torch ops on either device.
 
 What changes against the reference, each with the lines it replaces:
 
@@ -23,7 +26,8 @@ What changes against the reference, each with the lines it replaces:
   host read in torch, so the loops test them every
   :data:`BEAM_CHECK_EVERY` / :data:`DESCENT_CHECK_EVERY` iterations: an
   iteration after a query is done leaves its beam as it is, so the results
-  are the same;
+  are the same (the beam kernel tests each query every iteration, on the
+  card);
 * the ``.at[...].set/add(mode="drop")`` writes of :func:`connect_level`
   aim dropped writes at one scratch row past the end, sliced off
   afterwards; nothing reads it, so the order of the writes that land there
@@ -47,12 +51,14 @@ from __future__ import annotations
 
 import torch
 
+from quiver_tpu_torch.ops import hnsw_cuda
 from quiver_tpu_torch.ops.distance import inv_norms, norms_sq
 from quiver_tpu_torch.ops.scan import MASKED_DIST, require_ieee_f32
 from quiver_tpu_torch.types import DistanceType
 
 #: bytes of per-iteration temporaries one beam chunk may hold (the gather
-#: [b, block, d] f32 and the [b, block, ring] / [b, block, beam] compares)
+#: [b, block, d] f32 and the [b, block, ring] / [b, block, beam] compares;
+#: on CUDA, the bitsets of one launch of the kernel)
 BEAM_CHUNK_BYTES = 1 << 30
 #: iterations between the host reads of "every query done" (beam) and
 #: "no query moved" (greedy descent)
@@ -160,13 +166,21 @@ def beam_search(
     ``visited`` is ``"ring"`` (a rolling window of recently visited ids;
     a node evicted from both beam and ring can be expanded again) or
     ``"bitmap"`` (a per-query bitset over the capacity: discovery sets
-    the bit, so no node is expanded twice). Queries run in row chunks, as
-    many rows as :data:`BEAM_CHUNK_BYTES` of temporaries allow; each
-    query's result does not depend on its chunk.
+    the bit, so no node is expanded twice).
+
+    The path follows the inputs' device alone. CUDA tensors launch the
+    hand-written kernel (``ops/hnsw_cuda.py``), which raises a
+    ``ValueError`` where a size is past its limits (shared memory a query,
+    a capacity of 2**31 or more). CPU tensors run :func:`_beam_rows` in row
+    chunks, as many rows as :data:`BEAM_CHUNK_BYTES` of temporaries allow;
+    each query's result does not depend on its chunk.
 
     ``stats``, when given, receives ``"iters"`` (i64[B], the iterations in
-    which each query was active) and ``"loops"`` (the loop iterations run,
-    summed over chunks).
+    which each query was active), ``"accepted"`` (i64[B], the candidates
+    that passed the visited test, whose distances each query computed) and
+    ``"loops"``: on CUDA the longest query's loop iterations, the one that
+    found it done included (read back at the end, so the call waits for
+    the card); on the CPU the loop iterations run, summed over chunks.
 
     Returns (dist f32[B, ef], ids i64[B, ef]) sorted ascending; empty
     entries have id -1 and dist MASKED_DIST.
@@ -178,6 +192,12 @@ def beam_search(
     cap = vectors.shape[0]
     deg = adj.shape[1]
     block, pad_cols, beam_len, ring_len = beam_sizes(ef, deg, expand)
+    if queries.device.type == "cuda":
+        return hnsw_cuda.beam_search(
+            queries, entries, vectors, valid, adj, pos_map, metric=metric, ef=ef,
+            max_iters=max_iters, compute_dtype=compute_dtype, expand=expand,
+            bitmap=visited == "bitmap", sizes=(block, pad_cols, beam_len, ring_len),
+            chunk_bytes=BEAM_CHUNK_BYTES, stats=stats)
     per_query = block * (4 * d + ring_len + beam_len + block)
     if visited == "bitmap":
         per_query += 4 * ((cap + 31) // 32)
@@ -191,8 +211,9 @@ def beam_search(
         for lo in range(0, B, chunk)
     ]
     if stats is not None:
-        parts = stats.pop("_iters")
-        stats["iters"] = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64)
+        for key in ("iters", "accepted"):
+            parts = stats.pop("_" + key)
+            stats[key] = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64)
     if len(outs) == 1:
         return outs[0]
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
@@ -200,7 +221,9 @@ def beam_search(
 
 def _beam_rows(queries, entries, vectors, valid, adj, pos_map, *, metric, ef, max_iters,
                compute_dtype, expand, bitmap, sizes, stats):
-    """:func:`beam_search` over one chunk of rows."""
+    """:func:`beam_search` over one chunk of rows: the plain version, which
+    ``csrc/hnsw_beam.cu`` computes step for step on the card and the card
+    tests hold it to."""
     dev = queries.device
     B = queries.shape[0]
     cap = vectors.shape[0]
@@ -229,6 +252,7 @@ def _beam_rows(queries, entries, vectors, valid, adj, pos_map, *, metric, ef, ma
         ring[:, 0] = bi[:, 0]
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int64, device=dev) if stats is not None else None
+    accepted = torch.zeros_like(iters) if stats is not None else None
     kk_t = min(ef, beam_len)
     later = torch.ones(block, block, dtype=torch.bool, device=dev).tril(-1)  # col < row
 
@@ -284,6 +308,8 @@ def _beam_rows(queries, entries, vectors, valid, adj, pos_map, *, metric, ef, ma
         # 6. distances to the gathered neighbours (:273-276)
         n_dist = _batched_distance(queries, vectors[n_c], metric, compute_dtype)
         n_dist = torch.where(ok, n_dist, MASKED_DIST)
+        if accepted is not None:
+            accepted += ok.sum(1)
 
         # 7. merge into the sorted beam (:278-284): one stable sort
         md, order = torch.sort(torch.cat([bd, n_dist], dim=1), dim=1, stable=True)
@@ -294,6 +320,7 @@ def _beam_rows(queries, entries, vectors, valid, adj, pos_map, *, metric, ef, ma
     if stats is not None:
         stats["loops"] = stats.get("loops", 0) + loops
         stats.setdefault("_iters", []).append(iters)
+        stats.setdefault("_accepted", []).append(accepted)
     return bd[:, :ef], bi[:, :ef]
 
 

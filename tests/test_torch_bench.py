@@ -258,6 +258,22 @@ def test_hnsw_benches_small_on_cpu():
     assert rows[2]["per_strategy_queries"]["hnsw"] > 0 and rows[1]["hybrid_vs_raw"] > 0
 
 
+def test_bench_hnsw_beam_row_small_on_cpu():
+    """``bench_hnsw.beam_row`` on a CPU graph: both sides are the plain
+    version there, so no slot and no distance differs, the useful work and
+    the accepted candidates are counted and no bytes bound is given (it
+    needs a card's peaks)."""
+    from quiver_tpu_torch.benches import bench_hnsw
+
+    vecs = clustered(3000)
+    _, idx, _ = bench_hnsw.build("cpu", vecs, build_batch=1024)
+    r = bench_hnsw.beam_row(idx, vecs, b=32, ef=50, reps=1)
+    assert (r["B"], r["ef"], r["mismatches"], r["dist_errors"], r["max_abs_err"]) == (
+        32, 50, 0, 0, 0.0)
+    assert 0 < r["work"] <= 32 * r["loops"] and r["bound_ms"] is None and r["ms"] > 0
+    assert 0 < r["accepted"] <= r["work"] * bench_hnsw.EXPAND * 32
+
+
 def test_chip_smoke_hnsw_phase_small_on_cpu():
     """Phase 11's code path at a few thousand rows on the CPU (its card-only
     trace skipped): every gate passes on a sound graph."""

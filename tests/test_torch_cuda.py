@@ -16,7 +16,8 @@ against the slice on the CPU; the live index on the card (writes and a
 background refresh on the maintenance stream) against the CPU, and serving
 while a job runs; IVF's einsum formulation (torch ops) on the card against
 the CPU; the HNSW engine's beam search and build on the card
-against the same calls on the CPU.
+against the same calls on the CPU; the HNSW beam kernel against its plain
+version ``_beam_rows`` on the card, bit for bit on integer coordinates.
 """
 
 import threading
@@ -776,8 +777,13 @@ def test_hnsw_search_on_cuda_matches_cpu_on_one_graph(cuda, visited):
     store = VectorStore(dim=vecs.shape[1], metric="euclidean", device=cuda)
     store.add_batch([f"v{i}" for i in range(len(vecs))], vecs)
     ig = hnsw_from_topology(store, ic.export_topology(), visited=visited)
-    dg, sg = ig.search_slots(q, 10)
+    from quiver_tpu_torch.ops import hnsw_cuda
+
+    hnsw_cuda.reset_launch_counts()
     dc, sc = ic.search_slots(q, 10)
+    assert hnsw_cuda.launch_counts["hnsw_beam"] == 0
+    dg, sg = ig.search_slots(q, 10)
+    assert hnsw_cuda.launch_counts["hnsw_beam"] == 1
     np.testing.assert_allclose(dg, dc, rtol=1e-5, atol=1e-4)
     assert chip_smoke.ids_agree(sg, dg, sc, dc, rel=1e-4) == 0
 
@@ -797,6 +803,132 @@ def test_hnsw_build_on_cuda_matches_cpu(cuda):
     rec = [np.mean([len(set(s[b]) & set(truth[b])) / 10 for b in range(len(q))])
            for s in (ig.search_slots(q, 10)[1], ic.search_slots(q, 10)[1])]
     assert abs(rec[0] - rec[1]) <= 0.02 and rec[0] >= 0.9
+
+
+def _beam_case(dev, *, n=3000, d=32, deg=32, seed=0, integer=True, B=37, aligned=True):
+    """(queries, entries, vectors, valid, adj, pos_map) of a layer-0 graph on
+    ``dev``: each row's ``deg`` nearest other rows (f64, stable order), 5%
+    of the entries knocked out to -1, rows in a permuted order, 5% of the
+    slots tombstoned, 3% of the slots with no row (pos_map -1), one query
+    without an entry and one whose entry is tombstoned. ``integer``: small
+    integer coordinates, so every f32 sum is exact in any order; else
+    Gaussian clusters. ``aligned=False`` puts the vectors 4 bytes past a
+    16-byte boundary (contiguous, so the wrapper passes them as they are)."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        vecs = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+        q = rng.integers(-3, 4, size=(B, d)).astype(np.float32)
+    else:
+        centers = rng.normal(size=(12, d))
+        vecs = (centers[rng.integers(0, 12, n)] + 0.4 * rng.normal(size=(n, d))).astype(np.float32)
+        q = (vecs[rng.integers(0, n, B)] + 0.3 * rng.normal(size=(B, d))).astype(np.float32)
+    v = vecs.astype(np.float64)
+    d2 = (v * v).sum(1)[:, None] + (v * v).sum(1)[None, :] - 2 * v @ v.T
+    np.fill_diagonal(d2, np.inf)
+    adj = np.argsort(d2, axis=1, kind="stable")[:, :deg].astype(np.int32)
+    adj[rng.random(adj.shape) < 0.05] = -1
+    perm = rng.permutation(n)  # row r holds slot perm[r]
+    pos_map = np.empty(n, np.int64)
+    pos_map[perm] = np.arange(n)
+    pos_map[rng.random(n) < 0.03] = -1
+    valid = rng.random(n) >= 0.05
+    entries = rng.integers(0, n, B).astype(np.int64)
+    entries[0] = -1
+    entries[1] = int(np.flatnonzero(~valid)[0])
+    out = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (q, entries, vecs, valid, adj[perm], pos_map)]
+    if not aligned:
+        flat = torch.empty(n * d + 1, dtype=torch.float32, device=dev)
+        out[2] = flat[1:].view(n, d).copy_(out[2])
+        assert out[2].is_contiguous() and out[2].data_ptr() % 16 == 4
+    return tuple(out)
+
+
+def _beam_both(monkeypatch, args, *, metric, ef, expand, visited, compute_dtype=torch.float32):
+    """The kernel and its plain version ``_beam_rows`` on the card, over the
+    same inputs: ((dist, ids, iters, accepted, loops) of each). The plain
+    version tests "all done" every iteration, so its loop count is the
+    kernel's."""
+    from quiver_tpu_torch.ops import hnsw_cuda
+    from quiver_tpu_torch.ops import hnsw_kernels as hk
+
+    deg = args[4].shape[1]
+    kw = dict(metric=hk.DistanceType.parse(metric), ef=ef, max_iters=int(1.5 * ef) + 8,
+              compute_dtype=compute_dtype, expand=expand)
+    monkeypatch.setattr(hk, "BEAM_CHECK_EVERY", 1)
+    st = {}
+    pd, pi = hk._beam_rows(*args, bitmap=visited == "bitmap", stats=st,
+                           sizes=hk.beam_sizes(ef, deg, expand), **kw)
+    before = hnsw_cuda.launch_counts["hnsw_beam"]
+    sk = {}
+    kd, ki = hk.beam_search(*args, visited=visited, stats=sk, **kw)
+    assert hnsw_cuda.launch_counts["hnsw_beam"] == before + 1
+    torch.cuda.synchronize()
+    return ((kd, ki, sk["iters"], sk["accepted"], sk["loops"]),
+            (pd, pi, st["_iters"][0], st["_accepted"][0], st["loops"]))
+
+
+#: (visited, expand, deg, ef, metric, d, aligned) of the bitwise card test:
+#: every mix at d=32 over aligned rows (the kernel's float4 loads), then
+#: its scalar loads (``warp_rows<false>``), taken where d is not a multiple
+#: of 4 or the vectors are not 16-byte aligned
+BEAM_BITWISE_CASES = [
+    (visited, expand, deg, ef, metric, 32, True)
+    for visited in ("ring", "bitmap") for expand in (1, 4) for deg in (16, 32)
+    for ef in (10, 100, 320)
+    for metric in ("euclidean", "squared_euclidean", "dot_product", "manhattan")
+] + [
+    (visited, 4, 32, 100, metric, d, aligned)
+    for visited in ("ring", "bitmap") for d, aligned in ((30, True), (37, True), (32, False))
+    for metric in ("euclidean", "manhattan")
+]
+
+
+@pytest.mark.parametrize("visited,expand,deg,ef,metric,d,aligned", BEAM_BITWISE_CASES)
+def test_hnsw_beam_kernel_matches_plain_bitwise(cuda, monkeypatch, visited, expand, deg, ef,
+                                                metric, d, aligned):
+    """csrc/hnsw_beam.cu against ``_beam_rows`` on the card, on integer
+    coordinates (every sum exact in any order): distances, ids, each
+    query's active iterations and accepted candidates, and the loop count
+    equal bit for bit, the ties of the integer distances included (the
+    merge's order on equal distances: the beam first, then the lower
+    column)."""
+    args = _beam_case(cuda, d=d, deg=deg, seed=deg + expand + ef, aligned=aligned)
+    (kd, ki, kit, kacc, kl), (pd, pi, pit, pacc, pl) = _beam_both(
+        monkeypatch, args, metric=metric, ef=ef, expand=expand, visited=visited)
+    assert kd.shape == (37, ef) and ki.dtype == torch.int64
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    assert torch.equal(ki, pi)
+    assert torch.equal(kit, pit) and torch.equal(kacc, pacc) and kl == pl
+    assert (ki[:2] == -1).all() and int(kit.max()) > 8 and int(kacc.max()) > 0
+
+
+@pytest.mark.parametrize("visited", ["ring", "bitmap"])
+def test_hnsw_beam_kernel_cosine_bf16_matches_plain(cuda, monkeypatch, visited):
+    """Gaussian clusters, cosine, bf16-rounded products (f32 norms): sums in
+    another order, so distances to rtol 1e-5 and ids equal except swaps of
+    entries within 1e-5 relative (the beam tests' tolerance)."""
+    args = _beam_case(cuda, integer=False, seed=11)
+    (kd, ki, *_), (pd, pi, *_) = _beam_both(
+        monkeypatch, args, metric="cosine", ef=100, expand=4, visited=visited,
+        compute_dtype=torch.bfloat16)
+    kd, ki, pd, pi = (t.cpu().numpy() for t in (kd, ki, pd, pi))
+    np.testing.assert_array_equal(ki < 0, pi < 0)
+    np.testing.assert_allclose(kd[pi >= 0], pd[pi >= 0], rtol=1e-5, atol=1e-6)
+    assert chip_smoke.ids_agree(ki, kd, pi, pd, rel=1e-5) == 0
+
+
+def test_hnsw_beam_kernel_refuses_sizes_past_its_limits(cuda):
+    """An ef whose beam does not fit a CTA's shared memory raises before
+    any launch, on CUDA only: the CPU runs the plain version."""
+    from quiver_tpu_torch.ops import hnsw_cuda
+    from quiver_tpu_torch.ops import hnsw_kernels as hk
+
+    args = _beam_case(cuda, n=600)
+    before = hnsw_cuda.launch_counts["hnsw_beam"]
+    with pytest.raises(ValueError, match="shared memory"):
+        hk.beam_search(*args, metric="euclidean", ef=20_000, max_iters=8)
+    assert hnsw_cuda.launch_counts["hnsw_beam"] == before
 
 
 # ------------------------------------------------ meshes of distinct devices

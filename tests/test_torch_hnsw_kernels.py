@@ -11,6 +11,11 @@ The same numpy arrays, made from a seed, go through both functions:
   the swapped entries differ by under 1e-5 relative (the port merges with
   a stable sort where the reference runs bitonic networks, and sums in
   another order);
+* ``beam_search`` on CPU tensors at every metric (bf16 products in one
+  case) with the kernel library's build and load patched to raise: the
+  plain version answers, the JAX package's answer within the same
+  tolerances, no kernel launch counted (the kernel's own tests run on a
+  card, in ``test_torch_cuda.py``);
 * ``connect_level`` on a batch whose reverse edges overflow full rows in
   several chunks and spill past ``e_budget``: the adjacency, fill counts,
   spill count and changed-row mask are equal. Its inputs have no
@@ -103,6 +108,56 @@ def test_beam_search_matches_jax(visited, expand, deg):
     assert (np.diff(dt, axis=1) >= 0).all()
     assert_dists_close(dt, dj)
     assert_ids_agree(it, ij, dj)
+
+
+@pytest.mark.parametrize("metric,visited,compute", [
+    ("euclidean", "bitmap", "float32"), ("squared_euclidean", "ring", "float32"),
+    ("dot_product", "ring", "float32"), ("cosine", "ring", "bfloat16"),
+    ("manhattan", "ring", "float32"), ("cosine", "bitmap", "float32"),
+])
+def test_beam_search_on_cpu_never_touches_the_kernel(monkeypatch, metric, visited, compute):
+    """CPU tensors run the plain version whatever the metric, visited set
+    and compute dtype: the kernel library is neither built nor loaded (both
+    patched to raise), no launch is counted, the answer is the JAX
+    package's, and ``stats`` counts as the plain loop always has (each
+    query's active iterations, the loop's iterations checked every
+    BEAM_CHECK_EVERY), with each query's accepted candidates beside them
+    (at most a block an active iteration)."""
+    from quiver_tpu_torch import _build
+    from quiver_tpu_torch.ops import hnsw_cuda
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the kernel library was touched")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    hnsw_cuda.reset_launch_counts()
+    vecs, valid, adj, pos_map, rng = graph_case(seed=7, metric=metric)
+    B, ef = 16, 32
+    q = (vecs[rng.integers(0, len(vecs), B)] + 0.3 * rng.normal(size=(B, vecs.shape[1]))
+         ).astype(np.float32)
+    entries = rng.integers(0, len(vecs), B)
+    entries[0] = -1
+    kw = dict(metric=metric, ef=ef, max_iters=int(1.5 * ef) + 8, visited=visited)
+    dj, ij = (np.asarray(x) for x in jk.beam_search(
+        *[jnp.asarray(a) for a in (q, entries.astype(np.int32), vecs, valid, adj, pos_map)],
+        compute_dtype=getattr(jnp, compute), **kw))
+    stats = {}
+    dt, it = tk.beam_search(
+        *[torch.from_numpy(np.ascontiguousarray(a))
+          for a in (q, entries, vecs, valid, adj, pos_map.astype(np.int64))],
+        compute_dtype=getattr(torch, compute), stats=stats, **kw)
+    assert hnsw_cuda.launch_counts["hnsw_beam"] == 0
+    assert (it[0] == -1).all() and (np.diff(dt.numpy(), axis=1) >= 0).all()
+    assert_dists_close(dt, dj)
+    assert_ids_agree(it, ij, dj)
+    loops, iters = stats["loops"], stats["iters"]
+    assert iters.shape == (B,) and iters.dtype == torch.int64 and int(iters[0]) == 0
+    assert int(iters.max()) < loops <= kw["max_iters"]
+    assert loops % tk.BEAM_CHECK_EVERY == 0 or loops == kw["max_iters"]
+    accepted, block = stats["accepted"], tk.beam_sizes(ef, adj.shape[1], 4)[0]
+    assert accepted.shape == (B,) and int(accepted[0]) == 0 and int(accepted.max()) > 0
+    assert bool((accepted <= iters * block).all())
 
 
 def test_beam_search_chunks_and_stats_do_not_change_results(monkeypatch):

@@ -58,6 +58,7 @@ MODULES = [
     "quiver_tpu_torch.benches.bench_persistence",
     "quiver_tpu_torch.benches.profile_api",
     "quiver_tpu_torch.ops.hnsw_kernels",
+    "quiver_tpu_torch.ops.hnsw_cuda",
     "quiver_tpu_torch.index.hnsw",
     "quiver_tpu_torch.benches.bench_hnsw",
     "quiver_tpu_torch.benches.exp_hnsw_recall",
