@@ -144,12 +144,10 @@ def beam_row(idx, vecs, *, b=BEAM_B, ef=BEAM_EF, seed=5, reps=3) -> dict:
     metric, qdt = hk.DistanceType.parse(idx._metric()), idx._query_dtype()
     if metric != hk.DistanceType.EUCLIDEAN:
         raise ValueError(f"beam_row compares L2 distances, the graph's metric is {metric}")
-    entries = torch.full((b,), idx.entry_point, dtype=torch.int64, device=dev)
-    for adj, pos in layers:
-        _, entries = hk.greedy_descent(qd, entries, view.vectors, view.valid, adj, pos,
-                                       metric=metric, compute_dtype=qdt)
+    entries = hk.descend(qd, torch.full((b,), idx.entry_point, dtype=torch.int64, device=dev),
+                         view.vectors, view.valid, layers, metric=metric, compute_dtype=qdt)
     args = (qd, entries, view.vectors, view.valid, adj0, pos0)
-    kw = dict(metric=metric, ef=ef, max_iters=int(1.5 * ef) + 8, compute_dtype=qdt,
+    kw = dict(metric=metric, ef=ef, max_iters=hk.beam_max_iters(ef), compute_dtype=qdt,
               expand=EXPAND)
     bitmap = idx.config.visited == "bitmap"
 

@@ -2,9 +2,10 @@
 ``quiver_tpu/index/exact.py``).
 
 Search is one matmul scan with fused masking and top-k (ops/scan.py);
-recall is 1.0 by construction. ``IVFIndex`` uses it for small corpora,
-Manhattan, per-query masks and the under-fill supplement, the hybrid engine
-for its exact side, and the collector as its oracle.
+recall is 1.0 by construction. The IVF and HNSW engines use it for what
+they route to the exact scan, the under-fill supplement and the negative
+rerank (:meth:`ExactIndex.rerank_negative`), the hybrid engine for its
+exact side, and the collector as its oracle.
 
 The reference's constructor keywords carry over: ``tile`` (corpus rows per
 tile of the tiled scan), ``compute_dtype`` (``torch.bfloat16`` scans a
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from quiver_tpu_torch.core.store import VectorStore
+from quiver_tpu_torch.index.query import query_rows
 from quiver_tpu_torch.ops.scan import flat_scan_topk, negative_rerank
 
 
@@ -115,10 +117,7 @@ class ExactIndex:
         """
         view = self.store.device_view()
         dev = self.store.device
-        q_np = np.asarray(queries, dtype=np.float32)
-        if q_np.ndim == 1:
-            q_np = q_np[None, :]
-        q = torch.from_numpy(np.ascontiguousarray(q_np)).to(dev)
+        q = torch.from_numpy(np.ascontiguousarray(query_rows(queries))).to(dev)
         if mask is not None:
             mask = torch.as_tensor(np.asarray(mask, bool), device=dev)
         retrieve_k = k if negative is None else max(2 * k, 30)
@@ -129,14 +128,27 @@ class ExactIndex:
             compute_dtype=self.compute_dtype,
         )
         if negative is not None:
-            neg = torch.as_tensor(np.asarray(negative, np.float32), device=dev)
-            if neg.dim() == 1:
-                neg = neg[None, :].expand(q.shape[0], -1)
-            dist, idx = negative_rerank(
-                dist, idx, view.vectors, neg, metric=self.store.metric,
-                k=min(k, retrieve_k), weight=negative_weight,
+            dist, idx = self.rerank_negative(
+                q, dist, idx, negative, negative_weight, min(k, retrieve_k)
             )
         return dist.cpu().numpy(), idx.cpu().numpy()
+
+    def rerank_negative(self, q, dist, idx, negative, weight, k):
+        """Negative-example rerank of retrieved candidates: the k with the
+        smallest d_query - weight * d_negative, each with its query
+        distance (``ops/scan.negative_rerank``). ``dist``/``idx`` are
+        [B, R] candidates, host arrays or tensors; ``negative`` f32[B, d]
+        or one [d] for every row. Returns (dist f32[B, k], slot i64[B, k])
+        tensors on the store's device."""
+        dev = self.store.device
+        neg = torch.as_tensor(np.asarray(negative, np.float32), device=dev)
+        if neg.dim() == 1:
+            neg = neg[None, :].expand(q.shape[0], -1)
+        return negative_rerank(
+            torch.as_tensor(dist, device=dev), torch.as_tensor(idx, device=dev),
+            self.store.device_view().vectors, neg, metric=self.store.metric, k=k,
+            weight=weight,
+        )
 
     def search(self, query, k: int, **kw):
         """Single-query convenience -> list[(id, distance)]

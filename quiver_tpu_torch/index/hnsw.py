@@ -58,10 +58,12 @@ import torch
 
 from quiver_tpu_torch.core.store import VectorStore
 from quiver_tpu_torch.index.exact import ExactIndex
+from quiver_tpu_torch.index.query import query_rows, supplement
 from quiver_tpu_torch.ops.hnsw_kernels import (
+    beam_max_iters,
     beam_search,
     connect_level,
-    greedy_descent,
+    descend,
     pairwise_block,
     select_neighbors,
 )
@@ -69,7 +71,6 @@ from quiver_tpu_torch.ops.scan import (
     MASKED_DIST,
     SINGLE_SHOT_BUDGET_BYTES,
     flat_scan_topk,
-    negative_rerank,
 )
 from quiver_tpu_torch.utils.profiling import trace_span
 
@@ -771,15 +772,12 @@ class HNSWIndex:
                                      device=self.device)
                 layers, adj0, pos0 = self._device_graph()
                 qdt = self._query_dtype()
-                for adj, pos in layers:
-                    _, entries = greedy_descent(
-                        queries, entries, view.vectors, view.valid, adj, pos,
-                        metric=self._metric(), compute_dtype=qdt,
-                    )
+                entries = descend(queries, entries, view.vectors, view.valid, layers,
+                                  metric=self._metric(), compute_dtype=qdt)
             with trace_span("hnsw.beam") as beam:
                 out = beam_search(
                     queries, entries, view.vectors, view.valid, adj0, pos0,
-                    metric=self._metric(), ef=ef, max_iters=int(1.5 * ef) + 8,
+                    metric=self._metric(), ef=ef, max_iters=beam_max_iters(ef),
                     compute_dtype=qdt, visited=self.config.visited, stats=stats,
                 )
                 beam.n = stats["loops"]
@@ -809,9 +807,7 @@ class HNSWIndex:
         engine, ``n`` being the rows it answered."""
         with trace_span("hnsw.search") as span:
             with trace_span("hnsw.copy_in") as copy_in:
-                q = np.asarray(queries, np.float32)
-                if q.ndim == 1:
-                    q = q[None, :]
+                q = query_rows(queries)
                 span.n = copy_in.n = B = q.shape[0]
                 routed = (
                     exact
@@ -838,43 +834,23 @@ class HNSWIndex:
                 results.n = beam_iters = int(iters)
             with trace_span("hnsw.finish", B):
                 if negative is not None:
-                    neg = torch.as_tensor(np.asarray(negative, np.float32), device=self.device)
-                    if neg.dim() == 1:
-                        neg = neg[None, :].expand(B, -1)
-                    bd, bi = negative_rerank(
-                        bd[:, :retrieve_k], bi[:, :retrieve_k], self.store.device_view().vectors,
-                        neg, metric=self._metric(), k=k, weight=negative_weight,
+                    bd, bi = self._exact.rerank_negative(
+                        q, bd[:, :retrieve_k], bi[:, :retrieve_k], negative,
+                        negative_weight, k,
                     )
                     dist, idx = bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
+
                 # under-fill supplement (hnsw.go:676-710): fewer than k live
                 # results (deletes can disconnect the graph) merge in an
                 # exact scan
-                found = (idx >= 0).sum(axis=1)
-                short = np.flatnonzero(found < min(k, self.store.size))
-                if len(short):
-                    with trace_span("hnsw.exact", len(short)):
-                        e_dist, e_idx = self._exact.search_slots(
+                def exact_scan(n_short):
+                    with trace_span("hnsw.exact", n_short):
+                        return self._exact.search_slots(
                             q, k, negative=negative, negative_weight=negative_weight
                         )
-                    for b in short:
-                        dist[b], idx[b] = _merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
-            self._count(calls=1, queries=B, underfill_calls=int(len(short) > 0),
-                        underfill_rows=len(short), beam_loops=stats["loops"],
+
+                dist, idx, n_short = supplement(dist, idx, k, self.store.size, exact_scan)
+            self._count(calls=1, queries=B, underfill_calls=int(n_short > 0),
+                        underfill_rows=n_short, beam_loops=stats["loops"],
                         beam_iters=beam_iters)
             return dist, idx
-
-
-def _merge_rows(d1, i1, d2, i2, k):
-    """Merge two sorted candidate rows, dedup by id, keep k smallest."""
-    seen = {}
-    for d, i in list(zip(d1, i1)) + list(zip(d2, i2)):
-        i = int(i)
-        if i >= 0 and (i not in seen or d < seen[i]):
-            seen[i] = float(d)
-    items = sorted(seen.items(), key=lambda kv: kv[1])[:k]
-    out_d = np.full(k, MASKED_DIST, np.float32)
-    out_i = np.full(k, -1, np.int64)
-    for j, (i, d) in enumerate(items):
-        out_d[j] = d
-        out_i[j] = i
-    return out_d, out_i

@@ -53,6 +53,7 @@ import torch
 
 from quiver_tpu_torch.core.store import VectorStore
 from quiver_tpu_torch.index.exact import ExactIndex
+from quiver_tpu_torch.index.query import query_rows
 
 EXACT = "exact"
 HNSW = "hnsw"
@@ -346,9 +347,7 @@ class HybridIndex:
         exact: bool = False,
         strategy: Optional[str] = None,
     ):
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
+        q = query_rows(queries)
         if strategy is None:
             if exact or mask is not None:
                 strategy = EXACT

@@ -100,7 +100,7 @@ import torch
 
 from quiver_tpu_torch.core.store import VectorStore
 from quiver_tpu_torch.index.exact import ExactIndex
-from quiver_tpu_torch.index.hnsw import _merge_rows
+from quiver_tpu_torch.index.query import query_rows, supplement
 from quiver_tpu_torch.ops.distance import pairwise_distance
 from quiver_tpu_torch.ops.ivf_kernels import (
     POS_BITS,
@@ -111,7 +111,7 @@ from quiver_tpu_torch.ops.ivf_kernels import (
     split_oversized,
     train_kmeans,
 )
-from quiver_tpu_torch.ops.scan import MASKED_DIST, negative_rerank
+from quiver_tpu_torch.ops.scan import MASKED_DIST
 from quiver_tpu_torch.types import DistanceType
 from quiver_tpu_torch.utils.profiling import trace_span
 
@@ -1390,9 +1390,7 @@ class IVFIndex:
         answers for the engine, ``n`` being the rows it answered."""
         with trace_span("ivf.search") as span:
             with trace_span("ivf.copy_in") as copy_in:
-                q = np.asarray(queries, np.float32)
-                if q.ndim == 1:
-                    q = q[None, :]
+                q = query_rows(queries)
                 span.n = copy_in.n = B = q.shape[0]
                 per_query_mask = mask is not None and np.asarray(mask).ndim == 2
                 routed = (
@@ -1442,45 +1440,27 @@ class IVFIndex:
                         q, dist, idx, slot_keep, retrieve_k, overflow
                     )
                 if negative is not None:
-                    dist, idx = self._rerank_negative(
+                    dist, idx = self._exact.rerank_negative(
                         q, dist, idx, negative, negative_weight, k
                     )
-                dist, idx = dist[:, :k], idx[:, :k]
-                # under-fill supplement: probed clusters may not hold k live rows
-                host_fill = fill is None
-                if host_fill:
-                    fill = (idx >= 0).sum(axis=1)
-                short = np.flatnonzero(fill < min(k, self.store.size))
-                if len(short):
-                    with trace_span("ivf.exact", len(short)):
-                        e_dist, e_idx = self._exact.search_slots(
+                    dist, idx = dist.cpu().numpy(), idx.cpu().numpy()
+
+                def exact_scan(n_short):
+                    with trace_span("ivf.exact", n_short):
+                        return self._exact.search_slots(
                             q, k, mask=mask, negative=negative,
                             negative_weight=negative_weight,
                         )
-                    dist, idx = dist.copy(), idx.copy()
-                    for b in short:
-                        dist[b], idx[b] = _merge_rows(
-                            dist[b], idx[b], e_dist[b], e_idx[b], k
-                        )
-            self._count(calls=1, queries=B, underfill_calls=int(len(short) > 0),
-                        underfill_rows=len(short), overflow_merges=int(bool(overflow)),
+
+                # under-fill supplement: probed clusters may not hold k live rows
+                host_fill = fill is None
+                dist, idx, n_short = supplement(
+                    dist[:, :k], idx[:, :k], k, self.store.size, exact_scan, fill
+                )
+            self._count(calls=1, queries=B, underfill_calls=int(n_short > 0),
+                        underfill_rows=n_short, overflow_merges=int(bool(overflow)),
                         fill_host_checks=int(host_fill))
             return dist, idx
-
-    def _rerank_negative(self, q, dist, idx, negative, weight, k):
-        """Negative-example rerank of retrieved candidates
-        (d_q - w*d_neg)."""
-        neg = np.asarray(negative, np.float32)
-        if neg.ndim == 1:
-            neg = np.broadcast_to(neg[None, :], q.shape)
-        d2, i2 = negative_rerank(
-            torch.as_tensor(dist, device=self.device),
-            torch.as_tensor(idx, device=self.device),
-            self.store.device_view().vectors,
-            torch.as_tensor(np.ascontiguousarray(neg), device=self.device),
-            metric=self.store.metric, k=k, weight=weight,
-        )
-        return d2.cpu().numpy(), i2.cpu().numpy()
 
     def _merge_overflow(self, q, dist, idx, keep, k, overflow):
         """Exactly score the overflow rows (rows outside the block layout)

@@ -365,6 +365,23 @@ def greedy_descent(
     return cd, ci
 
 
+def descend(queries, entries, vectors, valid, layers, *, metric, compute_dtype=torch.float32):
+    """The search's way down: :func:`greedy_descent` from ``entries``
+    (i64[B]) over each upper layer of ``layers`` ((adj, pos_map) pairs, top
+    first), each from where the one above stopped. Returns the layer-0
+    entries."""
+    for adj, pos_map in layers:
+        _, entries = greedy_descent(queries, entries, vectors, valid, adj, pos_map,
+                                    metric=metric, compute_dtype=compute_dtype)
+    return entries
+
+
+def beam_max_iters(ef: int) -> int:
+    """The layer-0 beam's iteration cap at ``ef`` (the reference's
+    ``max_iters``, ``quiver_tpu/index/hnsw.py:901``)."""
+    return int(1.5 * ef) + 8
+
+
 def connect_level(
     adj: torch.Tensor,  # i32[rows, deg] layer adjacency
     fill: torch.Tensor,  # i32[rows] live-edge counts

@@ -313,10 +313,7 @@ def block_topw(
             q, centroids, starts, order, blocks_t, round_query=round_query, **kw)
     if dev.type != "cuda":
         raise ValueError(f"block_topw: unsupported device {dev}")
-    if blocks_t.dtype == torch.float32:
-        return _launch_cuda_f32(
-            q, centroids, starts, order, blocks_t, round_query=round_query, **kw)
-    return _launch_cuda(q, centroids, starts, order, blocks_t, **kw)
+    return _launch_cuda(q, centroids, starts, order, blocks_t, round_query=round_query, **kw)
 
 
 def _variant(lib_row_max, W, R, Cmax, win_add, sentinel):
@@ -359,33 +356,48 @@ def _out_rows(BP, M, width, sentinel, device):
     return torch.full((BP, width), int(sentinel), dtype=torch.int32, device=device)
 
 
+#: per block dtype on CUDA: (the Cmax quantum that makes the blocks' row
+#: stride a multiple of 16 bytes, as their tensor map needs; the depth the
+#: prologue pads each sorted pair's query row to, the kernel's chunk; the C
+#: entry, whose ``_tile_rows`` and ``_row_max`` queries share its name)
+_CUDA_BLOCKS = {
+    torch.bfloat16: (8, 64, "ivf_block_topw"),
+    torch.float32: (4, 32, "ivf_block_topw_f32"),
+}
+
+
 def _launch_cuda(
     q, centroids, starts, order, blocks_t, *, P, scale, col_add, row_add,
-    col_mul, win_add, sub_cent, W, R, pos_bits, sentinel,
+    col_mul, win_add, sub_cent, round_query, W, R, pos_bits, sentinel,
 ):
+    """One launch of the kernel of ``blocks_t``'s dtype (:data:`_CUDA_BLOCKS`).
+    The prologue writes each sorted pair's query row in that dtype (the
+    f32 kernel's bf16-rounded when ``round_query``); launches count under
+    the variant, behind :data:`F32` for f32 blocks."""
     from quiver_tpu_torch._build import load_library
 
     B, d = q.shape
     K, _, Cmax = blocks_t.shape
-    if Cmax % 8:
-        # the tensor map's row stride (Cmax bf16) must be a multiple of 16 bytes
-        raise ValueError(f"block_topw: Cmax={Cmax} must be a multiple of 8 on CUDA")
+    f32 = blocks_t.dtype == torch.float32
+    quantum, depth, entry = _CUDA_BLOCKS[blocks_t.dtype]
+    if Cmax % quantum:
+        raise ValueError(
+            f"block_topw: {blocks_t.dtype} blocks need Cmax % {quantum} == 0, a multiple "
+            f"of {quantum} (Cmax={Cmax}), on CUDA")
     for name, t in (("blocks_t", blocks_t), ("col_add", col_add), ("col_mul", col_mul)):
         if t is not None and t.data_ptr() % 16:
             # TMA and bulk copies read from 16-byte aligned addresses
             raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
     lib = load_library()
-    variant, w_arg, whole = _variant(lib.ivf_block_topw_row_max(), W, R, Cmax, win_add,
+    variant, w_arg, whole = _variant(getattr(lib, entry + "_row_max")(), W, R, Cmax, win_add,
                                      sentinel)
     BP, M = B * P, order.shape[0]
     out = _out_rows(BP, M, Cmax if whole else (Cmax // W) * R, sentinel, q.device)
     if M == 0:
         return out[:, :R] if whole else out
-    tile_start, n_tiles_max = _tile_start(starts, K, M, lib.ivf_block_topw_tile_rows())
-    # the prologue's output: each sorted pair's bf16 query row, d padded to
-    # the kernel's 64-deep chunks
-    qa = torch.empty(M, (d + 63) // 64 * 64, dtype=torch.bfloat16, device=q.device)
-    err = lib.ivf_block_topw(
+    tile_start, n_tiles_max = _tile_start(starts, K, M, getattr(lib, entry + "_tile_rows")())
+    qa = torch.empty(M, (d + depth - 1) // depth * depth, dtype=blocks_t.dtype, device=q.device)
+    err = getattr(lib, entry)(
         q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
         tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
         qa.data_ptr(),
@@ -395,59 +407,12 @@ def _launch_cuda(
         0 if win_add is None else win_add.data_ptr(),
         out.data_ptr(),
         K, d, Cmax, P, M, n_tiles_max, float(scale), int(bool(sub_cent)),
+        *((int(bool(round_query)),) if f32 else ()),
         w_arg, R, pos_bits, int(sentinel), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "block_topw", lib)
-    _count(variant)
-    if whole:
-        out = torch.topk(out, R, dim=1).values  # keys are distinct in a row
-    return out
-
-
-def _launch_cuda_f32(
-    q, centroids, starts, order, blocks_t, *, P, scale, col_add, row_add,
-    col_mul, win_add, sub_cent, round_query, W, R, pos_bits, sentinel,
-):
-    from quiver_tpu_torch._build import load_library
-
-    B, d = q.shape
-    K, _, Cmax = blocks_t.shape
-    if Cmax % 4 or blocks_t.data_ptr() % 16:
-        # the tensor map's row stride (Cmax f32) and start are multiples of 16 bytes
-        raise ValueError(
-            f"block_topw: f32 blocks need Cmax % 4 == 0 (Cmax={Cmax}) and a "
-            "16-byte aligned start on CUDA")
-    for name, t in (("col_add", col_add), ("col_mul", col_mul)):
-        if t is not None and t.data_ptr() % 16:
-            # bulk copies read from 16-byte aligned addresses
-            raise ValueError(f"block_topw: {name} must start on a 16-byte boundary on CUDA")
-    lib = load_library()
-    variant, w_arg, whole = _variant(lib.ivf_block_topw_f32_row_max(), W, R, Cmax, win_add,
-                                     sentinel)
-    BP, M = B * P, order.shape[0]
-    out = _out_rows(BP, M, Cmax if whole else (Cmax // W) * R, sentinel, q.device)
-    if M == 0:
-        return out[:, :R] if whole else out
-    tile_start, n_tiles_max = _tile_start(starts, K, M, lib.ivf_block_topw_f32_tile_rows())
-    # the prologue's output: each sorted pair's f32 query row (bf16-rounded
-    # when round_query), d padded to the kernel's 32-deep chunks
-    qa = torch.empty(M, (d + 31) // 32 * 32, dtype=torch.float32, device=q.device)
-    err = lib.ivf_block_topw_f32(
-        q.data_ptr(), centroids.data_ptr(), starts.data_ptr(),
-        tile_start.data_ptr(), order.data_ptr(), blocks_t.data_ptr(),
-        qa.data_ptr(),
-        0 if row_add is None else row_add.data_ptr(),
-        0 if col_mul is None else col_mul.data_ptr(),
-        col_add.data_ptr(),
-        0 if win_add is None else win_add.data_ptr(),
-        out.data_ptr(),
-        K, d, Cmax, P, M, n_tiles_max, float(scale), int(bool(sub_cent)),
-        int(bool(round_query)), w_arg, R, pos_bits, int(sentinel), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(err, "block_topw", lib)
-    _count((F32, variant))
+    _count((F32, variant) if f32 else variant)
     if whole:
         out = torch.topk(out, R, dim=1).values  # keys are distinct in a row
     return out

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from quiver_tpu_torch.core.store import VectorStore
+from quiver_tpu_torch.index.query import query_rows
 from quiver_tpu_torch.ops.distance import distance_pairs, inv_norms, norms_sq
 from quiver_tpu_torch.ops.scan import MASKED_DIST, flat_scan_topk
 from quiver_tpu_torch.types import DistanceType
@@ -374,9 +375,7 @@ class ShardedExactIndex:
         negative_weight: float = 0.5,
         exact: bool = False,
     ):
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
+        q = query_rows(queries)
         retrieve_k = k if negative is None else max(2 * k, 30)
         retrieve_k = min(retrieve_k, self.store.capacity)
         qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.mesh[0])
@@ -390,11 +389,14 @@ class ShardedExactIndex:
     def rerank_negative(self, q, dist, idx, negative, weight, k):
         """:func:`sharded_negative_rerank` of retrieved candidates against
         this engine's shards (the corpus is never gathered onto one
-        device)."""
-        neg = torch.as_tensor(np.asarray(negative, np.float32), device=dist.device)
+        device). The contract of ``ExactIndex.rerank_negative``: host
+        arrays or tensors in, tensors on the first shard's device out."""
+        dev = self.mesh[0]
+        neg = torch.as_tensor(np.asarray(negative, np.float32), device=dev)
         if neg.dim() == 1:
             neg = neg[None, :].expand(q.shape[0], -1)
         return sharded_negative_rerank(
-            dist, idx, [sh[0] for sh in self.shards()], neg,
+            torch.as_tensor(dist, device=dev), torch.as_tensor(idx, device=dev),
+            [sh[0] for sh in self.shards()], neg,
             metric=self.store.metric, k=k, weight=weight,
         )

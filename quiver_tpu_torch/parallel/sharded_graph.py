@@ -58,8 +58,9 @@ import numpy as np
 import torch
 
 from quiver_tpu_torch.core.store import VectorStore
-from quiver_tpu_torch.index.hnsw import HNSWConfig, HNSWIndex, _merge_rows
-from quiver_tpu_torch.ops.hnsw_kernels import beam_search, greedy_descent
+from quiver_tpu_torch.index.hnsw import HNSWConfig, HNSWIndex
+from quiver_tpu_torch.index.query import query_rows, supplement
+from quiver_tpu_torch.ops.hnsw_kernels import beam_max_iters, beam_search, descend
 from quiver_tpu_torch.ops.scan import MASKED_DIST
 from quiver_tpu_torch.parallel.sharded import (
     MeshLike,
@@ -272,12 +273,10 @@ class ShardedHNSWIndex:
         qq = q.to(dev).repeat(g, 1)  # shard-major: rows j*B .. j*B+B-1
         e = entries.repeat_interleave(B)
         qdt = self._subs[0]._query_dtype()
-        for adj, pos in layers:
-            _, e = greedy_descent(qq, e, vecs, valid, adj, pos, metric=self._metric(),
-                                  compute_dtype=qdt)
+        e = descend(qq, e, vecs, valid, layers, metric=self._metric(), compute_dtype=qdt)
         bd, bi = beam_search(
             qq, e, vecs, valid, adj0, pos0, metric=self._metric(), ef=ef,
-            max_iters=int(1.5 * ef) + 8, compute_dtype=qdt,
+            max_iters=beam_max_iters(ef), compute_dtype=qdt,
             visited=self.config.visited, stats=stats,
         )
         kk = min(k, ef)
@@ -365,9 +364,7 @@ class ShardedHNSWIndex:
         negative_weight: float = 0.5,
         exact: bool = False,
     ):
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
+        q = query_rows(queries)
         with self._lock:
             graph = not (
                 exact
@@ -388,18 +385,11 @@ class ShardedHNSWIndex:
             bd, bi = self._exact.rerank_negative(qd, bd, bi, negative, negative_weight, k)
         dist, idx = bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
         # under-fill supplement (hnsw.go:676-710), from the sharded exact scan
-        found = (idx >= 0).sum(axis=1)
-        want = min(k, self.store.size)
-        if (found < want).any():
-            e_dist, e_idx = self._exact.search_slots(
-                q, k, negative=negative, negative_weight=negative_weight
-            )
-            if dist.shape[1] < k:
-                pad = k - dist.shape[1]
-                dist = np.pad(dist, ((0, 0), (0, pad)), constant_values=MASKED_DIST)
-                idx = np.pad(idx, ((0, 0), (0, pad)), constant_values=-1)
-            for b in np.flatnonzero(found < want):
-                dist[b], idx[b] = _merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
+        dist, idx, _ = supplement(
+            dist, idx, k, self.store.size,
+            lambda n_short: self._exact.search_slots(
+                q, k, negative=negative, negative_weight=negative_weight),
+        )
         return dist, idx
 
     # ---------------------------------------------------------- persistence

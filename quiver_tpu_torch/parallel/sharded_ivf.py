@@ -471,15 +471,6 @@ class ShardedIVFIndex(IVFIndex):
             self._pending_load = (load, m_pairs, queries.shape[0] * P / max(self.n_shards, 1))
             return dist, slot
 
-    def _rerank_negative(self, q, dist, idx, negative, weight, k):
-        """The negative rerank over the store's rows, shard by shard
-        (``sharded_ivf.py:414-427``)."""
-        d2, i2 = self._exact.rerank_negative(
-            q, torch.as_tensor(dist, device=self.mesh[0]),
-            torch.as_tensor(idx, device=self.mesh[0]), negative, weight, k,
-        )
-        return d2.cpu().numpy(), i2.cpu().numpy()
-
     def get_detailed_metrics(self) -> dict:
         m = super().get_detailed_metrics()
         m["sharded"] = {

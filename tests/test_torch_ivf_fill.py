@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from quiver_tpu_torch import IVFConfig, IVFIndex, VectorStore
-from quiver_tpu_torch.index import ivf as ivf_mod
+from quiver_tpu_torch.index import query as query_mod
 from quiver_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -67,7 +67,8 @@ def host_path(eng, q, k, mask=None, negative=None, negative_weight=0.5):
         dist, idx = eng._merge_overflow(q, dist, idx, keep, retrieve_k,
                                         sorted(eng._overflow))
     if negative is not None:
-        dist, idx = eng._rerank_negative(q, dist, idx, negative, negative_weight, k)
+        dist, idx = eng._exact.rerank_negative(q, dist, idx, negative, negative_weight, k)
+        dist, idx = dist.cpu().numpy(), idx.cpu().numpy()
     dist, idx = dist[:, :k], idx[:, :k]
     short = np.flatnonzero((idx >= 0).sum(axis=1) < min(k, eng.store.size))
     before = idx[short].copy()
@@ -77,7 +78,7 @@ def host_path(eng, q, k, mask=None, negative=None, negative_weight=0.5):
         )
         dist, idx = dist.copy(), idx.copy()
         for b in short:
-            dist[b], idx[b] = ivf_mod._merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
+            dist[b], idx[b] = query_mod.merge_rows(dist[b], idx[b], e_dist[b], e_idx[b], k)
     return dist, idx, short, before
 
 
@@ -148,8 +149,8 @@ def test_search_slots_matches_the_host_count(case, monkeypatch):
         merged.append(i1.copy())
         return merge(d1, i1, d2, i2, k_)
 
-    merge = ivf_mod._merge_rows
-    monkeypatch.setattr(ivf_mod, "_merge_rows", spy)
+    merge = query_mod.merge_rows
+    monkeypatch.setattr(query_mod, "merge_rows", spy)
     before = dict(eng.get_detailed_metrics()["search"])
     dist, idx = eng.search_slots(q, k, **kw)
     after = eng.get_detailed_metrics()["search"]
