@@ -136,8 +136,9 @@ printing any result. Phases, one line each (any failure raises):
    rows; SIGTERM: exit 0 within the shutdown timeout plus the flush (its
    seconds logged); ``info`` then counts 65,536 + 1,024; ``backup``, then
    ``restore`` into a fresh directory, whose ``info`` matches;
-11. HNSW (the layer-0 beam is the kernel ``csrc/hnsw_beam.cu``, whose
-   entry joins the kernels line; the rest are torch ops): (a) ``HNSWIndex`` built over the 1M corpus as
+11. HNSW (the layer-0 beam and the greedy descent are the kernels of
+   ``csrc/hnsw_beam.cu``; both join the kernels line; the rest are torch
+   ops): (a) ``HNSWIndex`` built over the 1M corpus as
    ``benches/bench_hnsw.py`` builds it (M=16, m0=32, efC=200, bf16
    construction products, ``build_batch`` 8192): wall seconds, inserts/s,
    the spill count, each layer's graph checked on the card
@@ -149,10 +150,18 @@ printing any result. Phases, one line each (any failure raises):
    is logged as a finding), ms per batch of ``search_device`` at B in
    {128, 2048, 65536} at ef=100, the beam's iterations (mean and max per
    query, the loop's count; gate: that one ``search_device`` call
-   launches the beam kernel once), one B=2048 search's kernel launches
-   and the card's busy share from a profiler trace (gate: one beam kernel
-   among them), the card ms and launches of each HNSW program written as
-   torch ops at the phase's shapes (:func:`hnsw_programs`); the beam
+   launches the beam kernel once, and the descent kernel once on a graph
+   with an upper layer); the descent kernel against its plain version
+   ``_descend_chain`` at B=2048 through every upper layer
+   (``bench_hnsw.descent_row``, on the CPU both sides are the plain
+   version; gates: no layer-0 entry differs beyond a swap of entries
+   within 1e-5, no distance differs by more than that 1e-5 plus the f32
+   rounding of the L2 expansion), timed beside the bytes bound of the
+   distinct rows its walks read and its time per step of the longest walk;
+   one B=2048 search's kernel launches and the card's busy share from a
+   profiler trace (gate: one beam kernel and one descent kernel among
+   them), the card ms and launches of each HNSW program written as torch
+   ops at the phase's shapes (:func:`hnsw_programs`); the beam
    kernel against its plain version ``_beam_rows`` on the card at B=256,
    ef=100 and at ``sift1m-hnsw.batch2k``'s shape, B=2048, ef=320
    (``bench_hnsw.beam_row``; gates at both: no result slot differs beyond
@@ -1611,21 +1620,20 @@ def hnsw_invariants(torch, idx) -> list:
 
 def hnsw_programs(torch, idx, qd, *, reps=3) -> dict:
     """Card ms (CUDA events) and kernel launches of one call of each HNSW
-    program written as torch ops at phase 11's shapes: the greedy descent
-    of level 1 (the largest upper layer) at ``qd``'s batch; the selection
-    and the level-0 connect at the build's (the last ``build_batch``
-    inserted rows as a batch that selects its current rows again; the
-    connect returns new tensors and leaves the graph as it is). The
-    layer-0 beam is one kernel, timed by ``bench_hnsw.beam_row``."""
+    program written as torch ops at phase 11's shapes: the selection and
+    the level-0 connect at the build's (the last ``build_batch`` inserted
+    rows as a batch that selects its current rows again; the connect
+    returns new tensors and leaves the graph as it is). The greedy descent
+    and the layer-0 beam are kernels, timed by ``bench_hnsw.descent_row``
+    and ``bench_hnsw.beam_row``."""
     from quiver_tpu_torch.benches.common import launch_trace
     from quiver_tpu_torch.index.hnsw import _pow2
     from quiver_tpu_torch.ops import hnsw_kernels as hk
     from quiver_tpu_torch.ops.scan import flat_scan_topk
 
     view = idx.store.device_view()
-    layers, adj0, pos0 = idx._device_graph()
+    _, adj0, pos0 = idx._device_graph()
     metric = idx._metric()
-    entries = torch.full((qd.shape[0],), idx.entry_point, dtype=torch.int64, device=qd.device)
     bb = idx.config.build_batch
     slots = torch.from_numpy(idx.layer0.nodes[-bb:].astype(np.int64)).to(qd.device)
     rows = pos0[slots]
@@ -1636,8 +1644,6 @@ def hnsw_programs(torch, idx, qd, *, reps=3) -> dict:
                                     view.inv_norms, metric=metric, k=kc + 1,
                                     compute_dtype=idx.compute_dtype)
     calls = {
-        "greedy_descent": lambda: hk.greedy_descent(
-            qd, entries, view.vectors, view.valid, *layers[-1], metric=metric),
         "select_neighbors": lambda: hk.select_neighbors(
             q_b, cand_i, cand_d, view.vectors, metric=metric, m=deg,
             compute_dtype=idx.compute_dtype),
@@ -1708,25 +1714,45 @@ def phase_hnsw(torch, dev, vecs, *, n=HNSW_ROWS, n_q=2048, efs=HNSW_EFS,
     hnsw_cuda.reset_launch_counts()
     idx.search_device(qd, 100, stats=stats)
     out["launches"] = hnsw_cuda.launch_counts["hnsw_beam"]
+    out["descent_launches"] = hnsw_cuda.launch_counts["hnsw_descent"]
     if out["launches"] != int(cuda):
         raise AssertionError(f"hnsw: one search_device call launched the beam kernel "
                              f"{out['launches']} times on {dev.type}, not {int(cuda)}")
+    if out["descent_launches"] != int(cuda and idx.current_max_level > 0):
+        raise AssertionError(f"hnsw: one search_device call launched the descent kernel "
+                             f"{out['descent_launches']} times on {dev.type}")
     it = stats["iters"].cpu().numpy()
     out["iters"] = {"mean": float(it.mean()), "max": int(it.max()), "loops": stats["loops"],
                     "max_iters": int(1.5 * 100) + 8}
     log(f"hnsw beam iterations ef=100 B={n_q}: per query mean={float(it.mean())!r} max={int(it.max())} "
         f"loop={stats['loops']} of max_iters={out['iters']['max_iters']}")
+    r = out["descent_kernel"] = bench_hnsw.descent_row(idx, rows, b=n_q, reps=reps)
+    log(f"hnsw descent kernel B={r['B']} layers={r['layers']} against its plain version: "
+        f"mismatches {r['mismatches']} dist_errors {r['dist_errors']} max_abs_err "
+        f"{r['max_abs_err']!r}; ms={r['ms']!r} plain_ms={r['plain_ms']!r} bound_ms="
+        f"{r['bound_ms']!r} bound_share={r['bound_share']!r} bytes={r['bytes']} steps="
+        f"{r['steps']} max_steps={r['max_steps']} us_per_step={r['us_per_step']!r}")
+    if r["mismatches"] or r["dist_errors"]:
+        raise AssertionError(
+            f"hnsw descent kernel at B={r['B']}: {r['mismatches']} layer-0 entries differ from "
+            f"its plain version beyond a tie swap, {r['dist_errors']} distances beyond the f32 "
+            f"rounding bound")
     if cuda:
         tr = launch_trace(lambda: idx.search_device(qd, 100))
         wall = cuda_ms(lambda: idx.search_device(qd, 100), reps)
         tr.update(wall_ms=wall, busy_share=tr["kernel_ms"] / wall)
         out["trace"] = tr
         beam = [n for n in tr["names"] if "beam_kernel" in n]
+        descent = [n for n in tr["names"] if "descent_kernel" in n]
         log(f"hnsw trace ef=100 B={n_q}: launches_per_search={tr['launches']} "
             f"kernel_ms={tr['kernel_ms']!r} wall_ms={wall!r} (traced {tr['traced_wall_ms']!r}) "
-            f"busy_share={tr['busy_share']!r}; the beam kernel among them: {beam}")
+            f"busy_share={tr['busy_share']!r}; the beam kernel among them: {beam}; the "
+            f"descent kernel: {descent}")
         if len(beam) != 1:
             raise AssertionError(f"hnsw trace: {len(beam)} beam kernels in one search, not 1")
+        if len(descent) != out["descent_launches"]:
+            raise AssertionError(f"hnsw trace: {len(descent)} descent kernels in one search, "
+                                 f"not {out['descent_launches']}")
 
         out["programs"] = hnsw_programs(torch, idx, qd, reps=reps)
         small = bench_hnsw.beam_row(idx, rows, b=256, ef=100, reps=reps)
@@ -3015,14 +3041,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(persist_root)
 
-    # phase 11: the HNSW engine (the layer-0 beam's kernel, torch ops
-    # besides): its build and search on the shared corpus, then through the
-    # stack; the beam kernel's launches are those of one search_device call
+    # phase 11: the HNSW engine (the descent's and the layer-0 beam's
+    # kernels, torch ops besides): its build and search on the shared
+    # corpus, then through the stack; the kernels' launches are those of one
+    # search_device call
     torch.cuda.empty_cache()
     t11 = time.perf_counter()
     hnsw11 = phase_hnsw(torch, dev, vecs, stream=HNSW_STREAM)
     log(f"phase 11a-b wall (the streaming leg included): {time.perf_counter() - t11!r} s; "
-        f"beam kernel launches of one search_device call {hnsw11['launches']}")
+        f"kernel launches of one search_device call: beam {hnsw11['launches']}, descent "
+        f"{hnsw11['descent_launches']}")
     torch.cuda.empty_cache()
     phase_hnsw_stack(torch, dev, vecs)
 
@@ -3160,6 +3188,28 @@ def main() -> int:
         "B": beam["B"],
         "ef": beam["ef"],
         "mismatches": beam["mismatches"] + beam["mismatches_small"],
+    })
+    descent = hnsw11["descent_kernel"]
+    kernels.append({
+        "name": "hnsw_descent",
+        "route": "cuda",
+        "source": "quiver_tpu_torch/csrc/hnsw_beam.cu",
+        "replaces": "none: quiver_tpu/ops/hnsw_kernels.py:294 is an XLA while_loop a layer",
+        "launches": hnsw11["descent_launches"],
+        "path": "hnsw",
+        "max_abs_err": descent["max_abs_err"],
+        "ms": descent["ms"],
+        "plain_ms": descent["plain_ms"],
+        "bound_ms": descent["bound_ms"],
+        "bound_by": "bytes",
+        "bound_share": descent["bound_share"],
+        "library_ms": None,  # no one PyTorch call walks a graph
+        "B": descent["B"],
+        "layers": descent["layers"],
+        "mismatches": descent["mismatches"],
+        "dist_errors": descent["dist_errors"],
+        "max_steps": descent["max_steps"],
+        "us_per_step": descent["us_per_step"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke total: {time.perf_counter() - _T0!r} s")

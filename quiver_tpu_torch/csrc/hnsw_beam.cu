@@ -51,6 +51,11 @@
 // Ids are i32 (the wrapper refuses a capacity of 2**31 or more); results
 // are written as (f32, i64).
 
+// The same file holds the greedy descent through the upper layers
+// (ops/hnsw_kernels.py::descend) as a second kernel, hnsw_descent, which
+// shares the distance helpers (rounded, inv_norm, finish, merge_key); its
+// note is above descent_kernel below.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -511,6 +516,247 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The greedy descent through the upper layers (ops/hnsw_kernels.py::descend).
+//
+// It replaces no Pallas kernel: the reference's greedy_descent
+// (quiver_tpu/ops/hnsw_kernels.py:294-338) is an XLA lax.while_loop, run
+// once a layer, and the port ran it as some 13 torch ops a step over every
+// row of the batch, rows that had stopped included, with a host read of
+// "any query moved" every four steps: ~430 launches a layer, ten upper
+// layers a search, the card waiting on the host most of the time. It
+// computes what descend's chain of greedy_descent calls computes, layer by
+// layer, top first, each layer from where the one above stopped:
+//   * the layer's entry is (entry >= 0) & valid[entry], its distance
+//     recomputed; else the distance is MASKED_DIST and the id -1;
+//   * a step reads row = pos_map[max(ci, 0)] (the clamp of -1 to slot 0
+//     stays, as in the reference), then adj[max(row, 0)]; a neighbour is ok
+//     where row >= 0, nbr >= 0 and valid[nbr], and a column that is not ok
+//     counts as MASKED_DIST;
+//   * the distances by _from_dots' formula (norms from the f32 values,
+//     products of the compute dtype's values as IEEE f32 FMAs: the beam's
+//     finish), Manhattan the direct sum;
+//   * the argmin by a (distance, column) key: on equal distances the lower
+//     column, as torch.min(dim=1) and jnp.argmin choose;
+//   * the query moves only where that distance is strictly below its own,
+//     and stops the layer at its first step with no move, or after
+//     max_iters steps. The torch loop tests "any moved" every four steps;
+//     a query that stopped never moves again, so the results are the same.
+//
+// What bounds it on an H100. Each step is a chain of dependent random reads:
+// pos_map (8 bytes), the adjacency row (64 bytes at m = 16), then the
+// valid bytes and the rows of the neighbours (512 bytes each at d = 128),
+// mostly from L2 (the ~66K upper-layer nodes of the 1M graph hold ~34 MB of
+// rows). Tensor cores have nothing to do, and the bytes are few: the
+// longest query's chain of steps sets the time.
+//
+// The design: one warp a query, looping on the card through every layer of
+// the launch (four queries to a CTA of 128 threads, no block barrier, so
+// 2,048 queries are one wave of 512 CTAs). A step has all its neighbours'
+// rows in flight at once: 32 / P lanes a neighbour, P the layer's degree
+// rounded up to a power of two (at most 32 columns a pass, more passes for
+// a wider row), every load of a lane issued before its sums, the sums
+// reduced within the lanes of a neighbour by shuffles in a fixed order,
+// then the argmin over the warp by shuffles of the key. The query (and its
+// compute-dtype copy) sits in shared memory, d floats each a warp. The
+// layer table (each layer's adj and pos_map pointers, rows and degree)
+// travels in the kernel's parameters, by value, at most LAYERS_MAX layers
+// a launch; a deeper graph runs further launches, each from the last one's
+// ids, so no call copies anything from the host or reads anything back.
+
+constexpr int LAYERS_MAX = 16;  // HNSWConfig.max_level's default
+constexpr int IN_FLIGHT = 16;   // loads of a row a lane issues before its sums
+
+struct DescentLayer {
+  const int* adj;          // [rows, deg]
+  const int64_t* pos_map;  // [pos_len]
+  long long rows, pos_len;
+  int deg;
+};
+
+struct DescentArgs {
+  const float* queries;    // [B, d]
+  const int64_t* entries;  // [B] the top layer's entries
+  const float* vectors;    // [cap, d]
+  const uint8_t* valid;    // [cap]
+  float* out_d;            // [B]
+  int64_t* out_i;          // [B]
+  int64_t* steps;          // [B]
+  long long cap;
+  int B, d, n_layers, max_iters, metric, bf16, accumulate;
+  DescentLayer layers[LAYERS_MAX];
+};
+
+// The distance from the query to row `id`, summed by the L lanes of a
+// neighbour (this lane the `sub`-th of them): every load of the lane in
+// flight before its sums, then a shuffle reduce within the L lanes in a
+// fixed order. Where `live` is false the lane loads nothing and its result
+// is not used; every lane of the warp calls it (the shuffles).
+template <bool VEC4, int L>
+__device__ __forceinline__ float group_distance(const DescentArgs& a, const float* q,
+                                                const float* qr, int id, bool live, float qn,
+                                                float iq, int sub) {
+  const float* src = a.vectors + (size_t)id * a.d;
+  float dot = 0.f, vn = 0.f, l1 = 0.f;
+  if (VEC4) {
+    const int d4 = a.d / 4;
+    for (int k0 = sub; k0 < d4; k0 += IN_FLIGHT * L) {
+      float4 v[IN_FLIGHT];
+      const float4* s4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+      for (int i = 0; i < IN_FLIGHT; ++i)
+        if (live && k0 + i * L < d4) v[i] = __ldg(s4 + k0 + i * L);
+#pragma unroll
+      for (int i = 0; i < IN_FLIGHT; ++i) {
+        const int k = k0 + i * L;
+        if (!live || k >= d4) break;
+        const float4 x = reinterpret_cast<const float4*>(q)[k];
+        const float4 xr = reinterpret_cast<const float4*>(qr)[k];
+        const float xs[4] = {x.x, x.y, x.z, x.w}, xrs[4] = {xr.x, xr.y, xr.z, xr.w};
+        const float e[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dot = fmaf(xrs[c], rounded(e[c], a.bf16), dot);
+          vn = fmaf(e[c], e[c], vn);
+          l1 += fabsf(xs[c] - e[c]);
+        }
+      }
+    }
+  } else {
+    for (int k0 = sub; k0 < a.d; k0 += IN_FLIGHT * L) {
+      float v[IN_FLIGHT];
+#pragma unroll
+      for (int i = 0; i < IN_FLIGHT; ++i)
+        if (live && k0 + i * L < a.d) v[i] = __ldg(src + k0 + i * L);
+#pragma unroll
+      for (int i = 0; i < IN_FLIGHT; ++i) {
+        const int k = k0 + i * L;
+        if (!live || k >= a.d) break;
+        dot = fmaf(qr[k], rounded(v[i], a.bf16), dot);
+        vn = fmaf(v[i], v[i], vn);
+        l1 += fabsf(q[k] - v[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+    dot += __shfl_xor_sync(FULL, dot, o);
+    vn += __shfl_xor_sync(FULL, vn, o);
+    l1 += __shfl_xor_sync(FULL, l1, o);
+  }
+  return finish(a.metric, dot, qn, iq, vn, l1);
+}
+
+// One layer's greedy walk of the warp's query (greedy_descent) from the
+// layer's entry `ci`: at most max_iters steps, each over the row of ci's
+// neighbours, 32 / L columns a pass. `steps` counts the steps taken, the
+// one that found no better neighbour included.
+template <bool VEC4, int L>
+__device__ __forceinline__ void walk(const DescentArgs& a, const DescentLayer& g,
+                                     const float* q, const float* qr, float qn, float iq,
+                                     int lane, int& ci, float& cd, long long& steps) {
+  constexpr int P = 32 / L;  // columns a pass
+  const int col0 = lane / L, sub = lane % L;
+  const bool e_ok = ci >= 0 && ci < a.cap && __ldg(a.valid + ci);
+  const float e_dist = group_distance<VEC4, L>(a, q, qr, e_ok ? ci : 0, e_ok, qn, iq, sub);
+  cd = e_ok ? e_dist : MASKED;
+  ci = e_ok ? ci : -1;
+  for (int it = 0; it < a.max_iters; ++it) {
+    ++steps;
+    const int c = max(ci, 0);
+    long long row =
+        c < g.pos_len ? __ldg(reinterpret_cast<const long long*>(g.pos_map) + c) : -1;
+    if (row >= g.rows) row = -1;
+    const int* nbrs = g.adj + (size_t)max(row, 0LL) * g.deg;
+    unsigned long long best = ~0ull;
+    int best_id = -1;
+    for (int c0 = 0; c0 < g.deg; c0 += P) {
+      const int col = c0 + col0;
+      const int nb = col < g.deg ? __ldg(nbrs + col) : -1;
+      const bool in = nb >= 0 && nb < a.cap;
+      // the row's loads go out beside the valid byte's
+      const bool ok = row >= 0 && in && __ldg(a.valid + (in ? nb : 0));
+      const float dist = group_distance<VEC4, L>(a, q, qr, in ? nb : 0, in, qn, iq, sub);
+      const unsigned long long key =
+          col < g.deg ? merge_key(ok ? dist : MASKED, col) : ~0ull;
+      if (key < best) {
+        best = key;
+        best_id = nb;
+      }
+    }
+    // the argmin over the warp's neighbours: the lower key, so on equal
+    // distances the lower column
+#pragma unroll
+    for (int o = 16; o >= L; o >>= 1) {
+      const unsigned long long k2 = __shfl_xor_sync(FULL, best, o);
+      const int i2 = __shfl_xor_sync(FULL, best_id, o);
+      if (k2 < best) {
+        best = k2;
+        best_id = i2;
+      }
+    }
+    const unsigned u = (unsigned)(best >> 32);
+    const float best_d = __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
+    if (!(best_d < cd)) break;
+    cd = best_d;
+    ci = best_id;
+  }
+}
+
+// Lanes a neighbour at degree `deg`: 32 over deg rounded up to a power of
+// two, at least one.
+__device__ __forceinline__ int lanes_for(int deg) {
+  int p = 1;
+  while (p < deg && p < 32) p *= 2;
+  return 32 / p;
+}
+
+template <bool VEC4>
+__global__ void __launch_bounds__(THREADS) descent_kernel(const __grid_constant__ DescentArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
+  if (b >= a.B) return;  // the whole warp: no barrier follows
+  float* q = reinterpret_cast<float*>(smem) + (size_t)warp * a.d * (a.bf16 ? 2 : 1);
+  float* qr = a.bf16 ? q + a.d : q;
+  const float* qg = a.queries + (size_t)b * a.d;
+  for (int k = lane; k < a.d; k += 32) {
+    const float v = qg[k];
+    q[k] = v;
+    if (a.bf16) qr[k] = rounded(v, 1);
+  }
+  __syncwarp();
+  // every lane sums the query's norm in the same order (the beam's)
+  float qn = 0.f;
+  for (int k = 0; k < a.d; ++k) qn = fmaf(q[k], q[k], qn);
+  const float iq = inv_norm(qn);
+
+  const long long e = a.entries[b];
+  int ci = e >= 0 && e < a.cap ? (int)e : -1;
+  float cd = MASKED;
+  long long steps = 0;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const DescentLayer& g = a.layers[l];
+    switch (lanes_for(g.deg)) {
+      case 32: walk<VEC4, 32>(a, g, q, qr, qn, iq, lane, ci, cd, steps); break;
+      case 16: walk<VEC4, 16>(a, g, q, qr, qn, iq, lane, ci, cd, steps); break;
+      case 8: walk<VEC4, 8>(a, g, q, qr, qn, iq, lane, ci, cd, steps); break;
+      case 4: walk<VEC4, 4>(a, g, q, qr, qn, iq, lane, ci, cd, steps); break;
+      case 2: walk<VEC4, 2>(a, g, q, qr, qn, iq, lane, ci, cd, steps); break;
+      default: walk<VEC4, 1>(a, g, q, qr, qn, iq, lane, ci, cd, steps); break;
+    }
+  }
+  if (lane == 0) {
+    a.out_d[b] = cd;
+    a.out_i[b] = ci;
+    a.steps[b] = (a.accumulate ? a.steps[b] : 0) + steps;
+  }
+}
+
+__host__ __device__ inline int descent_smem_bytes(int d, int bf16) {
+  return WARPS * 4 * d * (bf16 ? 2 : 1);
+}
+
 }  // namespace
 
 extern "C" {
@@ -555,6 +801,56 @@ int hnsw_beam(const float* queries, const int64_t* entries, const float* vectors
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<B, THREADS, lay.bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one descent CTA (four queries), in bytes; above
+// hnsw_beam_smem_max() the kernel cannot run.
+int hnsw_descent_smem_bytes(int d, int bf16) { return descent_smem_bytes(d, bf16); }
+
+// Layers one hnsw_descent launch takes (ops/hnsw_cuda.py chains launches
+// past it).
+int hnsw_descent_layers_max() { return LAYERS_MAX; }
+
+// Returns the cudaError_t of the launch (0 = queued). One warp per query of
+// B, four to a CTA; all pointers on `device`. The layers, top first, are
+// host arrays of n_layers (1 to LAYERS_MAX) entries: adj[l] an i32[rows[l],
+// deg[l]] adjacency, pos_map[l] an i64[pos_len[l]] slot -> row map; they
+// are copied into the kernel's parameters. entries i64[B] start the first
+// layer; out_d f32[B] and out_i i64[B] take each query's final distance and
+// id (out_i may be entries: each warp reads its entry before it writes);
+// steps i64[B] takes each query's steps over these layers, added to what it
+// holds where `accumulate` is set.
+int hnsw_descent(const float* queries, const int64_t* entries, const float* vectors,
+                 const uint8_t* valid, const void* const* adj, const void* const* pos_map,
+                 const long long* rows, const long long* pos_len, const int* deg, int n_layers,
+                 float* out_d, int64_t* out_i, int64_t* steps, long long cap, int B, int d,
+                 int max_iters, int metric, int bf16, int accumulate, int device,
+                 void* stream) {
+  if (B <= 0) return 0;
+  if (d <= 0 || n_layers <= 0 || n_layers > LAYERS_MAX || max_iters < 0 || metric < 0 ||
+      metric > MANHATTAN)
+    return (int)cudaErrorInvalidValue;
+  DescentArgs a{queries, entries, vectors, valid, out_d, out_i, steps, cap, B, d, n_layers,
+                max_iters, metric, bf16, accumulate, {}};
+  for (int l = 0; l < n_layers; ++l) {
+    if (deg[l] <= 0 || rows[l] <= 0) return (int)cudaErrorInvalidValue;
+    a.layers[l] = DescentLayer{static_cast<const int*>(adj[l]),
+                               static_cast<const int64_t*>(pos_map[l]), rows[l], pos_len[l],
+                               deg[l]};
+  }
+  const int smem = descent_smem_bytes(d, bf16);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(vectors) % 16 == 0;
+  auto kernel = vec4 ? descent_kernel<true> : descent_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(B + WARPS - 1) / WARPS, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -76,7 +76,7 @@ from quiver_tpu_torch.utils.profiling import trace_span
 
 #: :meth:`HNSWIndex.search_slots`' counters (``get_detailed_metrics()["search"]``)
 _SEARCH_COUNTERS = ("calls", "queries", "exact_route_calls", "underfill_calls",
-                    "underfill_rows", "beam_loops", "beam_iters")
+                    "underfill_rows", "beam_loops", "beam_iters", "descent_steps")
 
 
 def _pad_rows_to(arr: np.ndarray, rows: int, fill: int = -1) -> np.ndarray:
@@ -649,7 +649,7 @@ class HNSWIndex:
         made (calls, queries, calls routed whole to the exact scan, calls
         with under-filled rows and those rows, the beam's loop iterations,
         and its useful work: each query's iterations while it was active,
-        summed)."""
+        summed; the descent's steps over the upper layers, summed)."""
         with self._counts_lock:
             search = dict(self._search_counts)
         return {
@@ -759,9 +759,11 @@ class HNSWIndex:
         """Device serving path: f32[B, d] queries on the store's device in,
         the layer-0 beam (dist f32[B, ef], slot i64[B, ef]) out, after the
         greedy descent through the upper layers. Needs a non-empty graph.
-        Two spans: ``hnsw.descent`` (``n`` the queries) and ``hnsw.beam``
-        (``n`` the beam's loop iterations). ``stats``, when given, receives
-        ``beam_search``'s counters."""
+        Two spans: ``hnsw.descent`` (``n`` the queries; on the card the
+        descent kernel's launch) and ``hnsw.beam`` (``n`` the beam's loop
+        iterations; on the card it ends on the read of that count, so it
+        holds both kernels' device time). ``stats``, when given, receives
+        ``beam_search``'s counters and ``descend``'s ``descent_steps``."""
         if queries.device != self.device:
             raise ValueError(f"queries on {queries.device}, index on {self.device}")
         stats = {} if stats is None else stats
@@ -773,7 +775,7 @@ class HNSWIndex:
                 layers, adj0, pos0 = self._device_graph()
                 qdt = self._query_dtype()
                 entries = descend(queries, entries, view.vectors, view.valid, layers,
-                                  metric=self._metric(), compute_dtype=qdt)
+                                  metric=self._metric(), compute_dtype=qdt, stats=stats)
             with trace_span("hnsw.beam") as beam:
                 out = beam_search(
                     queries, entries, view.vectors, view.valid, adj0, pos0,
@@ -801,7 +803,8 @@ class HNSWIndex:
         the device), ``hnsw.descent`` and ``hnsw.beam`` (:meth:`search_device`),
         ``hnsw.results`` (the wait for the device and the copies out; ``n``
         the beam's useful work, each query's iterations while it was
-        active, summed on the device and copied out after the results),
+        active, summed on the device and copied out after the results in
+        one copy with the descent's steps, summed),
         ``hnsw.finish`` (the negative rerank, the under-fill test and
         supplement); ``hnsw.exact`` wherever the exact scan answers for the
         engine, ``n`` being the rows it answered."""
@@ -828,10 +831,11 @@ class HNSWIndex:
             stats = {}
             bd, bi = self.search_device(q_dev, ef, stats=stats)
             with trace_span("hnsw.results", B) as results:
-                iters = stats["iters"].sum()
+                sums = torch.stack([stats["iters"].sum(), stats["descent_steps"].sum()])
                 if negative is None:
                     dist, idx = bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
-                results.n = beam_iters = int(iters)
+                beam_iters, descent_steps = sums.cpu().tolist()
+                results.n = beam_iters
             with trace_span("hnsw.finish", B):
                 if negative is not None:
                     bd, bi = self._exact.rerank_negative(
@@ -852,5 +856,5 @@ class HNSWIndex:
                 dist, idx, n_short = supplement(dist, idx, k, self.store.size, exact_scan)
             self._count(calls=1, queries=B, underfill_calls=int(n_short > 0),
                         underfill_rows=n_short, beam_loops=stats["loops"],
-                        beam_iters=beam_iters)
+                        beam_iters=beam_iters, descent_steps=descent_steps)
             return dist, idx

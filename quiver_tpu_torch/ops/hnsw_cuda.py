@@ -1,5 +1,6 @@
-"""The HNSW layer-0 beam (``ops/hnsw_kernels.py::beam_search``) as one
-CUDA kernel (``csrc/hnsw_beam.cu``; see its header).
+"""The HNSW search's two kernels (``csrc/hnsw_beam.cu``; see its notes):
+the layer-0 beam (``ops/hnsw_kernels.py::beam_search``) and the greedy
+descent through the upper layers (``ops/hnsw_kernels.py::descend``).
 
 It replaces no Pallas kernel: the reference's beam
 (``quiver_tpu/ops/hnsw_kernels.py:102-290``) is an XLA ``lax.while_loop``.
@@ -9,10 +10,17 @@ loops on the card until that query's own termination test holds (or
 ``max_iters``), so there are no host reads inside the loop and no work for
 queries already done.
 
-:func:`beam_search` is what ``hnsw_kernels.beam_search`` calls for CUDA
-tensors; CPU tensors run the plain version ``hnsw_kernels._beam_rows``.
-It launches the kernel or raises a ``ValueError`` where a size is past the
-kernel's limits: there is no fallback from one to the other.
+:func:`descend` replaces no Pallas kernel either (the reference's
+``greedy_descent``, ``:294-338``, is a ``lax.while_loop`` a layer): one
+warp a query walks every upper layer on the card in one launch, with the
+layer table in the kernel's parameters, so a search's descent makes no
+host read and no host-to-device copy.
+
+:func:`beam_search` and :func:`descend` are what ``hnsw_kernels.beam_search``
+and ``hnsw_kernels.descend`` call for CUDA tensors; CPU tensors run the
+plain versions ``hnsw_kernels._beam_rows`` and ``hnsw_kernels._descend_chain``.
+Each launches its kernel or raises a ``ValueError`` where a size is past
+the kernel's limits: there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -33,9 +41,9 @@ METRICS = {
     DistanceType.MANHATTAN: 4,
 }
 
-#: Launches of the beam kernel in this process, counted where it is
-#: launched and nowhere else (the plain version does not count).
-launch_counts = {"hnsw_beam": 0}
+#: Launches of each kernel in this process, counted where it is launched
+#: and nowhere else (the plain versions do not count).
+launch_counts = {"hnsw_beam": 0, "hnsw_descent": 0}
 
 
 def reset_launch_counts() -> None:
@@ -116,9 +124,86 @@ def beam_search(queries, entries, vectors, valid, adj, pos_map, *, metric, ef, m
     return out_d, out_i
 
 
+def descend(queries, entries, vectors, valid, layers, *, metric, compute_dtype, max_iters,
+            stats):
+    """``hnsw_kernels.descend`` on CUDA tensors: (dist f32[B], ids i64[B]),
+    each query's local minimum on the last of ``layers`` ((adj i32[rows,
+    deg], pos_map i64[cap]) pairs, top first, at least one). One launch
+    walks up to ``hnsw_descent_layers_max()`` layers; a deeper graph runs
+    further launches, each from the last one's ids. ``stats``, when given,
+    receives ``"descent_steps"`` (i64[B] on the card: each query's steps
+    summed over the layers, the step that found no better neighbour
+    included). Nothing is read back or copied from the host."""
+    fn = "descend"
+    dev = queries.device
+    B, d = queries.shape
+    cap = vectors.shape[0]
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{fn}: the CUDA kernel takes compute_dtype float32 or bfloat16, "
+                         f"got {compute_dtype}")
+    if cap >= 2**31:
+        raise ValueError(f"{fn}: the CUDA kernel keeps ids as int32; capacity {cap} >= 2**31")
+    if not layers:
+        raise ValueError(f"{fn}: no upper layer to walk")
+    named = [("entries", entries), ("vectors", vectors), ("valid", valid)]
+    for li, (adj, pos_map) in enumerate(layers):
+        named += [(f"layer {li} adj", adj), (f"layer {li} pos_map", pos_map)]
+        if adj.dim() != 2 or adj.shape[0] < 1 or adj.shape[1] < 1 or pos_map.dim() != 1:
+            raise ValueError(f"{fn}: layer {li} has adj {tuple(adj.shape)}, pos_map "
+                             f"{tuple(pos_map.shape)}: an adjacency of at least one row and "
+                             f"one column, a 1-d pos_map")
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} on {t.device}, queries on {dev}")
+    if vectors.shape[1] != d or entries.shape != (B,) or valid.shape != (cap,):
+        raise ValueError(f"{fn}: shapes queries {tuple(queries.shape)}, entries "
+                         f"{tuple(entries.shape)}, vectors {tuple(vectors.shape)}, valid "
+                         f"{tuple(valid.shape)} do not agree")
+    from quiver_tpu_torch._build import load_library
+
+    lib = load_library()
+    bf16 = int(compute_dtype == torch.bfloat16)
+    smem = lib.hnsw_descent_smem_bytes(d, bf16)
+    if smem > lib.hnsw_beam_smem_max():
+        raise ValueError(f"{fn}: d={d} needs {smem} bytes of shared memory a CTA, past the "
+                         f"kernel's {lib.hnsw_beam_smem_max()}")
+    queries = queries.to(torch.float32).contiguous()
+    ids = entries.to(torch.int64).contiguous()
+    vectors = vectors.to(torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    # kept referenced until the launches are queued
+    layers = [(adj.to(torch.int32).contiguous(), pos_map.to(torch.int64).contiguous())
+              for adj, pos_map in layers]
+    dist = torch.empty(B, dtype=torch.float32, device=dev)
+    out = torch.empty(B, dtype=torch.int64, device=dev)
+    steps = torch.empty(B, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    per = lib.hnsw_descent_layers_max()
+    for lo in range(0, len(layers), per):
+        part = layers[lo:lo + per]
+        n = len(part)
+        err = lib.hnsw_descent(
+            queries.data_ptr(), ids.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
+            (ctypes.c_void_p * n)(*(adj.data_ptr() for adj, _ in part)),
+            (ctypes.c_void_p * n)(*(pos.data_ptr() for _, pos in part)),
+            (ctypes.c_longlong * n)(*(adj.shape[0] for adj, _ in part)),
+            (ctypes.c_longlong * n)(*(pos.shape[0] for _, pos in part)),
+            (ctypes.c_int * n)(*(adj.shape[1] for adj, _ in part)), n,
+            dist.data_ptr(), out.data_ptr(), steps.data_ptr(), cap, B, d, max_iters,
+            METRICS[metric], bf16, int(lo > 0), dev.index, stream,
+        )
+        _raise_on(err, fn, lib)
+        launch_counts["hnsw_descent"] += 1
+        ids = out
+    if stats is not None:
+        stats["descent_steps"] = steps
+    return dist, out
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of the beam kernel (pointers and the stream
-    as c_void_p, so ctypes passes 64-bit values)."""
+    """Declare the C interface of the two kernels (pointers, the host
+    arrays of the layer table and the stream as c_void_p, so ctypes passes
+    64-bit values)."""
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hnsw_beam.argtypes = [vp] * 12 + [cll] * 3 + [ci] * 13 + [vp]
     lib.hnsw_beam.restype = ci
@@ -126,4 +211,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hnsw_beam_smem_bytes.restype = ci
     lib.hnsw_beam_smem_max.argtypes = []
     lib.hnsw_beam_smem_max.restype = ci
+    lib.hnsw_descent.argtypes = [vp] * 9 + [ci] + [vp] * 3 + [cll] + [ci] * 7 + [vp]
+    lib.hnsw_descent.restype = ci
+    lib.hnsw_descent_smem_bytes.argtypes = [ci, ci]
+    lib.hnsw_descent_smem_bytes.restype = ci
+    lib.hnsw_descent_layers_max.argtypes = []
+    lib.hnsw_descent_layers_max.restype = ci
     return lib

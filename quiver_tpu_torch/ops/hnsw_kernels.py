@@ -9,8 +9,11 @@ are XLA programs (``lax.while_loop``, ``lax.scan``, ``lax.cond``), none of
 them Pallas. On CUDA tensors :func:`beam_search` launches one hand-written
 kernel (``ops/hnsw_cuda.py``, ``csrc/hnsw_beam.cu``: a CTA per query, each
 looping on the card until it is done); on CPU tensors it runs the plain
-version :func:`_beam_rows`, which the kernel computes step for step. The
-other programs run as torch ops on either device.
+version :func:`_beam_rows`, which the kernel computes step for step.
+:func:`descend` likewise launches one kernel on CUDA tensors (a warp per
+query, walking every upper layer on the card) and runs its plain version
+:func:`_descend_chain`, a chain of :func:`greedy_descent` calls, on CPU
+tensors. The other programs run as torch ops on either device.
 
 What changes against the reference, each with the lines it replaces:
 
@@ -26,7 +29,7 @@ What changes against the reference, each with the lines it replaces:
   host read in torch, so the loops test them every
   :data:`BEAM_CHECK_EVERY` / :data:`DESCENT_CHECK_EVERY` iterations: an
   iteration after a query is done leaves its beam as it is, so the results
-  are the same (the beam kernel tests each query every iteration, on the
+  are the same (the kernels test each query every iteration, on the
   card);
 * the ``.at[...].set/add(mode="drop")`` writes of :func:`connect_level`
   aim dropped writes at one scratch row past the end, sliced off
@@ -63,6 +66,8 @@ BEAM_CHUNK_BYTES = 1 << 30
 #: iterations between the host reads of "every query done" (beam) and
 #: "no query moved" (greedy descent)
 BEAM_CHECK_EVERY, DESCENT_CHECK_EVERY = 8, 4
+#: a greedy walk's step cap on one layer (the reference's ``max_iters``)
+DESCENT_MAX_ITERS = 32
 
 
 def _rounded(x: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -333,13 +338,16 @@ def greedy_descent(
     pos_map: torch.Tensor,  # i64[cap]
     *,
     metric,
-    max_iters: int = 32,
+    max_iters: int = DESCENT_MAX_ITERS,
     compute_dtype=torch.float32,
+    steps: torch.Tensor | None = None,
 ):
     """Batched ef=1 greedy walk on one upper layer (``:294-338``). Returns
     (dist f32[B], ids i64[B]) of the local minimum. A query that stopped
     moving stays where it is, so the ``any(moved)`` test runs every
-    :data:`DESCENT_CHECK_EVERY` iterations."""
+    :data:`DESCENT_CHECK_EVERY` iterations. ``steps`` (i64[B]), when given,
+    gains each query's steps: the iterations it began still moving, the one
+    that found no better neighbour included."""
     metric = DistanceType.parse(metric)
     entries = entries.long()
     e_c = entries.clamp_min(0)
@@ -351,6 +359,8 @@ def greedy_descent(
     for i in range(max_iters):
         if i % DESCENT_CHECK_EVERY == 0 and not bool(moved.any()):
             break
+        if steps is not None:
+            steps += moved
         row = pos_map[ci.clamp_min(0)]
         nbrs = adj[row.clamp_min(0)].long()
         n_c = nbrs.clamp_min(0)
@@ -365,15 +375,45 @@ def greedy_descent(
     return cd, ci
 
 
-def descend(queries, entries, vectors, valid, layers, *, metric, compute_dtype=torch.float32):
+def descend(queries, entries, vectors, valid, layers, *, metric, compute_dtype=torch.float32,
+            stats: dict | None = None):
     """The search's way down: :func:`greedy_descent` from ``entries``
     (i64[B]) over each upper layer of ``layers`` ((adj, pos_map) pairs, top
     first), each from where the one above stopped. Returns the layer-0
-    entries."""
-    for adj, pos_map in layers:
-        _, entries = greedy_descent(queries, entries, vectors, valid, adj, pos_map,
-                                    metric=metric, compute_dtype=compute_dtype)
+    entries.
+
+    The path follows the inputs' device alone. CUDA tensors launch the
+    hand-written kernel (``ops/hnsw_cuda.py``: every layer in one launch,
+    no host read), which raises a ``ValueError`` where a size is past its
+    limits; CPU tensors run its plain version :func:`_descend_chain`, which
+    the kernel computes step for step. ``stats``, when given, receives
+    ``"descent_steps"`` (i64[B], on the inputs' device): each query's steps
+    summed over the layers, the step that found no better neighbour
+    included."""
+    metric = DistanceType.parse(metric)
+    run = hnsw_cuda.descend if queries.device.type == "cuda" and layers else _descend_chain
+    _, entries = run(queries, entries, vectors, valid, layers, metric=metric,
+                     compute_dtype=compute_dtype, max_iters=DESCENT_MAX_ITERS, stats=stats)
     return entries
+
+
+def _descend_chain(queries, entries, vectors, valid, layers, *, metric, compute_dtype,
+                   max_iters=DESCENT_MAX_ITERS, stats=None):
+    """The descent kernel's plain version, on either device and with its
+    arguments (``hnsw_cuda.descend``): :func:`greedy_descent` over each of
+    ``layers`` in turn. Returns (dist f32[B], ids i64[B]) of the last
+    layer's local minimum, dist None where ``layers`` is empty; ``stats``
+    receives ``"descent_steps"`` as the kernel's does."""
+    steps = None
+    if stats is not None:
+        steps = torch.zeros(queries.shape[0], dtype=torch.int64, device=queries.device)
+        stats["descent_steps"] = steps
+    dist = None
+    for adj, pos_map in layers:
+        dist, entries = greedy_descent(queries, entries, vectors, valid, adj, pos_map,
+                                       metric=metric, max_iters=max_iters,
+                                       compute_dtype=compute_dtype, steps=steps)
+    return dist, entries
 
 
 def beam_max_iters(ef: int) -> int:

@@ -274,6 +274,27 @@ def test_bench_hnsw_beam_row_small_on_cpu():
     assert 0 < r["accepted"] <= r["work"] * bench_hnsw.EXPAND * 32
 
 
+def test_bench_hnsw_descent_row_small_on_cpu():
+    """``bench_hnsw.descent_row`` on a CPU graph: both sides are the plain
+    chain there, so no layer-0 entry or distance differs; every query takes
+    at least a step a layer; the distinct bytes lie between the queries,
+    entries and one row a query and the rows of every step counted in full,
+    and no bytes bound is given (it needs a card's peaks)."""
+    from quiver_tpu_torch.benches import bench_hnsw
+
+    vecs = clustered(3000)
+    _, idx, _ = bench_hnsw.build("cpu", vecs, build_batch=1024)
+    r = bench_hnsw.descent_row(idx, vecs, b=32, reps=1)
+    assert (r["B"], r["layers"], r["mismatches"], r["dist_errors"], r["max_abs_err"]) == (
+        32, idx.current_max_level, 0, 0, 0.0)
+    assert r["layers"] >= 1 and 32 * r["layers"] <= r["steps"] <= 32 * 32 * r["layers"]
+    assert r["max_steps"] <= 32 * r["layers"] and r["bound_ms"] is None and r["ms"] > 0
+    assert r["us_per_step"] == 1e3 * r["ms"] / r["max_steps"]
+    d, m = vecs.shape[1], 16
+    assert 32 * (4 * d + 20) + 8 + 4 * d < r["bytes"]
+    assert r["bytes"] <= 32 * (4 * d + 20) + r["steps"] * (8 + 4 * m + m * (1 + 4 * d)) + 4 * d + 1
+
+
 def test_chip_smoke_hnsw_phase_small_on_cpu():
     """Phase 11's code path at a few thousand rows on the CPU (its card-only
     trace skipped): every gate passes on a sound graph."""

@@ -17,7 +17,9 @@ background refresh on the maintenance stream) against the CPU, and serving
 while a job runs; IVF's einsum formulation (torch ops) on the card against
 the CPU; the HNSW engine's beam search and build on the card
 against the same calls on the CPU; the HNSW beam kernel against its plain
-version ``_beam_rows`` on the card, bit for bit on integer coordinates.
+version ``_beam_rows`` on the card, and the HNSW descent kernel against its
+plain version ``_descend_chain`` on the card, bit for bit on integer
+coordinates.
 """
 
 import threading
@@ -766,7 +768,9 @@ def _hnsw_pair(devices, *, n=3000, d=32, seed=4, **cfg):
 
 @pytest.mark.parametrize("visited", ["ring", "bitmap"])
 def test_hnsw_search_on_cuda_matches_cpu_on_one_graph(cuda, visited):
-    """The CPU build's graph imported on the card: the beam search gives the
+    """The CPU build's graph imported on the card: one launch of the
+    descent kernel and one of the beam kernel a call on the card, none on
+    the CPU; the search gives the
     same ids (up to swaps of entries tied within 1e-4) and distances to
     atol 1e-4: the graph's affine f32 distance rounds by ~eps(|q|^2 +
     |v|^2) / d, which reaches ~2e-5 at the nearest rows here (|v|^2 ~ 34,
@@ -781,9 +785,10 @@ def test_hnsw_search_on_cuda_matches_cpu_on_one_graph(cuda, visited):
 
     hnsw_cuda.reset_launch_counts()
     dc, sc = ic.search_slots(q, 10)
-    assert hnsw_cuda.launch_counts["hnsw_beam"] == 0
+    assert hnsw_cuda.launch_counts == {"hnsw_beam": 0, "hnsw_descent": 0}
+    assert ig.current_max_level >= 1
     dg, sg = ig.search_slots(q, 10)
-    assert hnsw_cuda.launch_counts["hnsw_beam"] == 1
+    assert hnsw_cuda.launch_counts == {"hnsw_beam": 1, "hnsw_descent": 1}
     np.testing.assert_allclose(dg, dc, rtol=1e-5, atol=1e-4)
     assert chip_smoke.ids_agree(sg, dg, sc, dc, rel=1e-4) == 0
 
@@ -929,6 +934,173 @@ def test_hnsw_beam_kernel_refuses_sizes_past_its_limits(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         hk.beam_search(*args, metric="euclidean", ef=20_000, max_iters=8)
     assert hnsw_cuda.launch_counts["hnsw_beam"] == before
+
+
+def _descent_case(dev, *, n=2000, d=32, deg=16, levels=4, seed=0, B=37, aligned=True):
+    """(queries, entries, vectors, valid, layers) of an upper-layer graph on
+    ``dev``, ``layers`` its (adj, pos_map) pairs top first. Small integer
+    coordinates, so every f32 sum is exact in any order, and one row in ten
+    a copy of another (equal distances on purpose: the lower column wins).
+    Level l holds the first max(24, n 0.7**l) slots of a permutation, so
+    each level's members are members of the level below (nested); a row is
+    a member's ``deg`` nearest other members (f64, stable order), 5% of the
+    entries knocked out to -1, rows in a permuted order, 3% of the members
+    with no row (pos_map -1); 5% of the slots tombstoned. The queries start
+    at top-level members, one at -1 and one at a tombstoned slot.
+    ``aligned=False`` puts the vectors 4 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    vecs = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    twins = rng.choice(n, n // 10, replace=False)
+    vecs[twins] = vecs[rng.integers(0, n, len(twins))]
+    q = rng.integers(-3, 4, size=(B, d)).astype(np.float32)
+    valid = rng.random(n) >= 0.05
+    order = rng.permutation(n)
+    layers = []
+    for level in range(levels, 0, -1):
+        members = order[:max(24, int(n * 0.7**level))]
+        v = vecs[members].astype(np.float64)
+        d2 = (v * v).sum(1)[:, None] + (v * v).sum(1)[None, :] - 2 * v @ v.T
+        np.fill_diagonal(d2, np.inf)
+        sub = np.argsort(d2, axis=1, kind="stable")[:, :deg]
+        adj = np.where(rng.random(sub.shape) < 0.05, -1, members[sub]).astype(np.int32)
+        perm = rng.permutation(len(members))  # row r holds member perm[r]
+        pos_map = np.full(n, -1, np.int64)
+        pos_map[members[perm]] = np.arange(len(members))
+        pos_map[members[rng.random(len(members)) < 0.03]] = -1
+        layers.append((torch.from_numpy(adj[perm]).to(dev), torch.from_numpy(pos_map).to(dev)))
+    top = order[:max(24, int(n * 0.7**levels))]
+    entries = rng.choice(top, B).astype(np.int64)
+    entries[0] = -1
+    entries[1] = int(np.flatnonzero(~valid)[0])
+    out = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (q, entries, vecs, valid)]
+    if not aligned:
+        flat = torch.empty(n * d + 1, dtype=torch.float32, device=dev)
+        out[2] = flat[1:].view(n, d).copy_(out[2])
+        assert out[2].is_contiguous() and out[2].data_ptr() % 16 == 4
+    return (*out, layers)
+
+
+def _descent_both(args, *, metric, compute_dtype=torch.float32):
+    """The kernel and its plain version ``_descend_chain`` on the card over
+    the same inputs: ((dist, ids, steps), launches) of the kernel and
+    (dist, ids, steps) of the chain."""
+    from quiver_tpu_torch.ops import hnsw_cuda
+    from quiver_tpu_torch.ops import hnsw_kernels as hk
+
+    metric = hk.DistanceType.parse(metric)
+    kw = dict(metric=metric, compute_dtype=compute_dtype, max_iters=hk.DESCENT_MAX_ITERS)
+    sp = {}
+    pd, pi = hk._descend_chain(*args, stats=sp, **kw)
+    before = hnsw_cuda.launch_counts["hnsw_descent"]
+    st = {}
+    kd, ki = hnsw_cuda.descend(*args, stats=st, **kw)
+    launches = hnsw_cuda.launch_counts["hnsw_descent"] - before
+    torch.cuda.synchronize()
+    return (kd, ki, st["descent_steps"]), launches, (pd, pi, sp["descent_steps"])
+
+
+#: (metric, compute dtype, d, aligned, deg, levels) of the bitwise card
+#: test: every metric in both dtypes over aligned rows at d=32 (the float4
+#: loads), the scalar loads (d not a multiple of 4, or rows not 16-byte
+#: aligned), degrees that take 4 and 1 lanes a neighbour and two passes of
+#: a row (8, 32, 48), and a graph of 20 levels, past the 16 of one launch
+DESCENT_BITWISE_CASES = [
+    (metric, dtype, 32, True, 16, 4)
+    for metric in ("euclidean", "squared_euclidean", "dot_product", "cosine", "manhattan")
+    for dtype in ("float32", "bfloat16")
+] + [
+    (metric, "float32", d, aligned, 16, 4)
+    for d, aligned in ((30, True), (37, True), (32, False)) for metric in ("euclidean", "manhattan")
+] + [
+    ("euclidean", "float32", 32, True, deg, 4) for deg in (8, 32, 48)
+] + [
+    (metric, "float32", 32, True, 16, 20) for metric in ("euclidean", "cosine")
+]
+
+
+@pytest.mark.parametrize("metric,dtype,d,aligned,deg,levels", DESCENT_BITWISE_CASES)
+def test_hnsw_descent_kernel_matches_plain_bitwise(cuda, metric, dtype, d, aligned, deg, levels):
+    """csrc/hnsw_beam.cu's descent against its plain version
+    ``_descend_chain`` on the card, on integer coordinates (every sum exact
+    in any order): each query's final distance, id and steps equal bit for
+    bit, the ties included (the lower column wins); one launch per 16
+    layers."""
+    args = _descent_case(cuda, d=d, deg=deg, levels=levels, seed=deg + levels + d,
+                         aligned=aligned)
+    (kd, ki, ks), launches, (pd, pi, ps) = _descent_both(
+        args, metric=metric, compute_dtype=getattr(torch, dtype))
+    assert launches == -(-levels // 16)
+    assert kd.dtype == torch.float32 and ki.dtype == torch.int64 and ks.dtype == torch.int64
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    assert torch.equal(ki, pi) and torch.equal(ks, ps)
+    assert int(ks.min()) >= levels and int(ks.max()) > levels  # some query moved
+
+
+def test_hnsw_descent_kernel_stops_at_the_step_cap(cuda):
+    """A line of 200 nodes (i at i e_1), each linked to its two neighbours,
+    walked from node 0 towards node 199 over the same layer three times:
+    32 steps a layer, every one a move, so the walk ends at node 96 with 96
+    steps, as the plain chain does."""
+    n, d = 200, 32
+    vecs = torch.zeros(n, d)
+    vecs[:, 0] = torch.arange(n, dtype=torch.float32)
+    adj = torch.full((n, 16), -1, dtype=torch.int32)
+    adj[:-1, 0] = torch.arange(1, n, dtype=torch.int32)
+    adj[1:, 1] = torch.arange(0, n - 1, dtype=torch.int32)
+    layer = (adj.to(cuda), torch.arange(n, device=cuda))
+    q = torch.zeros(4, d, device=cuda)
+    q[:, 0] = float(n - 1)
+    args = (q, torch.zeros(4, dtype=torch.int64, device=cuda), vecs.to(cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda), [layer] * 3)
+    (kd, ki, ks), launches, (pd, pi, ps) = _descent_both(args, metric="euclidean")
+    assert launches == 1
+    assert ki.tolist() == pi.tolist() == [96] * 4 and ks.tolist() == ps.tolist() == [96] * 4
+    assert kd.tolist() == pd.tolist() == [float(n - 1 - 96)] * 4
+
+
+def test_hnsw_descend_on_cuda_makes_no_host_sync(cuda):
+    """``hnsw_kernels.descend`` on CUDA tensors: one launch, no
+    synchronisation with the host (``set_sync_debug_mode("error")`` raises
+    on any), its steps on the card, the chain's ids."""
+    from quiver_tpu_torch.ops import hnsw_cuda
+    from quiver_tpu_torch.ops import hnsw_kernels as hk
+
+    q, entries, vecs, valid, layers = _descent_case(cuda, seed=3)
+    want = hk.descend(q, entries, vecs, valid, layers, metric="euclidean")  # builds, loads
+    before = hnsw_cuda.launch_counts["hnsw_descent"]
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hk.descend(q, entries, vecs, valid, layers, metric="euclidean", stats=stats)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert hnsw_cuda.launch_counts["hnsw_descent"] == before + 1
+    assert torch.equal(got, want) and stats["descent_steps"].device == cuda
+    plain = {}
+    _, pi = hk._descend_chain(q, entries, vecs, valid, layers, metric=hk.DistanceType.EUCLIDEAN,
+                              compute_dtype=torch.float32, stats=plain)
+    assert torch.equal(got, pi) and torch.equal(stats["descent_steps"], plain["descent_steps"])
+
+
+def test_hnsw_descent_kernel_refuses_sizes_past_its_limits(cuda):
+    """A query whose two copies (f32 and bf16-rounded) for four warps do not
+    fit a CTA's shared memory, and an adjacency with no column, raise
+    before any launch."""
+    from quiver_tpu_torch.ops import hnsw_cuda
+    from quiver_tpu_torch.ops import hnsw_kernels as hk
+
+    before = hnsw_cuda.launch_counts["hnsw_descent"]
+    n, d = 64, 7300
+    args = (torch.zeros(2, d, device=cuda), torch.zeros(2, dtype=torch.int64, device=cuda),
+            torch.zeros(n, d, device=cuda), torch.ones(n, dtype=torch.bool, device=cuda))
+    layer = (torch.zeros((n, 4), dtype=torch.int32, device=cuda), torch.arange(n, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        hk.descend(*args, [layer], metric="euclidean", compute_dtype=torch.bfloat16)
+    empty = (torch.zeros((n, 0), dtype=torch.int32, device=cuda), layer[1])
+    with pytest.raises(ValueError, match="one column"):
+        hk.descend(*args, [empty], metric="euclidean")
+    assert hnsw_cuda.launch_counts["hnsw_descent"] == before
 
 
 # ------------------------------------------------ meshes of distinct devices

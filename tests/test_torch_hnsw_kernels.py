@@ -16,6 +16,10 @@ The same numpy arrays, made from a seed, go through both functions:
   plain version answers, the JAX package's answer within the same
   tolerances, no kernel launch counted (the kernel's own tests run on a
   card, in ``test_torch_cuda.py``);
+* ``descend``'s step counter on a chain graph of integer distances (a
+  walk of known length, an entry of -1, a query that never moves, the cap
+  of 32 steps a layer), with no kernel touched on CPU tensors; and
+  ``search_slots`` adding those steps to its ``descent_steps`` counter;
 * ``connect_level`` on a batch whose reverse edges overflow full rows in
   several chunks and spill past ``e_budget``: the adjacency, fill counts,
   spill count and changed-row mask are equal. Its inputs have no
@@ -202,6 +206,94 @@ def test_greedy_descent_matches_jax(metric):
     np.testing.assert_allclose(dt, dj, rtol=REL)
     assert_ids_agree(it[:, None], ij[:, None], dj[:, None])
     assert (it >= 0).all()
+
+
+def chain_layers(n=100):
+    """Nodes 0..n-1 on a line (node i at (i, 0)) and two layers, each an
+    (adj, pos_map) pair: ``"tens"`` holds the multiples of 10, each linked
+    to the next one up and down the line; ``"ones"`` holds every node,
+    linked to i + 1 and i - 1. Every distance is an exact integer."""
+    vecs = np.zeros((n, 2), np.float32)
+    vecs[:, 0] = np.arange(n)
+
+    def layer(step):
+        members = np.arange(0, n, step)
+        adj = np.stack([members + step, members - step], 1)
+        adj[(adj < 0) | (adj >= n)] = -1
+        pos_map = np.full(n, -1, np.int64)
+        pos_map[members] = np.arange(len(members))
+        return torch.from_numpy(adj.astype(np.int32)), torch.from_numpy(pos_map)
+
+    return torch.from_numpy(vecs), {"tens": layer(10), "ones": layer(1)}
+
+
+#: (query's place on the line, entry, layers top first, the steps, the
+#: layer-0 entry). A step counts where the query began it still moving,
+#: the one that found no better neighbour included: 0 -> 40 is 4 moves and
+#: a step, 40 -> 37 3 moves and a step
+DESCENT_CHAINS = {
+    "a walk of known length": (37, 0, ("tens", "ones"), 5 + 4, 37),
+    "an entry of -1 walks from slot 0's row": (37, -1, ("tens", "ones"), 5 + 4, 37),
+    "a query that never moves counts 1 a layer": (0, 0, ("tens", "ones"), 1 + 1, 0),
+    "the cap of 32 steps a layer": (99, 0, ("ones", "ones"), 32 + 32, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(DESCENT_CHAINS))
+def test_descend_counts_each_querys_steps(monkeypatch, case):
+    """``descend(stats=)`` on the chain: each query's steps summed over the
+    layers, the same ids as without a counter, and no kernel touched on
+    CPU tensors (the library's build and load patched to raise)."""
+    from quiver_tpu_torch import _build
+    from quiver_tpu_torch.ops import hnsw_cuda
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the kernel library was touched")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    hnsw_cuda.reset_launch_counts()
+    x, entry, names, want_steps, want_id = DESCENT_CHAINS[case]
+    vecs, layers = chain_layers()
+    q = torch.tensor([[float(x), 0.0]] * 2)
+    entries = torch.tensor([entry, entry])
+    valid = torch.ones(len(vecs), dtype=torch.bool)
+    chain = [layers[name] for name in names]
+    stats = {}
+    got = tk.descend(q, entries, vecs, valid, chain, metric="euclidean", stats=stats)
+    assert got.tolist() == [want_id] * 2
+    assert stats["descent_steps"].dtype == torch.int64
+    assert stats["descent_steps"].tolist() == [want_steps] * 2
+    assert torch.equal(tk.descend(q, entries, vecs, valid, chain, metric="euclidean"), got)
+    assert hnsw_cuda.launch_counts["hnsw_descent"] == 0
+
+
+def test_search_slots_adds_the_descents_steps_to_its_counter():
+    """Each ``search_slots`` adds the steps of its descent (``descend``'s
+    counter over the same queries and graph, summed) to
+    ``get_detailed_metrics()["search"]["descent_steps"]``."""
+    from quiver_tpu_torch.core.store import VectorStore
+    from quiver_tpu_torch.index.hnsw import HNSWIndex
+
+    vecs, _, _, _, rng = graph_case(n=1200, seed=13)
+    store = VectorStore(dim=vecs.shape[1], metric="euclidean", capacity=len(vecs), device="cpu")
+    idx = HNSWIndex(store, build_batch=512, ef_search=32)
+    idx.on_insert(store.add_batch([f"v{i}" for i in range(len(vecs))], vecs), vecs)
+    assert idx.current_max_level >= 1
+    view = idx.store.device_view()
+    layers, _, _ = idx._device_graph()
+    total = 0
+    for seed in (1, 2):
+        q = (vecs[rng.integers(0, len(vecs), 24)] + 0.2 * rng.normal(size=(24, vecs.shape[1]))
+             ).astype(np.float32)
+        stats = {}
+        tk.descend(torch.from_numpy(q), torch.full((24,), idx.entry_point), view.vectors,
+                   view.valid, layers, metric="euclidean", stats=stats)
+        steps = int(stats["descent_steps"].sum())
+        assert steps >= 24 * len(layers)  # at least one step a query and layer
+        idx.search_slots(q, 10)
+        total += steps
+        assert idx.get_detailed_metrics()["search"]["descent_steps"] == total
 
 
 @pytest.mark.parametrize("keep_pruned", [True, False])

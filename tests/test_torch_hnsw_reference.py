@@ -208,8 +208,10 @@ def test_search_is_one_root_with_its_five_phases_in_order(tracer):
     m = idx.get_detailed_metrics()["search"]
     beam, results = phases[2], phases[3]
     assert beam["n"] == m["beam_loops"] > 0 and results["n"] == m["beam_iters"] > 0
+    assert m["descent_steps"] >= len(q) * idx.current_max_level  # >= 1 a query and layer
     assert m == dict(calls=1, queries=len(q), exact_route_calls=0, underfill_calls=0,
-                     underfill_rows=0, beam_loops=beam["n"], beam_iters=results["n"])
+                     underfill_rows=0, beam_loops=beam["n"], beam_iters=results["n"],
+                     descent_steps=m["descent_steps"])
 
 
 def test_the_exact_scan_spans_carry_the_rows_it_answered(tracer, monkeypatch):
@@ -261,9 +263,9 @@ def test_build_is_one_span_over_each_round_and_levels_stages(tracer):
 
 
 def test_the_counters_and_results_are_those_of_the_programs_alone():
-    """The useful-work counter is ``beam_search``'s ``iters`` summed, and
-    the results are bit-identical to the descent and the beam run with no
-    counter."""
+    """The useful-work counter is ``beam_search``'s ``iters`` summed, the
+    descent's is ``descend``'s ``descent_steps`` summed, and the results
+    are bit-identical to the descent and the beam run with no counter."""
     idx, _, q = engine(seed=5)
     k = 10
     dist, slots = idx.search_slots(q, k)
@@ -278,5 +280,8 @@ def test_the_counters_and_results_are_those_of_the_programs_alone():
     assert np.array_equal(dist, bd[:, :k].numpy()) and np.array_equal(slots, bi[:, :k].numpy())
     stats = {}
     tk.beam_search(qd, entries, vecs, valid, adj0, pos0, stats=stats, **kw)
+    tk.descend(qd, torch.full((len(q),), idx.entry_point, dtype=torch.int64), vecs, valid, upper,
+               metric="euclidean", stats=stats)
     m = idx.get_detailed_metrics()["search"]
     assert m["beam_iters"] == int(stats["iters"].sum()) and m["beam_loops"] == stats["loops"]
+    assert m["descent_steps"] == int(stats["descent_steps"].sum()) > 0
